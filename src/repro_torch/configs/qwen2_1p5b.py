@@ -1,0 +1,12 @@
+"""Qwen2-1.5B: 28L d=1536 12H (GQA kv=2) d_ff=8960 vocab=151936; GQA with
+QKV bias, tied embeddings [arXiv:2407.10671; hf]."""
+from .base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2_1p5b", family="dense",
+        n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2, head_dim=128,
+        d_ff=8960, vocab=151936, qkv_bias=True, tie_embeddings=True,
+        rope_theta=1e6, mlp_type="swiglu",
+    )

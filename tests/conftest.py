@@ -25,3 +25,8 @@ def run_in_subprocess(code: str, devices: int = 8, timeout: int = 300):
 @pytest.fixture
 def subproc():
     return run_in_subprocess
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
