@@ -18,7 +18,20 @@ Phases (any failure raises and ends the run with a non-zero exit):
      the served model's own plans (a 2/3/4-bit gathered chain through
      ``acc``, with outliers; also pre-gathered as "blocked") and on a
      single-width plan ("aligned"), f32 and bf16; times beside the bound
-     and a ``torch.matmul`` yardstick on the pre-dequantized weight.
+     and a ``torch.matmul`` yardstick on the pre-dequantized weight;
+  6. the phase-4 model served again with int8 activations
+     (``ServingEngine(act_dtype="int8")``, K1e), same prompts, with the
+     int8 launch counts;
+  7. K1e (int8 x, the (M, 1) scale on the last launch) vs its plain
+     version at every M phase 6 gave it, as in phase 5, and within
+     ``ref_act_int8_bound`` of the f32-activation kernel;
+  8. quantize, then serve: a random-init llama1_7b at full width (cut in
+     depth to ``QUANT_DEPTH`` layers) calibrated on synthetic tokens and
+     CLAQ-quantized on the card (``launch.quantize.claq_quantize``, the
+     recipe of ``launch.serve --bits 2.2``), one 4096x4096 matrix also
+     quantized on the CPU and held against the card's (with a full-rank
+     Hessian; calibration Hessians are reported), then served with int8
+     activations.
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -42,6 +55,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL, RTOL = 1e-3, 1e-4
 LLAMA_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))   # (out, in)
 BIT_MIX = (0.05, 0.05)             # shares of 3- and 4-bit columns
+QUANT_DEPTH = 2                    # layers of the phase-8 model
+PROMPT_LENS = (5, 17, 29, 42, 56, 70, 85, 100)
+MAX_NEW = 16
 
 
 def log(msg: str) -> None:
@@ -165,10 +181,14 @@ def bound_of(n_bytes, flops, dtype):
 
 # ----------------------------------------------------------------- phases
 
-def phase_kernels(dm, ops, plan, served, main_ms, gen, host_gen):
+def phase_kernels(dm, ops, plan, ref, served, main_ms, gen, host_gen,
+                  act="f32"):
     """Kernel vs plain version at every M of ``main_ms`` and each of
     llama1_7b's matrix shapes; ``served`` maps (out, in) to a plan of the
-    served model.  Returns the records."""
+    served model.  act="int8" runs K1e: x quantized per token, int8 x in
+    every launch and the scale on the last (gather="kernel") or after the
+    chain (blocked), also held within ``ref_act_int8_bound`` of the
+    f32-activation kernel.  Returns the records and the largest error."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     cases = []
     max_err = 0.0
@@ -188,7 +208,12 @@ def phase_kernels(dm, ops, plan, served, main_ms, gen, host_gen):
                     ("blocked", ap, w_ap, "xla")):
                 for dtype in (torch.float32, torch.bfloat16):
                     x = x32.to(dtype)
-                    calls = list(ops.group_calls(x, pqt, gather))
+                    scale = None
+                    xk = x
+                    if act == "int8":
+                        xk, scale = ops.quantize_activations(x)
+                    calls = list(ops.group_calls(xk, pqt, gather,
+                                                 x_scale=scale))
                     # each launch against the plain version on the same
                     # inputs (its acc is the kernel's previous output)
                     acc = None
@@ -204,7 +229,7 @@ def phase_kernels(dm, ops, plan, served, main_ms, gen, host_gen):
                         assert torch.isfinite(yk).all()
                         bad = diff > ATOL + RTOL * yp.abs()
                         assert not bad.any(), (rows, cols, m, mode, dtype,
-                                               float(diff.max()))
+                                               act, float(diff.max()))
                         err = max(err, float(diff.max()))
                         acc = yk
 
@@ -214,21 +239,40 @@ def phase_kernels(dm, ops, plan, served, main_ms, gen, host_gen):
                             y = fn(xg, acc=y, compute_dtype=dtype, **kw)
                         return y
 
+                    rec = {}
+                    if act == "int8":
+                        # int8 against f32 activations on the same kernel:
+                        # within the quantization bound, + f32 sum slack
+                        y8 = acc if gather == "kernel" else acc * scale
+                        yf = None
+                        for xg, kw in ops.group_calls(x, pqt, gather):
+                            yf = dm.dequant_matmul(xg, acc=yf,
+                                                   compute_dtype=dtype, **kw)
+                        dev8 = (y8 - yf)[:, :rows].abs()
+                        bound = ref.ref_act_int8_bound(x, w_deq.to(dtype))
+                        assert bool((dev8 <= bound * 1.01 + ATOL).all()), (
+                            rows, cols, m, mode, dtype,
+                            float((dev8 - bound).max()))
+                        rec = dict(int8_vs_f32_max=float(dev8.max()),
+                                   int8_bound_max=float(bound.max()))
+
                     w_lib = w_deq.to(dtype)
                     ms = time_ms(lambda: run(dm.dequant_matmul), 10, flush)
                     plain_ms = time_ms(lambda: run(dm.dequant_matmul_plain),
                                        3, flush)
                     lib_ms = time_ms(lambda: torch.matmul(x, w_lib.T), 10,
                                      flush)
-                    nb, fl = chain_bytes_flops(pqt, m, x.element_size())
-                    bound, by = bound_of(nb, fl, dtype)
+                    nb, fl = chain_bytes_flops(pqt, m, xk.element_size())
+                    if scale is not None:
+                        nb += scale.numel() * scale.element_size()
+                    bound_ms, by = bound_of(nb, fl, dtype)
                     max_err = max(max_err, err)
                     rec = dict(shape=f"{rows}x{cols}", m=m, x_mode=mode,
                                dtype=str(dtype).replace("torch.", ""),
-                               launches=len(calls), max_abs_err=err, ms=ms,
-                               plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound, bound_by=by, bytes=nb,
-                               flops=fl)
+                               act=act, launches=len(calls),
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bound_ms,
+                               bound_by=by, bytes=nb, flops=fl, **rec)
                     cases.append(rec)
                     log("kernel " + json.dumps(rec))
         del ap, single, w_ap, w_single
@@ -294,13 +338,94 @@ def phase_small_reference(api, ServingEngine, cfg, gen, host_gen):
         f"; greedy tokens gpu {out['gpu']} cpu {out['cpu']}")
 
 
+def drive(eng, prompts, dm, api, cfg, tag):
+    """Serve ``prompts`` through ``eng`` (all admitted as slots free up,
+    ``MAX_NEW`` tokens each), with the launch counts set to 0 just before
+    and read just after.  Asserts every request finished, one launch per
+    distinct bit-width per matmul per step or prefill call, and no plain
+    version; returns the record."""
+    qmods = quantized_modules(eng.params)
+    launches_per_matmul = sum(len(m.kernel.groups) for m in qmods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dm.launch_count = dm.int8_launch_count = dm.plain_count = 0
+    prefill_s, decode_s, decode_launches, prefill_calls = [], [], [], 0
+    order = []
+    pending = list(prompts)
+    t_run = time.perf_counter()
+    while pending or eng.active:
+        if pending and eng.free:
+            batch = [pending.pop(0)
+                     for _ in range(min(len(pending), len(eng.free)))]
+            calls = sum(eng.bucketing.stats.per_shape.values())
+            t0 = time.perf_counter()
+            order += eng.add_requests(batch, max_new_tokens=MAX_NEW)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+            prefill_calls += (sum(eng.bucketing.stats.per_shape.values())
+                              - calls)
+        before = dm.launch_count
+        t0 = time.perf_counter()
+        emitted = eng.step()
+        torch.cuda.synchronize()
+        if emitted:
+            decode_s.append(time.perf_counter() - t0)
+            decode_launches.append(dm.launch_count - before)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches, int8_launches = dm.launch_count, dm.int8_launch_count
+    main_plain = dm.plain_count
+    peak = torch.cuda.max_memory_allocated()
+
+    fin = eng.take_finished()
+    assert sorted(fin) == sorted(order) and len(fin) == len(prompts)
+    assert all(fin[u].state.value == "finished"
+               and len(fin[u].tokens) == MAX_NEW for u in order)
+    assert main_plain == 0, "the main path ran the plain version on the card"
+    assert set(decode_launches) == {launches_per_matmul}, \
+        (set(decode_launches), launches_per_matmul)
+    assert launches == launches_per_matmul * (prefill_calls + len(decode_s))
+    assert int8_launches == (launches if eng.act_dtype == "int8" else 0)
+    # logits of the served model: finite, of the expected shape
+    from repro_torch.models.modules import activation_quant
+    with activation_quant(eng.act_dtype):
+        logits, _ = api.prefill_step(
+            eng.params, cfg,
+            {"tokens": torch.tensor([prompts[0]], device="cuda")},
+            api.make_cache(cfg, 1, eng.max_len, torch.bfloat16, "cuda"))
+    assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
+
+    tokens = sum(len(fin[u].tokens) for u in order)
+    stats = eng.stats()
+    # decode runs every slot; a prefill of shape (Bb, bucket) runs Bb*bucket
+    kernel_m = sorted({eng.n_slots} | {b * n for b, n
+                                       in eng.bucketing.stats.per_shape})
+    res = dict(act_dtype=stats["act_dtype"], requests=len(order),
+               new_tokens=tokens, prefill_calls=prefill_calls,
+               prefill_ms=sum(prefill_s) * 1e3, decode_steps=len(decode_s),
+               decode_ms_per_step=float(np.mean(decode_s)) * 1e3,
+               decode_ms_per_step_min=float(np.min(decode_s)) * 1e3,
+               tokens_per_s=tokens / run_s, run_s=run_s,
+               launches_per_decode_step=launches_per_matmul,
+               launches_per_prefill_call=launches_per_matmul,
+               main_path_launches=launches,
+               main_path_int8_launches=int8_launches,
+               max_memory_allocated_gb=peak / 1e9,
+               prefill_shapes=stats["prefill_traces"],
+               prefill_batch_bucket=sorted(eng.bucketing.stats.per_shape),
+               decode_m=eng.n_slots, kernel_m=kernel_m)
+    log(tag + " " + json.dumps(res))
+    log("sample tokens: " + str([fin[u].tokens[:8] for u in order[:2]]))
+    return res
+
+
 def phase_serve(api, dm, ServingEngine, module_tensors, cfg, gen, host_gen):
-    """Full-width llama1_7b through the engine; returns its records (the
+    """Full-width llama1_7b through the engine; returns its record (the
     main-path launch count, timings, and ``kernel_m``: every M it gave
-    K1), and the served model."""
+    K1), the served model and the prompts."""
     log("weights: SYNTHETIC CLAQ AP+OR tensors built on the card from seed "
-        f"{SEED} (the port has no quantizer yet); ~90 % 2-bit, 5 % 3-bit, "
-        "5 % 4-bit columns, 0-3 reserved outliers per column")
+        f"{SEED}; ~90 % 2-bit, 5 % 3-bit, 5 % 4-bit columns, 0-3 reserved "
+        "outliers per column")
     t0 = time.perf_counter()
     model = synthetic_model(cfg, gen, host_gen, "cuda")
     torch.cuda.synchronize()
@@ -319,79 +444,148 @@ def phase_serve(api, dm, ServingEngine, module_tensors, cfg, gen, host_gen):
     torch.cuda.synchronize()
     log(f"engine init (plans for 224 matrices): "
         f"{time.perf_counter() - t0:.1f} s")
-    launches_per_matmul = sum(len(m.kernel.groups) for m in qmods)
     assert all(t.is_cuda for t in module_tensors(model))
-
-    lens = [5, 17, 29, 42, 56, 70, 85, 100]
     prompts = [torch.randint(1, cfg.vocab, (n,), generator=host_gen).tolist()
-               for n in lens]
-    max_new = 16
-    torch.cuda.reset_peak_memory_stats()
-    dm.launch_count = 0
-    dm.plain_count = 0
-    prefill_s, decode_s, decode_launches, prefill_calls = [], [], [], 0
-    order = []
-    pending = list(prompts)
-    t_run = time.perf_counter()
-    while pending or eng.active:
-        if pending and eng.free:
-            batch = [pending.pop(0)
-                     for _ in range(min(len(pending), len(eng.free)))]
-            calls = sum(eng.bucketing.stats.per_shape.values())
-            t0 = time.perf_counter()
-            order += eng.add_requests(batch, max_new_tokens=max_new)
-            torch.cuda.synchronize()
-            prefill_s.append(time.perf_counter() - t0)
-            prefill_calls += (sum(eng.bucketing.stats.per_shape.values())
-                              - calls)
-        before = dm.launch_count
+               for n in PROMPT_LENS]
+    return drive(eng, prompts, dm, api, cfg, "serve"), model, prompts
+
+
+def phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts):
+    """The phase-4 model (its plans already prepared) served again with
+    int8 activations on the same prompts."""
+    eng = ServingEngine(model, cfg, n_slots=4, max_len=256,
+                        dtype=torch.bfloat16, act_dtype="int8",
+                        device="cuda")
+    return drive(eng, prompts, dm, api, cfg, "serve_int8")
+
+
+def codes_of(qt):
+    """Codes of a QuantizedTensor, (rows, cols) in original column order
+    (the order GPTQ quantized them in)."""
+    from repro_torch.core import packing
+    c = torch.cat([packing.unpack_codes(s.packed, s.bits, qt.rows)
+                   for s in qt.stripes], dim=1)
+    out = torch.empty_like(c)
+    out[:, qt.col_perm.long()] = c
+    return out
+
+
+def card_vs_cpu(claq_lib, W, H, qcfg):
+    """Quantize the same W and H on the card and on the CPU: plans must be
+    equal; returns the share of equal codes (all, the first 512 columns,
+    and by quarter of the columns in GPTQ order) and both proxy losses."""
+    plans, out, secs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        Wd, Hd = W.to(dev), H.to(dev)
+        plans[dev] = claq_lib.plan_matrix(Wd, qcfg)
         t0 = time.perf_counter()
-        emitted = eng.step()
+        out[dev] = claq_lib.quantize_matrix(Wd, Hd, qcfg, plans[dev])
         torch.cuda.synchronize()
-        if emitted:
-            decode_s.append(time.perf_counter() - t0)
-            decode_launches.append(dm.launch_count - before)
+        secs[dev] = time.perf_counter() - t0
+    assert np.array_equal(plans["cuda"].column_bits, plans["cpu"].column_bits)
+    assert np.array_equal(plans["cuda"].reserve_counts,
+                          plans["cpu"].reserve_counts)
+    eq = (codes_of(out["cuda"][0]).cpu() == codes_of(out["cpu"][0])).float()
+    q = eq.shape[1] // 4
+    lg, lc = out["cuda"][2].proxy_loss, out["cpu"][2].proxy_loss
+    return dict(codes_equal=float(eq.mean()),
+                codes_equal_first_512=float(eq[:, :512].mean()),
+                codes_equal_by_quarter=[float(eq[:, i * q:(i + 1) * q].mean())
+                                        for i in range(4)],
+                proxy_loss_card=lg, proxy_loss_cpu=lc,
+                proxy_loss_rel_diff=abs(lg - lc) / abs(lc),
+                card_s=secs["cuda"], cpu_s=secs["cpu"])
+
+
+def phase_quantize_serve(api, dm, ServingEngine, cfg, prompts):
+    """Quantize a random-init full-width llama1_7b (``QUANT_DEPTH``
+    layers) on the card with the launcher's recipe for ``--bits 2.2``;
+    hold one 4096x4096 matrix against the CPU; serve it with int8
+    activations.  Returns the record."""
+    from repro_torch.core import APConfig, CLAQConfig
+    from repro_torch.core import claq as claq_lib
+    from repro_torch.data import calibration_set
+    from repro_torch.launch import quantize as lq
+
+    qcfg = CLAQConfig(bits=2, method="kmeans", kmeans_iters=6,
+                      gptq_blocksize=32, ap=APConfig(2.2, 2, 4))
+    dcfg = dataclasses.replace(cfg, n_layers=QUANT_DEPTH)
+    model = api.init_params(torch.Generator(device="cuda").manual_seed(
+        SEED + 3), dcfg, "cuda")
+    calib = calibration_set(dcfg.vocab, n_segments=8, seq_len=64)
+    t0 = time.perf_counter()
+    hessians = lq.calibrate(model, dcfg, calib)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t_run
-    main_launches, main_plain = dm.launch_count, dm.plain_count
-    peak = torch.cuda.max_memory_allocated()
+    calib_s = time.perf_counter() - t0
+    assert len(hessians) == 7 * QUANT_DEPTH + 1, sorted(hessians)
 
-    fin = eng.take_finished()
-    assert sorted(fin) == sorted(order) and len(fin) == len(prompts)
-    assert all(fin[u].state.value == "finished"
-               and len(fin[u].tokens) == max_new for u in order)
-    assert main_plain == 0, "the main path ran the plain version on the card"
-    assert set(decode_launches) == {launches_per_matmul}, \
-        (set(decode_launches), launches_per_matmul)
-    assert main_launches == launches_per_matmul * (prefill_calls
-                                                   + len(decode_s))
-    # logits of the full-width model: finite, of the expected shape
-    logits, _ = api.prefill_step(
-        model, cfg, {"tokens": torch.tensor([prompts[0]], device="cuda")},
-        api.make_cache(cfg, 1, 256, torch.bfloat16, "cuda"))
-    assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
+    # the same matrix and Hessian on the card and on the CPU.  GPTQ's error
+    # feedback carries the devices' last-bit differences from column to
+    # column: a code that flips moves every later column of its row.  So
+    # codes are held to >= 99 % equal over the first 512 columns and the
+    # proxy loss to 1e-3, on a full-rank Hessian (Gaussian activations,
+    # 16384 rows); the two calibration Hessians of layer 0 (rank <= the
+    # number of distinct tokens: its input is a function of the token
+    # alone) are reported.
+    W = model.blocks[0].attn.q.kernel.float().T.contiguous()
+    rich = lq.calibrate(model, dcfg, calibration_set(dcfg.vocab, 128, 64),
+                        batch_size=16)["layers.0.attn.q"]
+    X = torch.randn((16384, W.shape[1]), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 4))
+    gauss = 2.0 * (X.T @ X) / X.shape[0]
+    del X
+    checks = {}
+    for tag, H in (("calib_512_tokens", hessians["layers.0.attn.q"]),
+                   ("calib_8192_tokens", rich),
+                   ("gaussian_16384_rows", gauss)):
+        checks[tag] = card_vs_cpu(claq_lib, W, H, qcfg)
+        log(f"quantize card-vs-cpu 4096x4096 {tag} "
+            + json.dumps(checks[tag]))
+    full = checks["gaussian_16384_rows"]
+    assert full["codes_equal_first_512"] >= 0.99, full
+    assert full["proxy_loss_rel_diff"] <= 1e-3, full
+    del rich, gauss
 
-    tokens = sum(len(fin[u].tokens) for u in order)
-    stats = eng.stats()
-    # decode runs every slot; a prefill of shape (Bb, bucket) runs Bb*bucket
-    kernel_m = sorted({eng.n_slots} | {b * n for b, n
-                                       in eng.bucketing.stats.per_shape})
-    res = dict(requests=len(order), new_tokens=tokens,
-               prefill_calls=prefill_calls, prefill_ms=sum(prefill_s) * 1e3,
-               decode_steps=len(decode_s),
-               decode_ms_per_step=float(np.mean(decode_s)) * 1e3,
-               decode_ms_per_step_min=float(np.min(decode_s)) * 1e3,
-               tokens_per_s=tokens / run_s, run_s=run_s,
-               launches_per_decode_step=launches_per_matmul,
-               launches_per_prefill_call=launches_per_matmul,
-               main_path_launches=main_launches,
-               max_memory_allocated_gb=peak / 1e9,
-               prefill_shapes=stats["prefill_traces"],
-               prefill_batch_bucket=sorted(eng.bucketing.stats.per_shape),
-               decode_m=eng.n_slots, kernel_m=kernel_m)
-    log("serve " + json.dumps(res))
-    log("sample tokens: " + str([fin[u].tokens[:8] for u in order[:2]]))
-    return res, model
+    # the launcher's pipeline on the card, timed per matrix
+    seconds = {}
+    inner = claq_lib.quantize_matrix
+
+    def timed(W, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = inner(W, *a, **k)
+        torch.cuda.synchronize()
+        seconds.setdefault("x".join(map(str, W.shape)), []).append(
+            time.perf_counter() - t)
+        return r
+
+    claq_lib.quantize_matrix = timed
+    try:
+        t0 = time.perf_counter()
+        model, report = lq.quantize_model_params(model, dcfg, hessians, qcfg)
+        quant_s = time.perf_counter() - t0
+    finally:
+        claq_lib.quantize_matrix = inner
+    del hessians
+    torch.cuda.empty_cache()
+    assert len(report.stats) == 7 * QUANT_DEPTH
+    assert 2.15 < report.mean_effective_bits < 2.25, report.mean_effective_bits
+    eng = ServingEngine(model, dcfg, n_slots=4, max_len=256,
+                        dtype=torch.bfloat16, act_dtype="int8",
+                        device="cuda")
+    res = drive(eng, prompts, dm, api, dcfg, "quantize_serve")
+    res.update(depth=QUANT_DEPTH, calibrate_s=calib_s, quantize_s=quant_s,
+               quantize_s_per_layer=quant_s / QUANT_DEPTH,
+               seconds_per_matrix={k: float(np.mean(v))
+                                   for k, v in seconds.items()},
+               mean_effective_bits=report.mean_effective_bits,
+               total_proxy_loss=report.total_proxy_loss,
+               card_vs_cpu=checks)
+    log("quantize " + json.dumps({k: res[k] for k in (
+        "depth", "calibrate_s", "quantize_s", "quantize_s_per_layer",
+        "seconds_per_matrix", "mean_effective_bits", "total_proxy_loss")}))
+    return res
 
 
 def main() -> int:
@@ -409,7 +603,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import cuda_build, ops, plan
+    from repro_torch.kernels import cuda_build, ops, plan, ref
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.models import api
     from repro_torch.models.modules import module_tensors
@@ -442,8 +636,8 @@ def main() -> int:
     cfg = get_config("llama1_7b")
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.dtype) == (
         32, 4096, 11008, "bfloat16")
-    serve, model = phase_serve(api, dm, ServingEngine, module_tensors, cfg,
-                               gen, host_gen)
+    serve, model, prompts = phase_serve(api, dm, ServingEngine,
+                                        module_tensors, cfg, gen, host_gen)
 
     # 5. kernel vs plain version at the shapes the serve phase ran, on the
     # served model's first plan of each matrix shape
@@ -451,33 +645,60 @@ def main() -> int:
     for m in quantized_modules(model):
         served.setdefault(tuple(m.kernel.shape), m.kernel)
     assert sorted(served) == sorted(LLAMA_SHAPES), sorted(served)
-    del model
-    cases, max_err = phase_kernels(dm, ops, plan, served, serve["kernel_m"],
-                                   gen, host_gen)
+    cases, max_err = phase_kernels(dm, ops, plan, ref, served,
+                                   serve["kernel_m"], gen, host_gen)
 
-    decode_m = serve["decode_m"]
-    main_case = next(c for c in cases if c["shape"] == "11008x4096"
-                     and c["m"] == decode_m and c["x_mode"] == "gathered"
-                     and c["dtype"] == "bfloat16")
-    kernels = [{
-        "name": "dequant_matmul",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/dequant_matmul.cu",
-        "replaces": "src/repro/kernels/dequant_matmul.py:92",
-        "launches": serve["main_path_launches"],
-        "max_abs_err": max_err,
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "timed_case": f"11008x4096 M={decode_m} (decode) gathered bf16, "
-                      "3-launch chain",
-        "checked_m": serve["kernel_m"],
-        "max_err": max_err,
-        "launched": serve["main_path_launches"] > 0,
-    }]
-    assert kernels[0]["launched"], "the main path never launched K1"
+    # 6. the same model and prompts with int8 activations (K1e)
+    serve8 = phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts)
+    del model
+
+    # 7. K1e vs plain version at every M phase 6 gave it
+    cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
+                                     serve8["kernel_m"], gen, host_gen,
+                                     act="int8")
+    del served
+    torch.cuda.empty_cache()
+
+    # 8. quantize on the card, then serve with int8 activations
+    qserve = phase_quantize_serve(api, dm, ServingEngine, cfg, prompts)
+
+    def record(name, replaces, run, case, err, case_cases, what):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/dequant_matmul.cu",
+            "replaces": replaces,
+            "launches": run[what],
+            "max_abs_err": err,
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "timed_case": f"11008x4096 M={run['decode_m']} (decode) "
+                          "gathered bf16, 3-launch chain",
+            "checked_m": run["kernel_m"],
+            "checked_cases": len(case_cases),
+        }
+
+    def main_case(cs, m):
+        return next(c for c in cs if c["shape"] == "11008x4096"
+                    and c["m"] == m and c["x_mode"] == "gathered"
+                    and c["dtype"] == "bfloat16")
+
+    kernels = [
+        record("dequant_matmul", "src/repro/kernels/dequant_matmul.py:92",
+               serve, main_case(cases, serve["decode_m"]), max_err, cases,
+               "main_path_launches"),
+        record("dequant_matmul_int8",
+               "src/repro/kernels/dequant_matmul.py:160", serve8,
+               main_case(cases8, serve8["decode_m"]), max_err8, cases8,
+               "main_path_int8_launches"),
+    ]
+    kernels[1]["launches_quantize_serve"] = qserve["main_path_int8_launches"]
+    assert kernels[0]["launches"] > 0, "the main path never launched K1"
+    assert kernels[1]["launches"] > 0, "the int8 path never launched K1e"
+    assert kernels[1]["launches_quantize_serve"] > 0
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

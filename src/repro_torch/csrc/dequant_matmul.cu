@@ -15,6 +15,11 @@
 //   * a per-column codebook (k_padded, 2^bits) f32, staged in shared memory;
 //   * k_out reserved outliers per column, (k_out, k_padded) row ids (-1 =
 //     empty slot) and values, applied in slot order so a later slot wins.
+// x is f32, bf16 or int8 (K1e: per-token int8 activations, converted to
+// float after the load -- an int8 value is exact in bf16).  With an (M,)
+// f32 x_scale, each output row is multiplied by x_scale[m] once, after the
+// whole K loop, so the acc seed is scaled too: (acc + sum) * scale, as the
+// reference folds it at its last K step (dequant_matmul.py:160-167).
 // x_tile is selected by x_mode: "blocked" (x already in fused, padded K
 // order), "aligned" (raw x read at column x_start + k, zero past k_cols) or
 // "gathered" (raw x read at column x_idx[k], zero where x_idx[k] == x_cols).
@@ -44,12 +49,14 @@
 namespace {
 
 enum XMode { kBlocked = 0, kAligned = 1, kGathered = 2 };
+enum XType { kF32 = 0, kBf16 = 1, kInt8 = 2 };
 
 constexpr int kMaxLevels = 16;   // codebooks of <= 4 bits stage in smem
 
 struct Args {
   const void* x;
-  int x_bf16;
+  int x_type;
+  const float* x_scale;
   int M;
   int x_cols;
   const uint32_t* plane[2];
@@ -87,8 +94,10 @@ __device__ __forceinline__ float load_x(const Args& a, int m, int k) {
     if (col >= a.x_cols) return 0.f;
   }
   const size_t off = (size_t)m * a.x_cols + col;
-  if (a.x_bf16)
+  if (a.x_type == kBf16)
     return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(a.x)[off]);
+  if (a.x_type == kInt8)
+    return static_cast<float>(reinterpret_cast<const int8_t*>(a.x)[off]);
   return reinterpret_cast<const float*>(a.x)[off];
 }
 
@@ -230,12 +239,14 @@ dequant_matmul_kernel(const Args a) {
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + i * (BM / TM);
+    if (m >= a.M) continue;
+    const float s = a.x_scale != nullptr ? a.x_scale[m] : 1.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int m = m0 + ty + i * (BM / TM);
       const int n = n0 + tx + j * (BN / TN);
-      if (m < a.M && n < a.n_padded)
-        a.out[(size_t)m * a.n_padded + n] = accum[i][j];
+      if (n < a.n_padded)   // * 1.f (no x_scale) is exact
+        a.out[(size_t)m * a.n_padded + n] = accum[i][j] * s;
     }
   }
 }
@@ -245,10 +256,11 @@ dequant_matmul_kernel(const Args a) {
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // The caller guarantees: planes (n_padded/cpw, k_padded) u32, codebook
 // (k_padded, levels) f32, out_idx/out_val (k_out, k_padded), acc/out
-// (M, n_padded) f32, x_idx (k_padded) i32, all contiguous on one device;
+// (M, n_padded) f32, x_idx (k_padded) i32, x_scale (M,) f32 or null, all
+// contiguous on one device; x_type 0 = f32, 1 = bf16, 2 = int8;
 // n_padded % 32 == 0 and k_padded % 64 == 0.
 extern "C" int claq_dequant_matmul(
-    const void* x, int x_bf16, int M, int x_cols,
+    const void* x, int x_type, const void* x_scale, int M, int x_cols,
     const void* plane0, const void* plane1, int width0, int width1,
     int nplanes, const void* codebook, int levels,
     const void* out_idx, const void* out_val, int k_out,
@@ -257,7 +269,8 @@ extern "C" int claq_dequant_matmul(
     int compute_bf16, void* stream) {
   Args a;
   a.x = x;
-  a.x_bf16 = x_bf16;
+  a.x_type = x_type;
+  a.x_scale = static_cast<const float*>(x_scale);
   a.M = M;
   a.x_cols = x_cols;
   a.plane[0] = static_cast<const uint32_t*>(plane0);

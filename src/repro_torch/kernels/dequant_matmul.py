@@ -11,12 +11,18 @@ outliers.  ``x_mode`` says how the x tile is taken from ``x``:
   * "gathered": x is the raw activation; fused column k is raw column
     ``x_idx[k]`` (flattened table), and index ``== x.shape[1]`` reads as 0.
 
+x is f32, bf16 or int8.  An optional (M, 1) f32 ``x_scale`` multiplies
+each output row once, after the whole K sum and the ``acc`` seed (K1e:
+per-token int8 activations; a prepared matmul passes it to the last
+group's launch only).
+
 For a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/dequant_matmul.cu``, built at first use) or raises; for a CPU
 tensor it runs ``dequant_matmul_plain``, the torch-eager version of the
 same function.  It never falls back from the kernel to the plain version.
 
-``launch_count`` counts kernel launches (CUDA only); ``plain_count``
+``launch_count`` counts kernel launches (CUDA only), and
+``int8_launch_count`` those of them that read int8 x (K1e); ``plain_count``
 counts dispatches to the plain version for CPU tensors.  A matmul over a
 prepared plan adds one per distinct bit-width to one of them.
 """
@@ -32,9 +38,11 @@ from repro_torch.core import packing
 from . import cuda_build, ref
 
 launch_count = 0
+int8_launch_count = 0
 plain_count = 0
 
 _X_MODES = {"blocked": 0, "aligned": 1, "gathered": 2}
+_X_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FN = None
 
 
@@ -43,7 +51,7 @@ def _kernel_fn():
     if _FN is None:
         fn = cuda_build.load("dequant_matmul.cu").lib.claq_dequant_matmul
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I, I,          # x, x_bf16, M, x_cols
+        fn.argtypes = [P, I, P, I, I,       # x, x_type, x_scale, M, x_cols
                        P, P, I, I, I,       # planes, widths, nplanes
                        P, I,                # codebook, levels
                        P, P, I,             # out_idx, out_val, k_out
@@ -58,12 +66,13 @@ def _kernel_fn():
 def _check(x, planes, codebook, out_idx, out_val, bits, n, acc, x_mode,
            x_start, k_cols, x_idx, x_scale):
     """Shape/dtype validation shared by both paths."""
-    if x_scale is not None or x.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 activations with an x_scale (stage K1e) are not ported yet")
-    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
-        raise TypeError(f"x must be a 2-D f32/bf16 tensor, got {x.dtype} "
-                        f"{tuple(x.shape)}")
+    if x.dtype not in _X_TYPES or x.dim() != 2:
+        raise TypeError(f"x must be a 2-D f32/bf16/int8 tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    if x_scale is not None and (x_scale.dtype != torch.float32
+                                or tuple(x_scale.shape) != (x.shape[0], 1)):
+        raise ValueError(f"x_scale must be ({x.shape[0]}, 1) f32, got "
+                         f"{x_scale.dtype} {tuple(x_scale.shape)}")
     if x_mode not in _X_MODES:
         raise ValueError(f"unknown x_mode {x_mode!r}")
     widths = packing.plane_widths(bits)
@@ -97,7 +106,7 @@ def _check(x, planes, codebook, out_idx, out_val, bits, n, acc, x_mode,
 
 
 def dequant_matmul(
-    x: torch.Tensor,                  # (M, K) blocked or raw, f32/bf16
+    x: torch.Tensor,                  # (M, K) blocked or raw, f32/bf16/i8
     planes: Sequence[torch.Tensor],   # per plane (n // cpw, k_padded) int32
     codebook: torch.Tensor,           # (k_padded, 2**bits) f32
     out_idx: Optional[torch.Tensor],  # (k_out, k_padded) int32, -1 = none
@@ -111,12 +120,12 @@ def dequant_matmul(
     x_start: int = 0,                 # aligned: first raw column
     k_cols: int = 0,                  # aligned: unpadded fused K
     x_idx: Optional[torch.Tensor] = None,   # gathered: (k_padded/bk, bk)
-    x_scale: Optional[torch.Tensor] = None,
+    x_scale: Optional[torch.Tensor] = None,  # (M, 1) f32 per-token scale
 ) -> torch.Tensor:
-    """y (M, n) f32 = [acc +] x_tile @ W^T for one CLAQ group (see module
-    docstring).  CUDA tensors launch the kernel, CPU tensors take the plain
+    """y (M, n) f32 = ([acc +] x_tile @ W^T) [* x_scale] for one CLAQ
+    group (see module docstring).  CUDA tensors launch the kernel, CPU tensors take the plain
     version."""
-    global launch_count, plain_count
+    global launch_count, int8_launch_count, plain_count
     _check(x, planes, codebook, out_idx, out_val, bits, n, acc, x_mode,
            x_start, k_cols, x_idx, x_scale)
     if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -127,7 +136,7 @@ def dequant_matmul(
         return dequant_matmul_plain(
             x, planes, codebook, out_idx, out_val, bits=bits, n=n,
             compute_dtype=compute_dtype, acc=acc, x_mode=x_mode,
-            x_start=x_start, k_cols=k_cols, x_idx=x_idx)
+            x_start=x_start, k_cols=k_cols, x_idx=x_idx, x_scale=x_scale)
 
     k_padded = codebook.shape[0]
     if n % 32 or k_padded % 64:
@@ -141,6 +150,8 @@ def dequant_matmul(
         expect.append((acc, torch.float32))
     if x_mode == "gathered":
         expect.append((x_idx, torch.int32))
+    if x_scale is not None:
+        expect.append((x_scale, torch.float32))
     for t, dt in expect:
         if t.device != x.device:
             raise ValueError(f"operand on {t.device}, x on {x.device}")
@@ -154,7 +165,8 @@ def dequant_matmul(
     widths = packing.plane_widths(bits)
     k_out = 0 if out_idx is None else out_idx.shape[0]
     rc = _kernel_fn()(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), m, x.shape[1],
+        x.data_ptr(), _X_TYPES[x.dtype],
+        x_scale.data_ptr() if x_scale is not None else None, m, x.shape[1],
         planes[0].data_ptr(),
         planes[1].data_ptr() if len(planes) > 1 else None,
         widths[0], widths[1] if len(widths) > 1 else 0, len(widths),
@@ -170,6 +182,7 @@ def dequant_matmul(
         raise RuntimeError(f"dequant_matmul kernel launch failed: CUDA "
                            f"error {rc}")
     launch_count += 1
+    int8_launch_count += x.dtype == torch.int8
     return out
 
 
@@ -189,7 +202,8 @@ def dequant_matmul_plain(
 ) -> torch.Tensor:
     """Torch-eager version of the kernel, same signature and semantics:
     materialize the x tile and W, override outliers in slot order, round
-    both to ``compute_dtype``, multiply in f32."""
+    both to ``compute_dtype``, multiply in f32, add ``acc``, then scale
+    each row by ``x_scale``."""
     _check(x, planes, codebook, out_idx, out_val, bits, n, acc, x_mode,
            x_start, k_cols, x_idx, x_scale)
     k_padded = codebook.shape[0]
@@ -207,4 +221,6 @@ def dequant_matmul_plain(
                                                       bits, n),
                                out_idx, out_val).to(compute_dtype)
     y = xt.to(compute_dtype).float() @ W.float().T
-    return y if acc is None else acc + y
+    if acc is not None:
+        y = acc + y
+    return y if x_scale is None else y * x_scale

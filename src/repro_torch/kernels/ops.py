@@ -4,7 +4,9 @@
 ``qmatmul(x, qt)`` computes x @ dequantize(qt)^T for a QuantizedTensor or
 a PreparedQuantizedTensor.  On a prepared plan it is one kernel launch per
 distinct bit-width, chained through the kernel's ``acc`` operand; the
-kernel path never materializes W.
+kernel path never materializes W.  ``act_dtype="int8"`` quantizes the
+activations per token (``quantize_activations``) and folds the scales into
+the last launch (prepared plans only).
 """
 from __future__ import annotations
 
@@ -21,16 +23,29 @@ from . import ref as ref_lib
 from .plan import PreparedQuantizedTensor, round_up, validated_outliers
 
 
+def quantize_activations(x: torch.Tensor):
+    """Per-token (row) dynamic absmax int8 quantization: x (..., K) ->
+    (xq (..., K) int8, scale (..., 1) f32) with x ~= xq * scale.  The absmax
+    and ``absmax / 127`` are taken in x's own dtype (a bf16 division for a
+    bf16 x), then the scale is cast to f32; all-zero rows get scale 1.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  The error
+    per element is <= scale / 2 (``ref.ref_act_int8_bound``)."""
+    absmax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, 1.0).float()
+    xq = torch.round(x.float() / scale).to(torch.int8)
+    return xq, scale
+
+
 def normalize_act_dtype(act_dtype):
-    """None/'f32' -> None (full precision).  'int8' activations (stage K1e)
-    are not ported yet; anything else is an error."""
+    """None/'f32' -> None (full precision); 'int8' passes through;
+    anything else raises.  The one validation point of the knob; the
+    ServingEngine calls it too."""
     if act_dtype in (None, "f32"):
         return None
-    if act_dtype == "int8":
-        raise NotImplementedError(
-            "int8 activations (act_dtype='int8') are not ported yet")
-    raise ValueError(f"unsupported act_dtype {act_dtype!r} "
-                     "(expected 'f32' or 'int8')")
+    if act_dtype != "int8":
+        raise ValueError(f"unsupported act_dtype {act_dtype!r} "
+                         "(expected 'f32' or 'int8')")
+    return act_dtype
 
 
 def stripe_matmul(x: torch.Tensor, stripe_packed: torch.Tensor,
@@ -62,14 +77,18 @@ def stripe_matmul(x: torch.Tensor, stripe_packed: torch.Tensor,
 
 
 def group_calls(x2: torch.Tensor, pqt: PreparedQuantizedTensor,
-                gather: str = "kernel") -> Iterator[Tuple[torch.Tensor, dict]]:
+                gather: str = "kernel",
+                x_scale: Optional[torch.Tensor] = None,
+                ) -> Iterator[Tuple[torch.Tensor, dict]]:
     """The (x operand, keyword arguments) of each kernel launch of a
     prepared matmul, in the plan's ascending bit order.  x2: (M, K).
 
     gather="kernel": the kernel reads RAW x — "aligned" groups at their
-    static column offset, "gathered" groups through their x_idx tables.
+    static column offset, "gathered" groups through their x_idx tables;
+    ``x_scale`` (int8 activations) rides the LAST launch only.
     gather="xla": x is gathered once into fused, padded K order and every
-    group runs "blocked" on its slice (the A/B path; bitwise equal)."""
+    group runs "blocked" on its slice (the A/B path; bitwise equal); the
+    caller applies ``x_scale`` after the last launch, so it is not passed."""
     if gather == "xla":
         xg = dm.take_fill(x2, pqt.gather_idx)
         off = 0
@@ -80,14 +99,15 @@ def group_calls(x2: torch.Tensor, pqt: PreparedQuantizedTensor,
                 x_mode="blocked")
             off += g.k_padded
     elif gather == "kernel":
-        for g in pqt.groups:
+        last = len(pqt.groups) - 1
+        for gi, g in enumerate(pqt.groups):
             aligned = g.x_start is not None
             yield x2, dict(
                 planes=g.planes, codebook=g.codebook, out_idx=g.out_idx,
                 out_val=g.out_val, bits=g.bits, n=pqt.n_padded,
                 x_mode="aligned" if aligned else "gathered",
                 x_start=g.x_start if aligned else 0, k_cols=g.k_cols,
-                x_idx=g.x_idx)
+                x_idx=g.x_idx, x_scale=x_scale if gi == last else None)
     else:
         raise ValueError(f"unknown gather mode {gather!r} "
                          "(expected 'kernel' or 'xla')")
@@ -98,24 +118,39 @@ def prepared_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor, *,
                      act_dtype=None) -> torch.Tensor:
     """Hot path: x (..., K) @ dequantize(pqt)^T -> (..., N), in x's dtype.
     One kernel launch per distinct bit-width, each seeding its output with
-    the previous group's (``acc``)."""
-    normalize_act_dtype(act_dtype)
+    the previous group's (``acc``).  act_dtype="int8" quantizes x per token
+    in x's own dtype; the kernel reads int8 x and the last launch applies
+    the (M, 1) scales (gather="xla": one multiply after the last launch —
+    bitwise the same)."""
+    act_dtype = normalize_act_dtype(act_dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    scale = None
+    if act_dtype == "int8":
+        x2, scale = quantize_activations(x2)
     y = None
-    for xg, kw in group_calls(x2, pqt, gather):
+    for xg, kw in group_calls(x2, pqt, gather, x_scale=scale):
         y = dm.dequant_matmul(xg, acc=y, compute_dtype=compute_dtype, **kw)
     y = y[:, :pqt.rows]
+    if scale is not None and gather == "xla":
+        y = y * scale
     return y.reshape(lead + (pqt.rows,)).to(x.dtype)
 
 
 def _prepared_ref_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor,
                           act_dtype=None) -> torch.Tensor:
     """Eager path over the prepared layout: gather x into fused order, then
-    a per-group dequant + f32 product over each group's unpadded K."""
-    normalize_act_dtype(act_dtype)
+    a per-group dequant + f32 product over each group's unpadded K.
+    act_dtype="int8" quantizes x AFTER the cast to f32 (unlike the kernel
+    path, which quantizes in x's dtype), multiplies the int8-exact values
+    and applies the scales at the end."""
     rows = pqt.rows
-    xg = dm.take_fill(x.float(), pqt.gather_idx)
+    xf = x.float()
+    scale = None
+    if normalize_act_dtype(act_dtype) == "int8":
+        xq, scale = quantize_activations(xf)
+        xf = xq.float()
+    xg = dm.take_fill(xf, pqt.gather_idx)
     y = torch.zeros(x.shape[:-1] + (rows,), dtype=torch.float32,
                     device=x.device)
     off = 0
@@ -126,7 +161,7 @@ def _prepared_ref_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor,
         xs = xg[..., off:off + g.k_cols]
         y = y + xs @ Wg[:, :g.k_cols].T
         off += g.k_padded
-    return y
+    return y if scale is None else y * scale
 
 
 def qmatmul(x: torch.Tensor, qt, *, use_kernel: bool = False,
@@ -138,7 +173,7 @@ def qmatmul(x: torch.Tensor, qt, *, use_kernel: bool = False,
     use_kernel=False: the eager reference path.  use_kernel=True: the
     dequant-GEMM (kernel on CUDA, its plain version on CPU); prepared plans
     take the fused path, one launch per distinct bit-width.  Computes in
-    bf16 unless x is f32."""
+    bf16 unless x is f32.  act_dtype="int8" needs a prepared plan."""
     if compute_dtype is None:
         compute_dtype = (torch.float32 if x.dtype == torch.float32
                          else torch.bfloat16)
@@ -147,7 +182,11 @@ def qmatmul(x: torch.Tensor, qt, *, use_kernel: bool = False,
             return _prepared_ref_qmatmul(x, qt, act_dtype).to(x.dtype)
         return prepared_qmatmul(x, qt, compute_dtype=compute_dtype,
                                 gather=gather, act_dtype=act_dtype)
-    normalize_act_dtype(act_dtype)
+    if normalize_act_dtype(act_dtype) is not None:
+        raise ValueError(
+            "act_dtype quantization needs an ahead-of-time plan — prepare "
+            "the tensor first (plan.prepare_for_inference / prepare_tree; "
+            "ServingEngine does this at init unless prepare=False)")
     if not use_kernel:
         return ref_lib.ref_qmatmul(x, qt).to(x.dtype)
 

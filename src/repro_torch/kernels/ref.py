@@ -53,3 +53,14 @@ def ref_dequant_matmul(x: torch.Tensor, packed: torch.Tensor,
 def ref_qmatmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """Oracle for the full multi-stripe matmul: x @ dequantize(qt)^T."""
     return x.float() @ qt.dequantize(torch.float32).T
+
+
+def ref_act_int8_bound(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Per-output-element error bound of the int8 activation path against
+    f32: quantization moves each activation by at most scale/2 (absmax
+    scaling never clips), so |dy[m, n]| <= scale_m / 2 * ||W[n, :]||_1.
+    x (..., K), W (N, K) -> bound (..., N).  Quantization error only;
+    callers add an epsilon for f32 summation order."""
+    absmax = x.float().abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    return 0.5 * scale * W.float().abs().sum(dim=1)

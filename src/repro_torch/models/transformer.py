@@ -102,6 +102,7 @@ def forward(model: Transformer, cfg, tokens: torch.Tensor,
             new_caches.append(c)
     x = M.rms_norm(model.final_norm, x, cfg.norm_eps)
     if cfg.tie_embeddings:
+        M._maybe_record("lm_head", x)
         logits = x @ model.embedding.to(x.dtype).T
     else:
         logits = M.dense(model.lm_head, x)

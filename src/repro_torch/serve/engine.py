@@ -17,6 +17,9 @@ or, TRUNCATED, when its slot cache is full.
 CLAQ-quantized weights are compiled into ahead-of-time plans once at
 construction (``prepare_tree``), so every quantized matmul runs the
 dequant-GEMM kernel, one launch per distinct bit-width.
+``act_dtype="int8"`` additionally opts every quantized matmul into
+per-token dynamic int8 activations (``modules.activation_quant`` scopes
+prefill and decode; the scales ride each matmul's last launch).
 
 PyTorch runs eagerly, so there are no traces to count: ``prefill_traces``
 is the number of distinct (batch, bucket) prefill shapes run, the
@@ -24,9 +27,9 @@ quantity the reference bounds by its trace count.
 
 Port note — not accepted yet (each queued in ROADMAP.md): a device mesh
 (``mesh``), self-speculative decoding (``draft_params``, ``spec``,
-``draft_plan_bn``/``draft_plan_bk``), int8 activations (``act_dtype``),
-the paged KV cache (``kv_layout``, ``page_size``, ``kv_pages``,
-``kv_dtype``, ``share_prefixes``), chunked prefill (``chunked_prefill``),
+``draft_plan_bn``/``draft_plan_bk``), the paged KV cache (``kv_layout``,
+``page_size``, ``kv_pages``, ``kv_dtype``, ``share_prefixes``), chunked
+prefill (``chunked_prefill``),
 numeric guards (``guards``), fault injection (``faults``), the queued
 admission path with backpressure, priorities, deadlines and preemption
 (``submit``, ``queue_depth``, ``on_pressure``, ``clock``), the overload
@@ -45,9 +48,11 @@ import numpy as np
 import torch
 
 from repro_torch import device as dev_lib
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.plan import prepare_tree
 from repro_torch.models import api
 from repro_torch.models import layers as L
+from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tf
 
 from . import lifecycle as lc
@@ -116,15 +121,22 @@ class ServingEngine:
                  dtype=torch.float32, prepare: bool = True,
                  min_bucket: int = 16, bucketing: bool = True,
                  plan_bn: Optional[int] = None,
-                 plan_bk: Optional[int] = None, device="cuda"):
+                 plan_bk: Optional[int] = None,
+                 act_dtype: Optional[str] = None, device="cuda"):
         """``params``: a ``Transformer`` (``models.api.init_params`` or
         ``convert.from_numpy_tree``) on ``device``.  ``dtype`` is the KV
         cache's.  ``prepare`` compiles quantized kernels into plans (in
-        place); ``plan_bn``/``plan_bk`` cap the plan's block sizes."""
+        place); ``plan_bn``/``plan_bk`` cap the plan's block sizes.
+        ``act_dtype``: None/"f32", or "int8" (needs ``prepare``)."""
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "ServingEngine serves decoder-only families; encdec "
                 "admission needs a frames input and a length-masked encoder")
+        act_dtype = kops.normalize_act_dtype(act_dtype)
+        if act_dtype is not None and not prepare:
+            raise ValueError(
+                "act_dtype='int8' needs ahead-of-time plans — drop "
+                "prepare=False (the int8 path runs on prepared leaves only)")
         tf.validate_family(cfg)
         self.device = dev_lib.resolve(device)
         prep_kw = {}
@@ -134,6 +146,7 @@ class ServingEngine:
             prep_kw["bk"] = plan_bk
         self.params = prepare_tree(params, **prep_kw) if prepare else params
         self.cfg = cfg
+        self.act_dtype = act_dtype
         self.n_slots = n_slots
         self.max_len = max_len
         self.bucketing = BucketingPolicy(min_bucket=min_bucket,
@@ -216,10 +229,12 @@ class ServingEngine:
             self.bucketing.record(Bb, bucket)
             frag = api.make_cache(self.cfg, Bb, self.max_len,
                                   dtype=self._cache_dtype, device=self.device)
-            logits, frag = api.prefill_step(
-                self.params, self.cfg,
-                {"tokens": torch.as_tensor(toks, device=self.device)}, frag,
-                logits_at=torch.as_tensor(lens - 1, device=self.device))
+            with nn.activation_quant(self.act_dtype):
+                logits, frag = api.prefill_step(
+                    self.params, self.cfg,
+                    {"tokens": torch.as_tensor(toks, device=self.device)},
+                    frag,
+                    logits_at=torch.as_tensor(lens - 1, device=self.device))
             firsts = logits.argmax(dim=-1).cpu().numpy()
             slots = [self.free.pop(0) for _ in idxs]
             self.cache = _masked_group_insert(
@@ -263,8 +278,9 @@ class ServingEngine:
         if not self.active:
             return {}
         toks = torch.as_tensor(self.last_token, device=self.device)
-        logits, self.cache = api.decode_step(self.params, self.cfg, toks,
-                                             self.cache)
+        with nn.activation_quant(self.act_dtype):
+            logits, self.cache = api.decode_step(self.params, self.cfg, toks,
+                                                 self.cache)
         nxt = logits.argmax(dim=-1).cpu().numpy()
         emitted = {}
         for uid, req in list(self.active.items()):
@@ -304,6 +320,7 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         s = self.bucketing.stats
         return {
+            "act_dtype": self.act_dtype or "f32",
             "prefill_traces": self.prefill_traces,
             "buckets": list(self.bucketing.buckets()),
             "bucket_hits": s.hits,

@@ -1,5 +1,6 @@
 """K1 on the card: the CUDA dequant GEMM against its plain version on the
-same CUDA tensors, for every bit-width (1/2/3/4/8 — the 8-bit codebook is
+same CUDA tensors (f32/bf16 x, and int8 x with its per-token scale: K1e),
+for every bit-width (1/2/3/4/8 — the 8-bit codebook is
 read from device memory, the others from shared memory), every x mode,
 f32 and bf16 compute, both tile shapes (M <= 16, with one or two 8-row
 M blocks, and M > 16), ragged N and K, acc chaining and colliding outlier
@@ -22,6 +23,7 @@ from repro_torch.core.quantized import build_quantized_tensor  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import plan  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +93,60 @@ def test_kernel_matches_plain_version(card, bits, x_mode, compute, m):
         assert got.shape == (m, pqt.n_padded) and got.is_cuda
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         acc = got
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("m", [3, 16, 37])
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_mode", ["aligned", "gathered", "blocked"])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+def test_int8_kernel_matches_plain_version(card, bits, x_mode, compute, m,
+                                           with_acc):
+    """K1e: int8 x (from quantize_activations) with the (M, 1) scale on
+    the last launch of the chain (gather="kernel"), or applied after it
+    (blocked, as gather="xla" does); an optional acc seeds the first."""
+    rng = np.random.default_rng(bits * 1000 + m * 10 + with_acc)
+    pqt = plan_for(bits, x_mode, rng, card)
+    x = torch.as_tensor(rng.normal(size=(m, COLS)).astype(np.float32),
+                        device=card).to(compute)
+    xq, scale = ops.quantize_activations(x)
+    gather = "xla" if x_mode == "blocked" else "kernel"
+    acc = (torch.as_tensor(rng.normal(size=(m, pqt.n_padded)).astype(
+        np.float32), device=card) if with_acc else None)
+    calls = list(ops.group_calls(xq, pqt, gather, x_scale=scale))
+    assert (calls[-1][1].get("x_scale") is scale) == (gather == "kernel")
+    for xg, kw in calls:
+        assert xg.dtype == torch.int8 and kw["x_mode"] == x_mode
+        before = dm.launch_count
+        got = dm.dequant_matmul(xg, acc=acc, compute_dtype=compute, **kw)
+        assert dm.launch_count == before + 1
+        want = dm.dequant_matmul_plain(xg, acc=acc, compute_dtype=compute,
+                                       **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        acc = got
+
+
+def test_int8_gather_modes_bitwise_and_one_launch_per_bitwidth(card):
+    """int8 activations on the card: the scale riding the last launch
+    (gather="kernel") and one multiply after the blocked chain
+    (gather="xla") give bitwise equal results; one launch per distinct
+    bit-width, the plain version never runs; within the int8 error bound
+    of the f32-activation product."""
+    rng = np.random.default_rng(13)
+    column_bits = rng.choice([2, 3, 4], size=COLS, p=[0.8, 0.1, 0.1])
+    pqt = plan.prepare_for_inference(random_qt(rng, column_bits, 2, card))
+    x = torch.randn((2, 5, COLS), device=card)
+    launches, plain = dm.launch_count, dm.plain_count
+    y_k = ops.prepared_qmatmul(x, pqt, act_dtype="int8")
+    y_x = ops.prepared_qmatmul(x, pqt, gather="xla", act_dtype="int8")
+    assert dm.launch_count - launches == 2 * 3
+    assert dm.plain_count == plain
+    assert torch.equal(y_k, y_x)
+    W = pqt.dequantize(torch.float32)
+    y_f = ops.prepared_qmatmul(x, pqt)
+    bound = ref.ref_act_int8_bound(x, W) * 1.01 + 1e-4
+    assert bool(((y_k - y_f).abs() <= bound).all())
 
 
 def test_later_outlier_slot_wins(card):

@@ -205,15 +205,23 @@ def test_ref_oracles_match_reference(bits):
 
 
 def test_wrapper_rejects_int8_activations():
+    """int8 x is accepted (K1e), but not with a malformed scale, and int8
+    activations need a prepared plan, as in the reference."""
     rng = np.random.default_rng(1)
     jqt = make_qt(rng, rows=32, stripe_spec=[(2, 64)], identity=True)
-    pqt = tplan.prepare_for_inference(
-        quantized_from_numpy(qt_to_numpy(jqt), device="cpu"))
+    qt = quantized_from_numpy(qt_to_numpy(jqt), device="cpu")
+    pqt = tplan.prepare_for_inference(qt)
     g = pqt.groups[0]
-    with pytest.raises(NotImplementedError):
-        tdm.dequant_matmul(torch.zeros((2, 64), dtype=torch.int8), g.planes,
-                           g.codebook, None, None, bits=2, n=pqt.n_padded,
-                           x_mode="aligned", k_cols=64)
-    with pytest.raises(NotImplementedError):
-        tops.qmatmul(torch.zeros((2, 64)), pqt, use_kernel=True,
+    xq = torch.zeros((2, 64), dtype=torch.int8)
+    kw = dict(bits=2, n=pqt.n_padded, x_mode="aligned", k_cols=64)
+    for bad in (torch.ones((2,)), torch.ones((3, 1)),
+                torch.ones((2, 1), dtype=torch.float64)):
+        with pytest.raises(ValueError, match="x_scale"):
+            tdm.dequant_matmul(xq, g.planes, g.codebook, None, None,
+                               x_scale=bad, **kw)
+    with pytest.raises(TypeError, match="int8"):
+        tdm.dequant_matmul(xq.to(torch.int16), g.planes, g.codebook, None,
+                           None, **kw)
+    with pytest.raises(ValueError, match="plan"):
+        tops.qmatmul(torch.zeros((2, 64)), qt, use_kernel=True,
                      act_dtype="int8")

@@ -177,7 +177,7 @@ def test_engine_knobs_not_ported_are_rejected(quantized):
     _, tcfg, _, tm = quantized
     with pytest.raises(TypeError):
         ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
-                      act_dtype="int8")
+                      guards=True)
     with pytest.raises(TypeError):
         ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
                       kv_layout="paged")
