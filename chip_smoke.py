@@ -6,19 +6,24 @@ H100 and hold its CUDA kernel against its plain version.
 
 Phases (any failure raises and ends the run with a non-zero exit):
   1. device: the card's name and power limit; TF32 off;
-  2. build: K1 (``csrc/dequant_matmul.cu``) from the checkout's sources;
+  2. build: K1 (``csrc/dequant_matmul.cu`` and its per-bit-width sources,
+     one nvcc each, in parallel) from the checkout's sources;
   3. reference check on a small input: the same synthetic CLAQ model
      served on the card (kernel) and on the CPU (plain version);
   4. serve llama1_7b at full width (32 layers, d 4096, bf16) with
      synthetic CLAQ AP+OR weights through ``ServingEngine``: 8 requests,
-     4 slots, 16 new tokens each, with the kernel's launch counts;
+     4 slots, 16 new tokens each, with the kernel's launch counts and a
+     ``torch.profiler`` reading of two decode steps (device-busy share,
+     top kernels by device time);
   5. kernel vs plain version on the card at every (M, N, K) the serve
      phase gave K1: M = n_slots for decode and Bb * bucket for each
      prefill shape it ran, at the three matrix shapes of llama1_7b, on
      the served model's own plans (a 2/3/4-bit gathered chain through
      ``acc``, with outliers; also pre-gathered as "blocked") and on a
      single-width plan ("aligned"), f32 and bf16; times beside the bound
-     and a ``torch.matmul`` yardstick on the pre-dequantized weight;
+     and a ``torch.matmul`` yardstick on the pre-dequantized weight: eager
+     (``ms``, host enqueue included), device time from a CUDA graph of the
+     chain (``device_ms``) and the wrapper's host time per call;
   6. the phase-4 model served again with int8 activations
      (``ServingEngine(act_dtype="int8")``, K1e), same prompts, with the
      int8 launch counts;
@@ -58,6 +63,9 @@ BIT_MIX = (0.05, 0.05)             # shares of 3- and 4-bit columns
 QUANT_DEPTH = 2                    # layers of the phase-8 model
 PROMPT_LENS = (5, 17, 29, 42, 56, 70, 85, 100)
 MAX_NEW = 16
+PROFILE_STEP = 8                   # two decode steps from the 9th on run
+#                                    under the profiler, once every prompt
+#                                    is admitted (no prefill in the window)
 
 
 def log(msg: str) -> None:
@@ -161,6 +169,48 @@ def time_ms(fn, reps, flush):
     return total / reps
 
 
+def graph_ms(fn, reps, flush):
+    """Mean device time of ``fn`` captured in a CUDA graph and replayed
+    ``reps`` times, each replay after a write of ``flush`` outside the graph
+    (the chain's launches then run back to back, as no host enqueues them:
+    this is the device's time alone)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    del graph
+    return total / reps
+
+
+def host_us_per_call(fn, calls, reps=20):
+    """Host time to enqueue ``fn`` (``calls`` wrapper calls), per call, in
+    microseconds: no synchronisation inside the timed loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / (reps * calls) * 1e6
+
+
 def chain_bytes_flops(pqt, m, x_itemsize):
     """Least bytes and FLOPs of one prepared matmul: every plan operand and
     x read once, y written once; 2 M N K operations."""
@@ -258,10 +308,16 @@ def phase_kernels(dm, ops, plan, ref, served, main_ms, gen, host_gen,
 
                     w_lib = w_deq.to(dtype)
                     ms = time_ms(lambda: run(dm.dequant_matmul), 10, flush)
+                    dev_ms = graph_ms(lambda: run(dm.dequant_matmul), 10,
+                                      flush)
+                    host_us = host_us_per_call(
+                        lambda: run(dm.dequant_matmul), len(calls))
                     plain_ms = time_ms(lambda: run(dm.dequant_matmul_plain),
                                        3, flush)
                     lib_ms = time_ms(lambda: torch.matmul(x, w_lib.T), 10,
                                      flush)
+                    lib_dev_ms = graph_ms(lambda: torch.matmul(x, w_lib.T),
+                                          10, flush)
                     nb, fl = chain_bytes_flops(pqt, m, xk.element_size())
                     if scale is not None:
                         nb += scale.numel() * scale.element_size()
@@ -270,8 +326,11 @@ def phase_kernels(dm, ops, plan, ref, served, main_ms, gen, host_gen,
                     rec = dict(shape=f"{rows}x{cols}", m=m, x_mode=mode,
                                dtype=str(dtype).replace("torch.", ""),
                                act=act, launches=len(calls),
-                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=bound_ms,
+                               max_abs_err=err, ms=ms, device_ms=dev_ms,
+                               host_us_per_call=host_us, plain_ms=plain_ms,
+                               library_ms=lib_ms,
+                               library_device_ms=lib_dev_ms,
+                               bound_ms=bound_ms,
                                bound_by=by, bytes=nb, flops=fl, **rec)
                     cases.append(rec)
                     log("kernel " + json.dumps(rec))
@@ -352,6 +411,7 @@ def drive(eng, prompts, dm, api, cfg, tag):
     prefill_s, decode_s, decode_launches, prefill_calls = [], [], [], 0
     order = []
     pending = list(prompts)
+    prof, prof_s, steps = None, None, 0
     t_run = time.perf_counter()
     while pending or eng.active:
         if pending and eng.free:
@@ -365,12 +425,25 @@ def drive(eng, prompts, dm, api, cfg, tag):
             prefill_calls += (sum(eng.bucketing.stats.per_shape.values())
                               - calls)
         before = dm.launch_count
+        if steps >= PROFILE_STEP and prof is None and not pending:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+            prof_from = len(decode_launches)
+            t_prof = time.perf_counter()
         t0 = time.perf_counter()
         emitted = eng.step()
         torch.cuda.synchronize()
         if emitted:
-            decode_s.append(time.perf_counter() - t0)
+            steps += 1
             decode_launches.append(dm.launch_count - before)
+            if prof is not None and prof_s is None:
+                if len(decode_launches) == prof_from + 2:   # two steps
+                    prof_s = time.perf_counter() - t_prof
+                    prof.stop()
+            else:
+                decode_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches, int8_launches = dm.launch_count, dm.int8_launch_count
@@ -384,7 +457,8 @@ def drive(eng, prompts, dm, api, cfg, tag):
     assert main_plain == 0, "the main path ran the plain version on the card"
     assert set(decode_launches) == {launches_per_matmul}, \
         (set(decode_launches), launches_per_matmul)
-    assert launches == launches_per_matmul * (prefill_calls + len(decode_s))
+    assert launches == launches_per_matmul * (prefill_calls
+                                              + len(decode_launches))
     assert int8_launches == (launches if eng.act_dtype == "int8" else 0)
     # logits of the served model: finite, of the expected shape
     from repro_torch.models.modules import activation_quant
@@ -397,6 +471,7 @@ def drive(eng, prompts, dm, api, cfg, tag):
 
     tokens = sum(len(fin[u].tokens) for u in order)
     stats = eng.stats()
+    profile = device_profile(prof, prof_s)
     # decode runs every slot; a prefill of shape (Bb, bucket) runs Bb*bucket
     kernel_m = sorted({eng.n_slots} | {b * n for b, n
                                        in eng.bucketing.stats.per_shape})
@@ -413,10 +488,35 @@ def drive(eng, prompts, dm, api, cfg, tag):
                max_memory_allocated_gb=peak / 1e9,
                prefill_shapes=stats["prefill_traces"],
                prefill_batch_bucket=sorted(eng.bucketing.stats.per_shape),
-               decode_m=eng.n_slots, kernel_m=kernel_m)
+               decode_m=eng.n_slots, kernel_m=kernel_m,
+               profile_two_decode_steps=profile)
     log(tag + " " + json.dumps(res))
     log("sample tokens: " + str([fin[u].tokens[:8] for u in order[:2]]))
     return res
+
+
+def device_profile(prof, wall_s):
+    """Device-busy share of a profiled window (the kernels' device time
+    over its wall time; one stream, so kernels do not overlap) and the top
+    kernels by device time, or "not measured" where the profiler saw no
+    device time."""
+    if prof is None or not wall_s:
+        return "not measured"
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda
+               and getattr(e, "device_time_total", 0) > 0]
+    busy_us = sum(e.device_time_total for e in kernels)
+    if busy_us <= 0:
+        return "not measured"
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    return dict(
+        window_ms=wall_s * 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / 1e3 / (wall_s * 1e3),
+        host_share=1.0 - busy_us / 1e3 / (wall_s * 1e3),
+        top_kernels=[dict(name=e.key[:90], count=e.count,
+                          device_ms=e.device_time_total / 1e3)
+                     for e in top])
 
 
 def phase_serve(api, dm, ServingEngine, module_tensors, cfg, gen, host_gen):
@@ -671,10 +771,13 @@ def main() -> int:
             "launches": run[what],
             "max_abs_err": err,
             "ms": case["ms"],
+            "device_ms": case["device_ms"],
+            "host_us_per_call": case["host_us_per_call"],
             "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
+            "library_device_ms": case["library_device_ms"],
             "timed_case": f"11008x4096 M={run['decode_m']} (decode) "
                           "gathered bf16, 3-launch chain",
             "checked_m": run["kernel_m"],

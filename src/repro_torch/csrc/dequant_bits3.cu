@@ -1,0 +1,5 @@
+// K1's kernels for 3-bit groups (see dequant_kernels.cuh).
+#include "dequant_kernels.cuh"
+
+template cudaError_t claq::dispatch<3>(int, bool, dim3*, cudaStream_t,
+                                         const claq::Args&, int*);

@@ -21,15 +21,26 @@ For a CUDA tensor the wrapper launches the hand-written kernel
 tensor it runs ``dequant_matmul_plain``, the torch-eager version of the
 same function.  It never falls back from the kernel to the plain version.
 
-``launch_count`` counts kernel launches (CUDA only), and
-``int8_launch_count`` those of them that read int8 x (K1e); ``plain_count``
-counts dispatches to the plain version for CPU tensors.  A matmul over a
-prepared plan adds one per distinct bit-width to one of them.
+``launch_plan`` picks the kernel's tile, its K slices and its workspace
+from (M, n, k_padded, bits, compute type, k_out) and the card's SM count
+alone; the wrapper hands it to the C function.  With more than one K slice
+the wrapper allocates, for that launch alone, the (slices, M, n) f32
+workspace of partial sums and one int32 arrival counter per output tile
+(zeroed by the launch's own pre-pass), so launches on different streams
+or in a CUDA graph never share state.
+
+``launch_count`` counts wrapper calls that launch the kernel (CUDA only),
+and ``int8_launch_count`` those of them that read int8 x (K1e);
+``plain_count`` counts dispatches to the plain version for CPU tensors.  A
+matmul over a prepared plan adds one per distinct bit-width to one of
+them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +55,168 @@ plain_count = 0
 _X_MODES = {"blocked": 0, "aligned": 1, "gathered": 2}
 _X_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FN = None
+_SMS: Dict[torch.device, int] = {}
+
+# the kernel's tiling and shared memory (csrc/dequant_common.cuh and
+# dequant_kernels.cuh; tests/test_torch_k1_plan.py parses them from there)
+BLOCK_N = 128             # output rows of a block tile
+CHUNK_K = 64              # K columns of a pipeline stage
+DECODE_MAX_M = 16         # M <= 16: the decode path; above: prefill
+PREFILL_M = 64            # M rows of a prefill tile
+DECODE_MAX_SLICE_CHUNKS = 16  # x of a decode slice is staged whole
+STAGE_OUT = 8             # outlier slots staged per chunk (kStageOut)
+WORD_PAD = 16             # words of padding per staged plane row
+X_PAD = 16                # elements of padding per staged bf16 x row
+SMEM_LEVELS = 16          # codebooks of <= 4 bits are staged
+TILE_PITCH = BLOCK_N + 4  # f32 pitch of an output tile
+STAGES = 3                # cp.async ring, both paths
+FRAG_SCRATCH = 4 * 8 * 32 * 16   # bf16 W fragments of 4 warps
+# the register side of residency: each kernel's __launch_bounds__ minimum
+# blocks per SM, by block_m
+LAUNCH_MIN_BLOCKS = {4: 4, 8: 4, 16: 3, PREFILL_M: 2}
+# the shared memory side (Hopper): per SM, the most one block may opt in
+# to, the driver's reserve per block, the allocation unit, and the
+# kernels' static shared memory (rounded up)
+SM_SMEM = 228 * 1024
+BLOCK_SMEM_MAX = 227 * 1024
+BLOCK_SMEM_RESERVED = 1024
+SMEM_UNIT = 128
+STATIC_SMEM = 16
+N_SMS = 132               # H100 SXM, the default where no card is asked
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one kernel launch tiles its work: blocks of ``block_m`` x
+    ``BLOCK_N`` outputs, each summing ``chunks_per_slice`` K chunks of
+    ``CHUNK_K`` columns (the last slice may hold fewer)."""
+    decode: bool
+    block_m: int
+    m_tiles: int
+    n_tiles: int
+    chunks: int
+    chunks_per_slice: int
+    slices: int
+    workspace_elems: int      # f32 partial sums, 0 with one slice
+    counters: int             # arrival counters, 0 with one slice
+    x_elems: int              # x gathered once, in the compute type
+    smem: int                 # dynamic shared memory of the product kernel
+    blocks_per_sm: int        # its resident blocks (launch bounds, smem)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.m_tiles * self.slices
+
+    def slice_bounds(self) -> List[Tuple[int, int]]:
+        """[k_lo, k_hi) of each K slice, in slice order."""
+        k_padded = self.chunks * CHUNK_K
+        step = self.chunks_per_slice * CHUNK_K
+        return [(lo, min(lo + step, k_padded))
+                for lo in range(0, k_padded, step)]
+
+
+def _stage_bytes(bits: int, k_out: int) -> int:
+    """One ring stage's W operands (csrc stage_layout): plane words with
+    their row padding, the codebook rows if staged, the staged outlier
+    slots' idx and val rows."""
+    words = sum(BLOCK_N * w // 32 for w in packing.plane_widths(bits))
+    levels = 2 ** bits
+    return (words * (CHUNK_K + WORD_PAD) * 4
+            + (CHUNK_K * levels * 4 if levels <= SMEM_LEVELS else 0)
+            + 2 * min(k_out, STAGE_OUT) * CHUNK_K * 4)
+
+
+def kernel_smem(bits: int, k_out: int, block_m: int, chunks_per_slice: int,
+                bf16: bool) -> int:
+    """Dynamic shared memory of the product kernel (csrc decode_smem and
+    prefill_smem), in bytes."""
+    stage = _stage_bytes(bits, k_out)
+    item = 2 if bf16 else 4
+    if block_m == PREFILL_M:
+        x_pitch = CHUNK_K + (X_PAD if bf16 else 4)
+        ring = STAGES * (stage + PREFILL_M * x_pitch * item)
+        w = FRAG_SCRATCH if bf16 else CHUNK_K * (BLOCK_N + 1) * 4
+        return max(ring + w, PREFILL_M * TILE_PITCH * 4)
+    xs = block_m * (chunks_per_slice * CHUNK_K + X_PAD) * item
+    used = -(-(STAGES * stage + xs) // 16) * 16 + (FRAG_SCRATCH if bf16
+                                                   else 0)
+    return max(used, 4 * block_m * TILE_PITCH * 4)
+
+
+def resident_blocks(block_m: int, smem: int) -> int:
+    """Blocks of the product kernel an SM holds: the fewer of its launch
+    bounds' minimum and what its shared memory allows (0: it does not
+    fit)."""
+    if smem > BLOCK_SMEM_MAX:
+        return 0
+    per_block = (-(-(smem + STATIC_SMEM) // SMEM_UNIT) * SMEM_UNIT
+                 + BLOCK_SMEM_RESERVED)
+    return min(LAUNCH_MIN_BLOCKS[block_m], SM_SMEM // per_block)
+
+
+@functools.lru_cache(maxsize=4096)      # every call of a serve repeats one
+def launch_plan(m: int, n: int, k_padded: int, bits: int,
+                compute_dtype=torch.float32, k_out: int = 0,
+                sms: int = N_SMS) -> LaunchPlan:
+    """The kernel's launch plan for an (m, n) output over k_padded columns
+    of one ``bits``-wide group with ``k_out`` outlier slots, on a card of
+    ``sms`` SMs.  M <= 16 takes the decode path (bf16: M padded to 8 or 16
+    for mma.sync; f32: 4-row M tiles, at most ``DECODE_MAX_SLICE_CHUNKS``
+    chunks a slice); larger M takes 64-row prefill tiles.  Both run after a
+    pre-pass that gathers x once into fused K order (``x_elems`` of the
+    compute type).  K is split into as many slices as keep the grid within
+    one wave of resident blocks (``resident_blocks``, from the launch's
+    shared memory, which grows with the slice at decode): the unpacking is
+    latency-bound, so short slices that put more warps on each SM beat
+    long ones.  It depends on nothing else (not on x_mode), so every x
+    mode sums in the same order.  Raises ValueError for a shape the kernel
+    does not take."""
+    packing.plane_widths(bits)                   # raises on a bad width
+    if m < 1 or n % 32 or k_padded % CHUNK_K or k_padded == 0 or k_out < 0:
+        raise ValueError(f"the kernel needs m >= 1, n % 32 == 0, k_out >= 0 "
+                         f"and k_padded a positive multiple of {CHUNK_K}, "
+                         f"got m={m}, n={n}, k_padded={k_padded}, "
+                         f"k_out={k_out}")
+    decode = m <= DECODE_MAX_M
+    bf16 = compute_dtype == torch.bfloat16
+    if decode:
+        block_m = (8 if m <= 8 else 16) if bf16 else 4
+    else:
+        block_m = PREFILL_M
+    m_tiles = -(-m // block_m)
+    n_tiles = -(-n // BLOCK_N)
+    chunks = k_padded // CHUNK_K
+    per_sm = LAUNCH_MIN_BLOCKS[block_m]
+    while True:       # longer slices stage more x: fewer blocks may fit
+        want = max(1, per_sm * sms // (m_tiles * n_tiles))
+        cps = -(-chunks // want)
+        if decode:
+            cps = min(cps, DECODE_MAX_SLICE_CHUNKS)
+        smem = kernel_smem(bits, k_out, block_m, cps, bf16)
+        fit = resident_blocks(block_m, smem)
+        if fit == 0:
+            raise ValueError(f"the kernel's {smem} bytes of shared memory "
+                             f"exceed the card's {BLOCK_SMEM_MAX} a block "
+                             f"(m={m}, bits={bits}, k_out={k_out})")
+        if fit >= per_sm:
+            break
+        per_sm = fit
+    slices = -(-chunks // cps)
+    split = slices > 1
+    return LaunchPlan(decode=decode, block_m=block_m, m_tiles=m_tiles,
+                      n_tiles=n_tiles, chunks=chunks, chunks_per_slice=cps,
+                      slices=slices,
+                      workspace_elems=slices * m * n if split else 0,
+                      counters=m_tiles * n_tiles if split else 0,
+                      x_elems=m * k_padded, smem=smem, blocks_per_sm=per_sm)
+
+
+def _sm_count(device: torch.device) -> int:
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device] = sms
+    return sms
 
 
 def _kernel_fn():
@@ -57,6 +230,8 @@ def _kernel_fn():
                        P, P, I,             # out_idx, out_val, k_out
                        P, P, P,             # acc, x_idx, out
                        I, I, I, I, I, I,    # n, k_padded, mode, start, k_cols, bf16
+                       I, I, P, P, P,       # block_m, chunks/slice, workspace,
+                       #                      counters, gathered x
                        P]                   # stream
         fn.restype = I
         _FN = fn
@@ -139,9 +314,9 @@ def dequant_matmul(
             x_start=x_start, k_cols=k_cols, x_idx=x_idx, x_scale=x_scale)
 
     k_padded = codebook.shape[0]
-    if n % 32 or k_padded % 64:
-        raise ValueError(f"the kernel needs n % 32 == 0 and k_padded % 64 "
-                         f"== 0, got n={n}, k_padded={k_padded}")
+    k_out = 0 if out_idx is None else out_idx.shape[0]
+    lp = launch_plan(x.shape[0], n, k_padded, bits, compute_dtype, k_out,
+                     _sm_count(x.device))
     expect = [(x, x.dtype), (codebook, torch.float32)]
     expect += [(p, torch.int32) for p in planes]
     if out_idx is not None:
@@ -159,11 +334,20 @@ def dequant_matmul(
             raise TypeError(f"operand dtype {t.dtype}, expected {dt}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous operands only")
+    for t in (*planes, codebook, out_idx, out_val):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the kernel copies plan operands 16 bytes at "
+                             "a time: they must be 16-byte aligned")
 
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     widths = packing.plane_widths(bits)
-    k_out = 0 if out_idx is None else out_idx.shape[0]
+    work = counters = None
+    if lp.slices > 1:          # partial sums, then the arrival counters
+        work = torch.empty(lp.workspace_elems + lp.counters,
+                           dtype=torch.float32, device=x.device)
+        counters = work[lp.workspace_elems:].view(torch.int32)
+    xg = torch.empty(lp.x_elems, dtype=compute_dtype, device=x.device)
     rc = _kernel_fn()(
         x.data_ptr(), _X_TYPES[x.dtype],
         x_scale.data_ptr() if x_scale is not None else None, m, x.shape[1],
@@ -176,7 +360,11 @@ def dequant_matmul(
         acc.data_ptr() if acc is not None else None,
         x_idx.data_ptr() if x_mode == "gathered" else None,
         out.data_ptr(), n, k_padded, _X_MODES[x_mode], x_start, k_cols,
-        int(compute_dtype == torch.bfloat16),
+        int(compute_dtype == torch.bfloat16), lp.block_m,
+        lp.chunks_per_slice,
+        work.data_ptr() if work is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        xg.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dequant_matmul kernel launch failed: CUDA "
