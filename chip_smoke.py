@@ -15,6 +15,23 @@ Phases (any failure raises and ends the run with a non-zero exit):
      4 slots, 16 new tokens each, with the kernel's launch counts and a
      ``torch.profiler`` reading of two decode steps (device-busy share,
      top kernels by device time);
+  4b. speculative serve: the phase-4 target with a synthetic flat 2-bit
+     + OR draft of the same shapes (its own seed), gamma 4: tokens held
+     to phase 4's under the near-tie rule (at a divergence, vanilla's own
+     decode logits there must have a top-2 gap, and a deficit of the
+     speculative token to their maximum, below twice the largest
+     |verify - successive decode| logit difference, measured on the
+     first window's inputs), windows, acceptance, ms per emitted token,
+     K1 launches aligned (draft) and gathered (target), the device-busy
+     share over two windows; then the target as its own draft (windows
+     accept, emit several tokens and roll back by k > 0), same rule;
+  4c. paged serve (16-token pages): a capacity-equivalent fp pool
+     (tokens exactly phase 4's), an int8 pool (budgets, bytes a page
+     under 1/3 of an f32 page's, tokens counted), prompts sharing a 32-token
+     prefix (prefix hits, fewer pages than without sharing, tokens
+     exactly the contiguous engine's) and speculation on the fp pool with
+     either draft (near-tie rule against phase 4, exactly phase 4b's
+     tokens);
   5. kernel vs plain version on the card at every (M, N, K) the serve
      phase gave K1: M = n_slots for decode and Bb * bucket for each
      prefill shape it ran, at the three matrix shapes of llama1_7b, on
@@ -23,20 +40,27 @@ Phases (any failure raises and ends the run with a non-zero exit):
      single-width plan ("aligned"), f32 and bf16; times beside the bound
      and a ``torch.matmul`` yardstick on the pre-dequantized weight: eager
      (``ms``, host enqueue included), device time from a CUDA graph of the
-     chain (``device_ms``) and the wrapper's host time per call;
+     chain (``device_ms``) and the wrapper's host time per call; then
+     the same at the M values only phases 4b and 4c gave K1 (the
+     verify's n_slots * (gamma+1), new prefill shapes; the "aligned"
+     cases at M = n_slots are the draft's plan);
   6. the phase-4 model served again with int8 activations
      (``ServingEngine(act_dtype="int8")``, K1e), same prompts, with the
      int8 launch counts;
   7. K1e (int8 x, the (M, 1) scale on the last launch) vs its plain
      version at every M phase 6 gave it, as in phase 5, and within
-     ``ref_act_int8_bound`` of the f32-activation kernel;
+     ``ref_act_int8_bound`` of the f32-activation kernel (after phase 8,
+     the same at the M values only its speculation gave K1e: the
+     verify's n_slots * (gamma+1), new prefill shapes);
   8. quantize, then serve: a random-init llama1_7b at full width (cut in
      depth to ``QUANT_DEPTH`` layers) calibrated on synthetic tokens and
-     CLAQ-quantized on the card (``launch.quantize.claq_quantize``, the
-     recipe of ``launch.serve --bits 2.2``), one 4096x4096 matrix also
-     quantized on the CPU and held against the card's (with a full-rank
-     Hessian; calibration Hessians are reported), then served with int8
-     activations.
+     CLAQ-quantized on the card, target and 2-bit draft from one
+     calibration (``launch.quantize.claq_quantize_with_draft``, the
+     recipe of ``launch.serve --bits 2.2 --spec-gamma``), one 4096x4096
+     matrix also quantized on the CPU and held against the card's (with
+     a full-rank Hessian; calibration Hessians are reported), then the
+     target served with int8 activations, vanilla and speculatively
+     (acceptance rate; near-tie rule).
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -44,6 +68,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -60,7 +85,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL, RTOL = 1e-3, 1e-4
 LLAMA_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))   # (out, in)
 BIT_MIX = (0.05, 0.05)             # shares of 3- and 4-bit columns
-QUANT_DEPTH = 2                    # layers of the phase-8 model
+QUANT_DEPTH = 1                    # layers of the phase-8 model
+GAMMA = 4                          # speculation window of the new phases
+PAGE_SIZE = 16
+PREFIX_LEN = 32                    # shared prompt prefix (2 whole pages)
+PREFIX_SUFFIXES = (5, 9, 14, 20)   # its prompts: 37..52 tokens, bucket 64
 PROMPT_LENS = (5, 17, 29, 42, 56, 70, 85, 100)
 MAX_NEW = 16
 PROFILE_STEP = 8                   # two decode steps from the 9th on run
@@ -76,8 +105,8 @@ def log(msg: str) -> None:
 
 def synthetic_qt(rows, cols, gen, host_gen, device, bits=None, k_max=3):
     """A CLAQ AP+OR tensor built through the port's build_quantized_tensor
-    from seeded parts: random codes, per-column sorted codebooks scaled by
-    cols^-0.5, column bits ~90 % 2 / 5 % 3 / 5 % 4 (or all ``bits``), and
+    from seeded parts: random codes, per-column sorted codebooks of
+    2^bits normal draws scaled by cols^-0.5, column bits ~90 % 2 / 5 % 3 / 5 % 4 (or all ``bits``), and
     0..k_max reserved outliers per column."""
     from repro_torch.core.quantized import build_quantized_tensor
     column_bits = np.full(cols, 2 if bits is None else bits, np.int64)
@@ -89,10 +118,13 @@ def synthetic_qt(rows, cols, gen, host_gen, device, bits=None, k_max=3):
     levels = torch.as_tensor(1 << column_bits, device=device)
     codes = torch.randint(0, 1 << 16, (rows, cols), generator=gen,
                           device=device) % levels[None, :]
-    cb = torch.sort(torch.randn((cols, 16), generator=gen, device=device),
-                    dim=1).values * cols ** -0.5
-    cb = torch.where(torch.arange(16, device=device)[None, :]
-                     < levels[:, None], cb, float("inf"))
+    # a column's levels are its first 2^bits draws, sorted (masking after
+    # the sort would keep the smallest of 16 draws: all negative, a common
+    # direction that makes greedy decode repeat one token)
+    cb = torch.randn((cols, 16), generator=gen, device=device) * cols ** -0.5
+    cb = torch.sort(torch.where(torch.arange(16, device=device)[None, :]
+                                < levels[:, None], cb, float("inf")),
+                    dim=1).values
     counts = torch.randint(0, k_max + 1, (cols,), generator=host_gen).numpy()
     Q = torch.randn((rows, cols), generator=gen, device=device) \
         * (4 * cols ** -0.5)
@@ -397,26 +429,46 @@ def phase_small_reference(api, ServingEngine, cfg, gen, host_gen):
         f"; greedy tokens gpu {out['gpu']} cpu {out['cpu']}")
 
 
-def drive(eng, prompts, dm, api, cfg, tag):
-    """Serve ``prompts`` through ``eng`` (all admitted as slots free up,
-    ``MAX_NEW`` tokens each), with the launch counts set to 0 just before
-    and read just after.  Asserts every request finished, one launch per
-    distinct bit-width per matmul per step or prefill call, and no plain
-    version; returns the record."""
-    qmods = quantized_modules(eng.params)
-    launches_per_matmul = sum(len(m.kernel.groups) for m in qmods)
+def plan_launches(model):
+    """(launches, aligned launches) of one forward call of ``model``: one
+    per distinct bit-width of each prepared matmul."""
+    groups = [g for m in quantized_modules(model) for g in m.kernel.groups]
+    return len(groups), sum(g.x_start is not None for g in groups)
+
+
+def drive(eng, prompts, dm, api, cfg, tag, one_by_one=False):
+    """Serve ``prompts`` through ``eng`` (admitted as slots free up, or
+    one per admission call with ``one_by_one``; ``MAX_NEW`` tokens each),
+    with the launch counts set to 0 just before and read just after.
+    Asserts every request finished, the launches of every prefill call and
+    step (one per distinct bit-width per matmul: the target's, plus the
+    draft's prefill and its gamma+1 decodes a window under speculation,
+    aligned and gathered apart) and no plain version; returns the record
+    (tokens in prompt order under "tokens"; a vanilla engine's decode
+    logits under "decode_logits": per request, token position -> the f32
+    logits row that decode step emitted it from)."""
+    t_lpm, t_al = plan_launches(eng.params)
+    d_lpm, d_al = (plan_launches(eng.draft_params) if eng.spec is not None
+                   else (0, 0))
+    draft_calls = eng.spec.gamma + 1 if eng.spec is not None else 0
+    per_step = t_lpm + draft_calls * d_lpm
+    per_prefill = t_lpm + d_lpm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dm.launch_count = dm.int8_launch_count = dm.plain_count = 0
-    prefill_s, decode_s, decode_launches, prefill_calls = [], [], [], 0
+    dm.aligned_launch_count = 0
+    prefill_s, decode_s, decode_tok, decode_launches = [], [], [], []
+    prefill_calls = 0
     order = []
     pending = list(prompts)
     prof, prof_s, steps = None, None, 0
+    rows = {}
+    rec = DecodeLogits(api, eng.spec is None)
     t_run = time.perf_counter()
     while pending or eng.active:
         if pending and eng.free:
-            batch = [pending.pop(0)
-                     for _ in range(min(len(pending), len(eng.free)))]
+            n = 1 if one_by_one else min(len(pending), len(eng.free))
+            batch = [pending.pop(0) for _ in range(n)]
             calls = sum(eng.bucketing.stats.per_shape.values())
             t0 = time.perf_counter()
             order += eng.add_requests(batch, max_new_tokens=MAX_NEW)
@@ -432,8 +484,10 @@ def drive(eng, prompts, dm, api, cfg, tag):
             prof.start()
             prof_from = len(decode_launches)
             t_prof = time.perf_counter()
+        at = {uid: (r.slot, len(r.tokens)) for uid, r in eng.active.items()}
         t0 = time.perf_counter()
-        emitted = eng.step()
+        with rec:
+            emitted = eng.step()
         torch.cuda.synchronize()
         if emitted:
             steps += 1
@@ -444,9 +498,15 @@ def drive(eng, prompts, dm, api, cfg, tag):
                     prof.stop()
             else:
                 decode_s.append(time.perf_counter() - t0)
+                decode_tok.append(sum(len(v) if isinstance(v, list) else 1
+                                      for v in emitted.values()))
+            rec.file(rows, at, emitted)
+    if prof is not None and prof_s is None:        # the run ended first
+        prof.stop()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches, int8_launches = dm.launch_count, dm.int8_launch_count
+    aligned = dm.aligned_launch_count
     main_plain = dm.plain_count
     peak = torch.cuda.max_memory_allocated()
 
@@ -455,10 +515,12 @@ def drive(eng, prompts, dm, api, cfg, tag):
     assert all(fin[u].state.value == "finished"
                and len(fin[u].tokens) == MAX_NEW for u in order)
     assert main_plain == 0, "the main path ran the plain version on the card"
-    assert set(decode_launches) == {launches_per_matmul}, \
-        (set(decode_launches), launches_per_matmul)
-    assert launches == launches_per_matmul * (prefill_calls
-                                              + len(decode_launches))
+    assert set(decode_launches) == {per_step}, (set(decode_launches),
+                                                per_step)
+    assert launches == per_prefill * prefill_calls + per_step * len(
+        decode_launches)
+    assert aligned == (prefill_calls * (t_al + d_al) + len(decode_launches)
+                       * (t_al + draft_calls * d_al)), aligned
     assert int8_launches == (launches if eng.act_dtype == "int8" else 0)
     # logits of the served model: finite, of the expected shape
     from repro_torch.models.modules import activation_quant
@@ -472,27 +534,75 @@ def drive(eng, prompts, dm, api, cfg, tag):
     tokens = sum(len(fin[u].tokens) for u in order)
     stats = eng.stats()
     profile = device_profile(prof, prof_s)
-    # decode runs every slot; a prefill of shape (Bb, bucket) runs Bb*bucket
+    # a decode runs every slot (a verify n_slots * (gamma+1) rows); a
+    # prefill of shape (Bb, bucket) runs Bb*bucket
     kernel_m = sorted({eng.n_slots} | {b * n for b, n
-                                       in eng.bucketing.stats.per_shape})
+                                       in eng.bucketing.stats.per_shape}
+                      | ({eng.n_slots * (eng.spec.gamma + 1)}
+                         if eng.spec is not None else set()))
     res = dict(act_dtype=stats["act_dtype"], requests=len(order),
                new_tokens=tokens, prefill_calls=prefill_calls,
                prefill_ms=sum(prefill_s) * 1e3, decode_steps=len(decode_s),
                decode_ms_per_step=float(np.mean(decode_s)) * 1e3,
                decode_ms_per_step_min=float(np.min(decode_s)) * 1e3,
+               decode_ms_per_token=sum(decode_s) / sum(decode_tok) * 1e3,
                tokens_per_s=tokens / run_s, run_s=run_s,
-               launches_per_decode_step=launches_per_matmul,
-               launches_per_prefill_call=launches_per_matmul,
+               launches_per_decode_step=per_step,
+               launches_per_prefill_call=per_prefill,
                main_path_launches=launches,
                main_path_int8_launches=int8_launches,
+               main_path_aligned_launches=aligned,
+               main_path_gathered_launches=launches - aligned,
                max_memory_allocated_gb=peak / 1e9,
                prefill_shapes=stats["prefill_traces"],
                prefill_batch_bucket=sorted(eng.bucketing.stats.per_shape),
                decode_m=eng.n_slots, kernel_m=kernel_m,
                profile_two_decode_steps=profile)
+    for key in ("spec_gamma", "acceptance_rate", "spec_drafted",
+                "spec_accepted", "tokens_per_step", "engine_steps"):
+        if key in stats and (eng.spec is not None or key == "engine_steps"):
+            res[key] = stats[key]
+    if "paged" in stats:
+        res["paged"] = stats["paged"]
     log(tag + " " + json.dumps(res))
-    log("sample tokens: " + str([fin[u].tokens[:8] for u in order[:2]]))
+    res["tokens"] = [fin[u].tokens for u in order]
+    if eng.spec is None:
+        res["decode_logits"] = [rows[u] for u in order]
+        assert all(sorted(r) == list(range(1, MAX_NEW))
+                   for r in res["decode_logits"])
+    log("sample tokens: " + str([t[:8] for t in res["tokens"][:2]]))
     return res
+
+
+class DecodeLogits:
+    """Keep a vanilla engine's decode logits: while open (and ``on``),
+    ``api.decode_step`` leaves its logits in ``last``; ``file`` then puts
+    each emitting request's row under (uid, token position), checking that
+    the row's argmax is the token the engine emitted."""
+
+    def __init__(self, api, on):
+        self.api, self.inner, self.on, self.last = api, api.decode_step, on, None
+
+    def __enter__(self):
+        if self.on:
+            def recorded(*a, **k):
+                out = self.inner(*a, **k)
+                self.last = out[0]
+                return out
+            self.api.decode_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.api.decode_step = self.inner
+
+    def file(self, rows, at, emitted):
+        if not self.on:
+            return
+        for uid, tok in emitted.items():
+            slot, j = at[uid]
+            row = self.last[slot].float().clone()
+            assert int(row.argmax()) == tok, (uid, j, tok)
+            rows.setdefault(uid, {})[j] = row
 
 
 def device_profile(prof, wall_s):
@@ -559,6 +669,218 @@ def phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts):
     return drive(eng, prompts, dm, api, cfg, "serve_int8")
 
 
+class FirstSpan:
+    """Keep the first speculative verify's inputs: while open,
+    ``api.decode_span`` records its first call's tokens and a copy of the
+    (contiguous) target cache before running it."""
+
+    def __init__(self, api):
+        self.api, self.inner, self.seen = api, api.decode_span, None
+
+    def __enter__(self):
+        def recorded(params, cfg, tokens, cache):
+            if self.seen is None:
+                self.seen = (tokens.clone(), clone_cache(cache))
+            return self.inner(params, cfg, tokens, cache)
+        self.api.decode_span = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.api.decode_span = self.inner
+
+
+def clone_cache(cache):
+    from repro_torch.models.layers import KVCache
+    return [KVCache(c.k.clone(), c.v.clone(), c.length.clone())
+            for c in cache]
+
+
+def verify_vs_decode(api, params, cfg, act, seen):
+    """Largest |verify - successive decode| logit difference on one
+    window's inputs (rows of occupied slots): the span call against its
+    gamma+1 decode steps, from the same cache."""
+    from repro_torch.models.modules import activation_quant
+    tokens, cache = seen
+    rows = cache[0].length > 0
+    with torch.no_grad(), activation_quant(act):
+        vl, _ = api.decode_span(params, cfg, tokens, clone_cache(cache))
+        c, outs = clone_cache(cache), []
+        for j in range(tokens.shape[1]):
+            lg, c = api.decode_step(params, cfg, tokens[:, j], c)
+            outs.append(lg)
+    return float((vl - torch.stack(outs, dim=1))[rows].abs().max())
+
+
+def near_ties(got, base, limit, tag):
+    """Hold speculative tokens ``got`` against vanilla's (``base``: a
+    vanilla ``drive`` record), request by request.  At a divergence,
+    vanilla's own decode logits at that position (the row its decode step
+    emitted the token from) must show a near tie: their top-2 gap, and the
+    speculative token's deficit to their maximum, both below ``limit``
+    (twice the largest |verify - successive decode| logit difference).
+    Returns the divergences."""
+    out = []
+    for i, (g, w, rows) in enumerate(zip(got, base["tokens"],
+                                         base["decode_logits"])):
+        if g == w:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(g, w)) if a != b)
+        assert j in rows, (tag, i, j, "vanilla emitted it from prefill")
+        row = rows[j]
+        top2 = torch.topk(row, 2).values
+        out.append(dict(request=i, position=j, vanilla_token=w[j],
+                        spec_token=g[j], gap=float(top2[0] - top2[1]),
+                        spec_token_deficit=float(top2[0] - row[g[j]]),
+                        limit=limit))
+        log(f"{tag}: request {i} diverges from vanilla at token {j}: "
+            + json.dumps(out[-1]))
+    assert all(d["gap"] < limit and d["spec_token_deficit"] < limit
+               for d in out), out
+    return out
+
+
+def phase_spec_serve(api, dm, ServingEngine, SpecConfig, cfg, model,
+                     prompts, base):
+    """The phase-4 target served speculatively (gamma ``GAMMA``) with a
+    synthetic flat 2-bit + OR draft of the same shapes from its own seed
+    (acceptance near 0: the point is losslessness at full width).  Tokens
+    held against phase 4's under the near-tie rule; returns the record,
+    the draft and the near-tie limit."""
+    t0 = time.perf_counter()
+    draft = synthetic_model(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 5), torch.Generator().manual_seed(SEED + 5), "cuda",
+        make_qt=functools.partial(synthetic_qt, bits=2))
+    torch.cuda.synchronize()
+    log(f"built the synthetic 2-bit + OR draft in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(model, cfg, n_slots=4, max_len=256,
+                        dtype=torch.bfloat16, draft_params=draft,
+                        spec=SpecConfig(gamma=GAMMA), device="cuda")
+    with FirstSpan(api) as first:
+        res = drive(eng, prompts, dm, api, cfg, "spec_serve")
+    diff = verify_vs_decode(api, eng.params, cfg, None, first.seen)
+    div = near_ties(res["tokens"], base, 2 * diff, "spec_serve")
+    res.update(verify_vs_decode_max_abs=diff, near_tie_limit=2 * diff,
+               divergences=len(div), divergence_records=div)
+    log("spec_serve near ties " + json.dumps(dict(
+        verify_vs_decode_max_abs=diff, divergences=div,
+        windows=res["engine_steps"], acceptance_rate=res["acceptance_rate"],
+        ms_per_emitted_token=res["decode_ms_per_token"],
+        aligned_launches=res["main_path_aligned_launches"],
+        gathered_launches=res["main_path_gathered_launches"])))
+    return res, draft, 2 * diff
+
+
+def self_draft(api, dm, ServingEngine, SpecConfig, cfg, model, prompts,
+               base, limit, tag, **kw):
+    """The phase-4 target as its own draft (``kw``: the cache layout): its
+    draft decodes are vanilla's, so windows accept nearly every draft
+    token and emit several tokens, reaching the verify's later rows, the
+    rollback by k > 0 and (paged) the tail pages later windows reuse.
+    Tokens held to phase 4's under the near-tie rule."""
+    res = drive(ServingEngine(model, cfg, n_slots=4, max_len=256,
+                              dtype=torch.bfloat16, draft_params=model,
+                              spec=SpecConfig(gamma=GAMMA), device="cuda",
+                              **kw), prompts, dm, api, cfg, tag)
+    div = near_ties(res["tokens"], base, limit, tag)
+    assert res["acceptance_rate"] > 0.5, res["acceptance_rate"]
+    assert res["tokens_per_step"] > 4, res["tokens_per_step"]
+    res.update(divergences=len(div), divergence_records=div)
+    log(tag + " windows " + json.dumps(dict(
+        windows=res["engine_steps"], acceptance_rate=res["acceptance_rate"],
+        tokens_per_window=res["tokens_per_step"], divergences=div,
+        ms_per_emitted_token=res["decode_ms_per_token"])))
+    return res
+
+
+def phase_paged_serve(api, dm, ServingEngine, SpecConfig, cfg, model,
+                      prompts, base, spec, spec_self, draft, limit,
+                      host_gen):
+    """The phase-4 model from a page pool (``PAGE_SIZE``-token pages):
+    capacity-equivalent fp (tokens exactly phase 4's), int8 (budgets kept,
+    under 1/3 of an f32 page's bytes, tokens counted), prompts sharing a
+    ``PREFIX_LEN``-token prefix (prefix hits, fewer pages than without
+    sharing, tokens exactly the contiguous engine's on the same schedule)
+    and speculation on the fp pool, with the synthetic draft and with the
+    target as its own draft (phase 4's tokens under the near-tie rule,
+    phase 4b's exactly).
+    Returns the records by sub-phase."""
+    kw = dict(n_slots=4, max_len=256, dtype=torch.bfloat16, device="cuda")
+    paged = dict(kw, kv_layout="paged", page_size=PAGE_SIZE)
+    out = {}
+    out["paged_serve"] = fp = drive(ServingEngine(model, cfg, **paged),
+                                    prompts, dm, api, cfg, "paged_serve")
+    assert fp["tokens"] == base["tokens"], "paged fp != contiguous tokens"
+
+    out["paged_int8_serve"] = i8 = drive(
+        ServingEngine(model, cfg, kv_dtype="int8", **paged), prompts, dm,
+        api, cfg, "paged_int8_serve")
+    # int8 pages against f32 pages (the reference's 1/3 bound) and
+    # against the bf16 pages this model serves from
+    f32_page = ServingEngine(model, cfg, **dict(
+        paged, dtype=torch.float32)).stats()["paged"]["bytes_per_page"]
+    ratio = i8["paged"]["bytes_per_page"] / f32_page
+    assert ratio < 1 / 3, ratio
+    same = [g == b for g, b in zip(i8["tokens"], base["tokens"])]
+    first = [next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
+             for g, w in zip(i8["tokens"], base["tokens"])]
+    i8.update(bytes_per_page_vs_f32=ratio,
+              bytes_per_page_vs_bf16=(i8["paged"]["bytes_per_page"]
+                                      / fp["paged"]["bytes_per_page"]),
+              requests_equal_to_fp=sum(same), first_divergence=first)
+    log("paged_int8_serve vs phase 4 " + json.dumps({k: i8[k] for k in (
+        "bytes_per_page_vs_f32", "bytes_per_page_vs_bf16",
+        "requests_equal_to_fp", "first_divergence")}))
+
+    prefix = torch.randint(1, cfg.vocab, (PREFIX_LEN,),
+                           generator=host_gen).tolist()
+    shared = [prefix + torch.randint(1, cfg.vocab, (n,),
+                                     generator=host_gen).tolist()
+              for n in PREFIX_SUFFIXES]
+    runs = {}
+    for tag, eng in (
+            ("paged_prefix_serve", ServingEngine(model, cfg, **paged)),
+            ("paged_prefix_private", ServingEngine(
+                model, cfg, share_prefixes=False, **paged)),
+            ("prefix_contiguous", ServingEngine(model, cfg, **kw))):
+        runs[tag] = drive(eng, shared, dm, api, cfg, tag, one_by_one=True)
+    sh, pr = (runs[t]["paged"] for t in ("paged_prefix_serve",
+                                         "paged_prefix_private"))
+    assert sh["prefix_hits"] > 0, sh
+    assert sh["peak_pages_in_use"] < pr["peak_pages_in_use"], (sh, pr)
+    assert runs["paged_prefix_serve"]["tokens"] == \
+        runs["prefix_contiguous"]["tokens"], "shared prefix != contiguous"
+    out["paged_prefix_serve"] = runs["paged_prefix_serve"]
+    out["paged_prefix_serve"].update(
+        peak_pages_private=pr["peak_pages_in_use"],
+        contiguous_ms_per_token=runs["prefix_contiguous"][
+            "decode_ms_per_token"])
+    log("paged_prefix_serve " + json.dumps(dict(
+        prefix_hits=sh["prefix_hits"],
+        prefix_shared_tokens=sh["prefix_shared_tokens"],
+        cow_copies=sh["cow_copies"],
+        peak_pages_shared=sh["peak_pages_in_use"],
+        peak_pages_private=pr["peak_pages_in_use"])))
+
+    out["paged_spec_serve"] = sp = drive(
+        ServingEngine(model, cfg, draft_params=draft,
+                      spec=SpecConfig(gamma=GAMMA), **paged),
+        prompts, dm, api, cfg, "paged_spec_serve")
+    div = near_ties(sp["tokens"], base, limit, "paged_spec_serve")
+    # fp pages change no bit, so phase 4b's tokens come back exactly
+    assert sp["tokens"] == spec["tokens"], "paged != contiguous speculation"
+    sp.update(divergences=len(div), divergence_records=div)
+
+    # the self-draft on pages: windows that accept, so rollbacks by k > 0
+    # and tail pages that later windows write again
+    out["paged_spec_self_serve"] = ss = self_draft(
+        api, dm, ServingEngine, SpecConfig, cfg, model, prompts, base, limit,
+        "paged_spec_self_serve", kv_layout="paged", page_size=PAGE_SIZE)
+    assert ss["tokens"] == spec_self["tokens"], \
+        "paged != contiguous self-draft speculation"
+    return out
+
+
 def codes_of(qt):
     """Codes of a QuantizedTensor, (rows, cols) in original column order
     (the order GPTQ quantized them in)."""
@@ -597,11 +919,14 @@ def card_vs_cpu(claq_lib, W, H, qcfg):
                 card_s=secs["cuda"], cpu_s=secs["cpu"])
 
 
-def phase_quantize_serve(api, dm, ServingEngine, cfg, prompts):
+def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts):
     """Quantize a random-init full-width llama1_7b (``QUANT_DEPTH``
-    layers) on the card with the launcher's recipe for ``--bits 2.2``;
-    hold one 4096x4096 matrix against the CPU; serve it with int8
-    activations.  Returns the record."""
+    layers) on the card with the launcher's recipe for ``--bits 2.2
+    --spec-gamma``: one calibration, a 2-bit draft and the AP target
+    (``claq_quantize_with_draft``); hold one 4096x4096 matrix against the
+    CPU; serve the target with int8 activations, then the pair
+    speculatively (tokens held to the target's under the near-tie rule).
+    Returns the record."""
     from repro_torch.core import APConfig, CLAQConfig
     from repro_torch.core import claq as claq_lib
     from repro_torch.data import calibration_set
@@ -647,44 +972,76 @@ def phase_quantize_serve(api, dm, ServingEngine, cfg, prompts):
     assert full["proxy_loss_rel_diff"] <= 1e-3, full
     del rich, gauss
 
-    # the launcher's pipeline on the card, timed per matrix
-    seconds = {}
+    # the launcher's pipeline on the card (``--bits 2.2 --spec-gamma``):
+    # one calibration, the 2-bit draft then the target, timed per matrix
+    seconds = {"draft": {}, "target": {}}
     inner = claq_lib.quantize_matrix
+    n_mats = 7 * QUANT_DEPTH
+    done = []
 
     def timed(W, *a, **k):
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = inner(W, *a, **k)
         torch.cuda.synchronize()
-        seconds.setdefault("x".join(map(str, W.shape)), []).append(
+        part = "draft" if len(done) < n_mats else "target"
+        seconds[part].setdefault("x".join(map(str, W.shape)), []).append(
             time.perf_counter() - t)
+        done.append(1)
         return r
 
+    del hessians
     claq_lib.quantize_matrix = timed
     try:
         t0 = time.perf_counter()
-        model, report = lq.quantize_model_params(model, dcfg, hessians, qcfg)
+        (model, report), (draft, drep) = lq.claq_quantize_with_draft(
+            model, dcfg, calib, qcfg, draft_bits=2)
         quant_s = time.perf_counter() - t0
     finally:
         claq_lib.quantize_matrix = inner
-    del hessians
     torch.cuda.empty_cache()
-    assert len(report.stats) == 7 * QUANT_DEPTH
+    assert len(done) == 2 * n_mats
+    assert len(report.stats) == len(drep.stats) == n_mats
     assert 2.15 < report.mean_effective_bits < 2.25, report.mean_effective_bits
+    assert 2.0 <= drep.mean_effective_bits < report.mean_effective_bits
+    assert draft.embedding is model.embedding
     eng = ServingEngine(model, dcfg, n_slots=4, max_len=256,
                         dtype=torch.bfloat16, act_dtype="int8",
                         device="cuda")
     res = drive(eng, prompts, dm, api, dcfg, "quantize_serve")
+    del eng
+    seng = ServingEngine(model, dcfg, n_slots=4, max_len=256,
+                         dtype=torch.bfloat16, act_dtype="int8",
+                         draft_params=draft, spec=SpecConfig(gamma=GAMMA),
+                         device="cuda")
+    with FirstSpan(api) as first:
+        spec = drive(seng, prompts, dm, api, dcfg, "quantize_spec_serve")
+    diff = verify_vs_decode(api, seng.params, dcfg, "int8", first.seen)
+    div = near_ties(spec["tokens"], res, 2 * diff, "quantize_spec_serve")
+    spec.update(verify_vs_decode_max_abs=diff, near_tie_limit=2 * diff,
+                divergences=len(div), divergence_records=div,
+                draft_effective_bits=drep.mean_effective_bits)
     res.update(depth=QUANT_DEPTH, calibrate_s=calib_s, quantize_s=quant_s,
                quantize_s_per_layer=quant_s / QUANT_DEPTH,
-               seconds_per_matrix={k: float(np.mean(v))
-                                   for k, v in seconds.items()},
+               draft_s=sum(map(sum, seconds["draft"].values())),
+               target_s=sum(map(sum, seconds["target"].values())),
+               seconds_per_matrix={part: {k: float(np.mean(v))
+                                          for k, v in d.items()}
+                                   for part, d in seconds.items()},
                mean_effective_bits=report.mean_effective_bits,
+               draft_mean_effective_bits=drep.mean_effective_bits,
                total_proxy_loss=report.total_proxy_loss,
-               card_vs_cpu=checks)
+               card_vs_cpu=checks, spec=spec)
     log("quantize " + json.dumps({k: res[k] for k in (
         "depth", "calibrate_s", "quantize_s", "quantize_s_per_layer",
-        "seconds_per_matrix", "mean_effective_bits", "total_proxy_loss")}))
+        "draft_s", "target_s", "seconds_per_matrix", "mean_effective_bits",
+        "draft_mean_effective_bits", "total_proxy_loss")}))
+    log("quantize_spec_serve " + json.dumps(dict(
+        acceptance_rate=spec["acceptance_rate"], windows=spec["engine_steps"],
+        tokens_per_window=spec["tokens_per_step"],
+        verify_vs_decode_max_abs=diff, divergences=div,
+        ms_per_emitted_token=spec["decode_ms_per_token"],
+        vanilla_ms_per_token=res["decode_ms_per_token"])))
     return res
 
 
@@ -707,7 +1064,7 @@ def main() -> int:
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.models import api
     from repro_torch.models.modules import module_tensors
-    from repro_torch.serve import ServingEngine
+    from repro_torch.serve import ServingEngine, SpecConfig
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -739,14 +1096,38 @@ def main() -> int:
     serve, model, prompts = phase_serve(api, dm, ServingEngine,
                                         module_tensors, cfg, gen, host_gen)
 
+    # 4b. the same target served speculatively, with a synthetic draft
+    spec, draft, limit = phase_spec_serve(api, dm, ServingEngine, SpecConfig,
+                                          cfg, model, prompts, serve)
+    spec_self = self_draft(api, dm, ServingEngine, SpecConfig, cfg, model,
+                           prompts, serve, limit, "spec_self_serve")
+
+    # 4c. the same model from a page pool: fp, int8, shared prefixes,
+    # speculation
+    paged = phase_paged_serve(api, dm, ServingEngine, SpecConfig, cfg, model,
+                              prompts, serve, spec, spec_self, draft, limit,
+                              host_gen)
+    del draft
+    torch.cuda.empty_cache()
+
     # 5. kernel vs plain version at the shapes the serve phase ran, on the
-    # served model's first plan of each matrix shape
+    # served model's first plan of each matrix shape (the "aligned" cases
+    # at M = n_slots are the speculative draft's plan); then at the M
+    # values only the new phases gave it (the verify's n_slots *
+    # (gamma+1), new prefill shapes)
     served = {}
     for m in quantized_modules(model):
         served.setdefault(tuple(m.kernel.shape), m.kernel)
     assert sorted(served) == sorted(LLAMA_SHAPES), sorted(served)
     cases, max_err = phase_kernels(dm, ops, plan, ref, served,
                                    serve["kernel_m"], gen, host_gen)
+    new_m = sorted(set(spec["kernel_m"]).union(
+        spec_self["kernel_m"], *(r["kernel_m"] for r in paged.values()))
+        - set(serve["kernel_m"]))
+    log(f"kernel checks at the new phases' M: {new_m}")
+    cases_new, max_err_new = phase_kernels(dm, ops, plan, ref, served,
+                                           new_m, gen, host_gen)
+    max_err = max(max_err, max_err_new)
 
     # 6. the same model and prompts with int8 activations (K1e)
     serve8 = phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts)
@@ -756,11 +1137,24 @@ def main() -> int:
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
                                      serve8["kernel_m"], gen, host_gen,
                                      act="int8")
-    del served
     torch.cuda.empty_cache()
 
-    # 8. quantize on the card, then serve with int8 activations
-    qserve = phase_quantize_serve(api, dm, ServingEngine, cfg, prompts)
+    # 8. quantize target + draft on the card, then serve with int8
+    # activations, vanilla and speculative
+    qserve = phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg,
+                                  prompts)
+
+    # 7b. K1e at the M values only phase 8's speculation gave it (the
+    # verify's n_slots * (gamma+1), its prefill shapes; phase 7's
+    # "aligned" cases at M = n_slots are its draft's plan)
+    new_m8 = sorted(set(qserve["spec"]["kernel_m"]) - set(serve8["kernel_m"]))
+    log(f"K1e checks at phase 8's speculative M: {new_m8}")
+    cases8_new, max_err8_new = phase_kernels(dm, ops, plan, ref, served,
+                                             new_m8, gen, host_gen,
+                                             act="int8")
+    max_err8 = max(max_err8, max_err8_new)
+    del served
+    torch.cuda.empty_cache()
 
     def record(name, replaces, run, case, err, case_cases, what):
         return {
@@ -791,17 +1185,38 @@ def main() -> int:
 
     kernels = [
         record("dequant_matmul", "src/repro/kernels/dequant_matmul.py:92",
-               serve, main_case(cases, serve["decode_m"]), max_err, cases,
-               "main_path_launches"),
+               serve, main_case(cases, serve["decode_m"]), max_err,
+               cases + cases_new, "main_path_launches"),
         record("dequant_matmul_int8",
                "src/repro/kernels/dequant_matmul.py:160", serve8,
-               main_case(cases8, serve8["decode_m"]), max_err8, cases8,
-               "main_path_int8_launches"),
+               main_case(cases8, serve8["decode_m"]), max_err8,
+               cases8 + cases8_new, "main_path_int8_launches"),
     ]
+    kernels[0]["checked_m"] = sorted(set(serve["kernel_m"]) | set(new_m))
+    kernels[1]["checked_m"] = sorted(set(serve8["kernel_m"]) | set(new_m8))
+    assert set(qserve["spec"]["kernel_m"]) <= set(kernels[1]["checked_m"])
+    assert set(spec["kernel_m"]) <= set(kernels[0]["checked_m"])
+
+    def split(run):
+        return dict(launches=run["main_path_launches"],
+                    aligned=run["main_path_aligned_launches"],
+                    gathered=run["main_path_gathered_launches"])
+
+    kernels[0]["launches_by_path"] = dict(
+        spec_serve=split(spec), spec_self_serve=split(spec_self),
+        **{tag: split(run) for tag, run in paged.items()})
     kernels[1]["launches_quantize_serve"] = qserve["main_path_int8_launches"]
+    kernels[1]["launches_by_path"] = dict(
+        quantize_serve=split(qserve), quantize_spec_serve=split(qserve["spec"]))
     assert kernels[0]["launches"] > 0, "the main path never launched K1"
     assert kernels[1]["launches"] > 0, "the int8 path never launched K1e"
     assert kernels[1]["launches_quantize_serve"] > 0
+    for path in (kernels[0]["launches_by_path"],
+                 kernels[1]["launches_by_path"]):
+        assert all(v["launches"] > 0 for v in path.values()), path
+    assert spec["main_path_aligned_launches"] > 0
+    assert spec["main_path_gathered_launches"] > 0
+    assert qserve["spec"]["main_path_int8_launches"] > 0
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

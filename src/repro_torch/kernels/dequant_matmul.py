@@ -30,8 +30,10 @@ workspace of partial sums and one int32 arrival counter per output tile
 or in a CUDA graph never share state.
 
 ``launch_count`` counts wrapper calls that launch the kernel (CUDA only),
-and ``int8_launch_count`` those of them that read int8 x (K1e);
-``plain_count`` counts dispatches to the plain version for CPU tensors.  A
+``int8_launch_count`` those of them that read int8 x (K1e) and
+``aligned_launch_count`` those that read x "aligned" (single-width plans,
+such as a speculative draft's); ``plain_count`` counts dispatches to the
+plain version for CPU tensors.  A
 matmul over a prepared plan adds one per distinct bit-width to one of
 them.
 """
@@ -50,6 +52,7 @@ from . import cuda_build, ref
 
 launch_count = 0
 int8_launch_count = 0
+aligned_launch_count = 0
 plain_count = 0
 
 _X_MODES = {"blocked": 0, "aligned": 1, "gathered": 2}
@@ -300,7 +303,8 @@ def dequant_matmul(
     """y (M, n) f32 = ([acc +] x_tile @ W^T) [* x_scale] for one CLAQ
     group (see module docstring).  CUDA tensors launch the kernel, CPU tensors take the plain
     version."""
-    global launch_count, int8_launch_count, plain_count
+    global launch_count, int8_launch_count, aligned_launch_count
+    global plain_count
     _check(x, planes, codebook, out_idx, out_val, bits, n, acc, x_mode,
            x_start, k_cols, x_idx, x_scale)
     if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -371,6 +375,7 @@ def dequant_matmul(
                            f"error {rc}")
     launch_count += 1
     int8_launch_count += x.dtype == torch.int8
+    aligned_launch_count += x_mode == "aligned"
     return out
 
 
@@ -408,7 +413,10 @@ def dequant_matmul_plain(
     W = ref.ref_apply_outliers(ref.ref_dequant_planes(planes, codebook,
                                                       bits, n),
                                out_idx, out_val).to(compute_dtype)
-    y = xt.to(compute_dtype).float() @ W.float().T
+    # W^T made contiguous: a CPU GEMM over a transposed view sums a row in
+    # an order that depends on the number of rows, and a speculative
+    # verify (M = slots * (gamma+1)) must sum each row as decode does
+    y = xt.to(compute_dtype).float() @ W.float().T.contiguous()
     if acc is not None:
         y = acc + y
     return y if x_scale is None else y * x_scale

@@ -7,19 +7,21 @@ reference's tap name (``layers.{i}.attn.q``).  Quantization then replaces,
 IN PLACE, each block ``Dense.kernel`` with its CLAQ ``QuantizedTensor``
 (embedding, norms and ``lm_head`` stay fp, the paper's weight-only scope):
 at full width a second copy of the model would not fit beside the first.
-Everything runs on the model's device.  ``claq_quantize_with_draft`` waits
-for the port's speculative-decoding slice.
+Everything runs on the model's device.  ``claq_quantize_with_draft``
+calibrates once and quantizes the same fp weights twice, into the serving
+target and a low-bit speculative draft.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import claq as claq_lib
-from repro_torch.core.policy import CLAQConfig
+from repro_torch.core.policy import CLAQConfig, draft_config
 from repro_torch.models import modules as M
 from repro_torch.models import transformer as tf
 
@@ -94,3 +96,28 @@ def claq_quantize(model: tf.Transformer, cfg, calib_tokens: torch.Tensor,
     """End to end: calibrate + quantize (in place), the paper's pipeline."""
     hessians = calibrate(model, cfg, calib_tokens, batch_size)
     return quantize_model_params(model, cfg, hessians, qcfg)
+
+
+def claq_quantize_with_draft(model: tf.Transformer, cfg,
+                             calib_tokens: torch.Tensor, qcfg: CLAQConfig,
+                             draft_qcfg: Optional[CLAQConfig] = None,
+                             draft_bits: int = 2, batch_size: int = 4):
+    """ONE calibration pass, TWO quantizations of the same fp weights: the
+    serving target at ``qcfg`` and a low-bit speculative draft at
+    ``draft_qcfg`` (default ``core.draft_config(qcfg, draft_bits)``: flat
+    ``draft_bits`` codes, Outlier Reservation kept, AP dropped), both from
+    the same tapped Hessians.
+
+    The draft is a second module tree that shares every tensor of
+    ``model`` (embedding, norms, lm_head, the fp kernels until they are
+    replaced), so no fp copy of the weights is made; then both are
+    quantized in place, the draft first.  Returns ``(target,
+    target_report), (draft, draft_report)``."""
+    hessians = calibrate(model, cfg, calib_tokens, batch_size)
+    if draft_qcfg is None:
+        draft_qcfg = draft_config(qcfg, draft_bits)
+    shared = {id(t): t for t in M.module_tensors(model)}
+    draft = quantize_model_params(copy.deepcopy(model, shared), cfg,
+                                  hessians, draft_qcfg)
+    target = quantize_model_params(model, cfg, hessians, qcfg)
+    return target, draft

@@ -1,20 +1,29 @@
 """Serving launcher: quantize (optional) + batched engine demo (port of
-the quantize-then-serve path of ``repro.launch.serve``).
+the quantize-then-serve, speculation and paging paths of
+``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1_7b \
       --smoke --bits 2.2 --act-dtype int8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1_7b \
+      --smoke --bits 2.2 --spec-gamma 4 --kv-layout paged --device cpu
 
 A random-init model (seed 0) is CLAQ-quantized in process when ``--bits``
 is given (calibration on 8 synthetic 64-token segments, K-Means with 6
 iterations, GPTQ blocks of 32, Adaptive Precision for a fractional
-``--bits``) and served greedily through ``ServingEngine``.  ``--device``
-defaults to ``cuda`` and raises without a card; pass ``cpu`` to run the
-kernels' plain versions.  The reference's other flags (speculation,
-paging, meshes, lifecycle, telemetry, control) belong to later slices.
+``--bits``) and served greedily through ``ServingEngine``.
+``--spec-gamma`` > 0 also quantizes a ``--draft-bits`` draft: from the
+same calibration (``claq_quantize_with_draft``) for a quantized target,
+with K-Means + Outlier Reservation 0.1 for an fp one.  ``--kv-layout
+paged`` serves from a page pool (``--page-size``, ``--kv-pool-pages``,
+``--kv-dtype``).  ``--device`` defaults to ``cuda`` and raises without a
+card; pass ``cpu`` to run the kernels' plain versions.  The reference's
+other flags (meshes, lifecycle, telemetry, control) belong to later
+slices.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import time
 
@@ -23,11 +32,11 @@ import torch
 
 from repro_torch import device as dev_lib
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core import APConfig, CLAQConfig
+from repro_torch.core import APConfig, CLAQConfig, ORConfig
 from repro_torch.data import calibration_set
-from repro_torch.launch.quantize import claq_quantize
+from repro_torch.launch.quantize import claq_quantize, claq_quantize_with_draft
 from repro_torch.models import api
-from repro_torch.serve import ServingEngine
+from repro_torch.serve import ServingEngine, SpecConfig
 
 
 def main(argv=None):
@@ -44,6 +53,38 @@ def main(argv=None):
                     help="smallest prefill length bucket")
     ap.add_argument("--no-bucketing", action="store_true",
                     help="admit at exact prompt lengths")
+    ap.add_argument("--spec-gamma", type=int, default=0,
+                    help="speculation window length; 0 = vanilla decode. "
+                         ">0 quantizes a low-bit draft of the same "
+                         "checkpoint from the same calibration pass and "
+                         "serves with propose/verify/rollback windows "
+                         "(lossless for greedy decoding)")
+    ap.add_argument("--draft-bits", type=int, default=2,
+                    help="code bit-width of the speculative draft model")
+    ap.add_argument("--draft-plan-bn", type=int, default=0,
+                    help="plan N-tile cap for the DRAFT's prepared plans "
+                         "(0 = inherit the target's)")
+    ap.add_argument("--draft-plan-bk", type=int, default=0,
+                    help="plan K-block cap for the draft's prepared plans "
+                         "(0 = inherit)")
+    ap.add_argument("--kv-layout", choices=("contiguous", "paged"),
+                    default="contiguous",
+                    help="slot KV cache layout: contiguous (one "
+                         "(max_len,) strip per slot) or paged (a page pool "
+                         "+ per-slot page tables; pages allocated on "
+                         "demand, freed at retirement, shared across "
+                         "common prompt prefixes)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged layout; must divide "
+                         "--max-len)")
+    ap.add_argument("--kv-pool-pages", type=int, default=0,
+                    help="page-pool size (paged layout; 0 = capacity-"
+                         "equivalent to contiguous: slots * max_len / "
+                         "page_size)")
+    ap.add_argument("--kv-dtype", choices=("f32", "int8"), default="f32",
+                    help="resident-page precision (paged layout): int8 "
+                         "stores K/V quantized per token row with absmax "
+                         "scales (bounded error)")
     ap.add_argument("--act-dtype", choices=("f32", "int8"), default="f32",
                     help="activation precision for quantized matmuls: int8 "
                          "= per-token dynamic absmax quantization folded "
@@ -59,6 +100,9 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     model = api.init_params(gen, cfg, device)
 
+    spec = (SpecConfig(gamma=args.spec_gamma, draft_bits=args.draft_bits)
+            if args.spec_gamma > 0 else None)
+    draft = None
     if args.bits > 0:
         base = int(args.bits)
         qcfg = CLAQConfig(
@@ -66,15 +110,49 @@ def main(argv=None):
             ap=(APConfig(args.bits, base, 4) if args.bits != base else None))
         calib = calibration_set(cfg.vocab, n_segments=8, seq_len=64)
         t0 = time.time()
-        model, report = claq_quantize(model, cfg, calib, qcfg)
-        print(f"[serve] CLAQ-quantized to "
-              f"{report.mean_effective_bits:.2f} "
-              f"bits in {time.time() - t0:.1f}s")
+        if spec is not None:
+            # one calibration pass, two quantizations: the serving target
+            # and the low-bit speculative draft share the tapped Hessians
+            (model, report), (draft, drep) = claq_quantize_with_draft(
+                model, cfg, calib, qcfg, draft_bits=spec.draft_bits)
+            print(f"[serve] CLAQ-quantized target to "
+                  f"{report.mean_effective_bits:.2f} bits + draft to "
+                  f"{drep.mean_effective_bits:.2f} bits in "
+                  f"{time.time() - t0:.1f}s (one calibration pass)")
+        else:
+            model, report = claq_quantize(model, cfg, calib, qcfg)
+            print(f"[serve] CLAQ-quantized to "
+                  f"{report.mean_effective_bits:.2f} "
+                  f"bits in {time.time() - t0:.1f}s")
+    elif spec is not None:
+        # fp target: the draft is a CLAQ quantization of the same weights
+        # (a second copy, quantized in place), Outlier Reservation kept
+        calib = calibration_set(cfg.vocab, n_segments=8, seq_len=64)
+        dcfg = CLAQConfig(bits=args.draft_bits, method="kmeans",
+                          kmeans_iters=6, gptq_blocksize=32,
+                          orr=ORConfig(0.1))
+        draft, drep = claq_quantize(copy.deepcopy(model), cfg, calib, dcfg)
+        print(f"[serve] fp target + {drep.mean_effective_bits:.2f}-bit "
+              f"CLAQ draft")
 
+    paged = args.kv_layout == "paged"
     eng = ServingEngine(model, cfg, n_slots=args.slots,
                         max_len=args.max_len, min_bucket=args.min_bucket,
                         bucketing=not args.no_bucketing,
-                        act_dtype=args.act_dtype, device=device)
+                        draft_params=draft, spec=spec,
+                        draft_plan_bn=args.draft_plan_bn or None,
+                        draft_plan_bk=args.draft_plan_bk or None,
+                        act_dtype=args.act_dtype, kv_layout=args.kv_layout,
+                        page_size=args.page_size if paged else None,
+                        kv_pages=(args.kv_pool_pages or None) if paged
+                        else None,
+                        kv_dtype=(args.kv_dtype if paged
+                                  and args.kv_dtype != "f32" else None),
+                        device=device)
+    if paged:
+        print(f"[serve] paged KV cache: page_size={eng.page_size}, "
+              f"pool={eng.n_pages} pages, resident dtype "
+              f"{eng.kv_dtype or 'fp'}")
     if args.act_dtype != "f32":
         print(f"[serve] activations: per-token {args.act_dtype} "
               f"(opt-in weight-activation quantized serving)")
@@ -94,7 +172,8 @@ def main(argv=None):
         emitted = eng.step()
         if emitted:
             steps += 1
-            step_tokens += len(emitted)
+            step_tokens += sum(len(v) if isinstance(v, list) else 1
+                               for v in emitted.values())
             t_decode += time.time() - ts
     finished = eng.take_finished()
     dt = time.time() - t0
@@ -110,6 +189,18 @@ def main(argv=None):
     print(f"[serve] prefill traces {st['prefill_traces']} "
           f"(buckets {st['buckets']}), compile-cache hit rate "
           f"{st['bucket_hit_rate']:.0%}")
+    if spec is not None:
+        print(f"[serve] speculation gamma={spec.gamma}: acceptance "
+              f"{st['acceptance_rate']:.1%} ({st['spec_accepted']}/"
+              f"{st['spec_drafted']} draft tokens), "
+              f"{st['tokens_per_step']:.2f} tokens per window over all "
+              f"slots")
+    if paged:
+        pg = st["paged"]
+        print(f"[serve] pages: peak {pg['peak_pages_in_use']}/"
+              f"{pg['n_pages']}, prefix hits {pg['prefix_hits']}, "
+              f"copy-on-write {pg['cow_copies']}, "
+              f"{pg['bytes_per_page']} bytes a page")
     print(f"[serve] lifecycle: {json.dumps(st['lifecycle'])}")
     if eng.active:
         raise SystemExit(

@@ -16,8 +16,13 @@ def init_params(gen: torch.Generator, cfg, device="cuda"):
 
 
 def make_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cuda"):
-    return tf.init_cache(cfg, batch, max_len, dtype, dev_lib.resolve(device))
+               device="cuda", *, page_size: Optional[int] = None,
+               n_pages: Optional[int] = None, kv_dtype=None):
+    """Per-layer caches; ``page_size``/``n_pages``/``kv_dtype`` switch to
+    the paged layout (see transformer.init_cache)."""
+    return tf.init_cache(cfg, batch, max_len, dtype, dev_lib.resolve(device),
+                         page_size=page_size, n_pages=n_pages,
+                         kv_dtype=kv_dtype)
 
 
 def prefill_step(params, cfg, batch: Dict[str, torch.Tensor], cache,
@@ -32,3 +37,21 @@ def prefill_step(params, cfg, batch: Dict[str, torch.Tensor], cache,
 def decode_step(params, cfg, token: torch.Tensor, cache):
     tf.validate_family(cfg)
     return tf.decode_step(params, cfg, token, cache)
+
+
+def validate_span_support(cfg) -> None:
+    """Raise NotImplementedError unless span decode is exactly equivalent
+    to successive decode steps on this config (see transformer.py)."""
+    tf.validate_span_support(cfg)
+
+
+def validate_paged_support(cfg) -> None:
+    """Raise NotImplementedError unless this config can serve from a
+    paged KV cache (see transformer.py)."""
+    tf.validate_paged_support(cfg)
+
+
+def decode_span(params, cfg, tokens: torch.Tensor, cache):
+    """Speculative verify: append tokens (B, S) at each slot's own fill
+    level; returns (logits (B, S, V), cache)."""
+    return tf.decode_span(params, cfg, tokens, cache)

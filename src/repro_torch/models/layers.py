@@ -1,13 +1,14 @@
 """Dense transformer layers (port of the dense parts of
 ``repro.models.layers``): RoPE, blocked online-softmax attention, GQA
-attention with a contiguous KV cache, SwiGLU / GELU MLPs.
+attention with a contiguous or a paged KV cache, SwiGLU / GELU MLPs.
 
 Attention is plain torch, as it is plain XLA in the reference: prefill
 runs the blocked online-softmax formulation, single-token decode the
-direct masked softmax, so each keeps the reference's arithmetic.  The
-cache is updated IN PLACE (the reference returns a new cache): a
-full-width cache is hundreds of MB, and copying it every step would double
-decode's memory traffic.
+direct masked softmax, and span decode (speculative verify) the same
+masked softmax over S query rows, so each keeps the reference's
+arithmetic.  Caches are updated IN PLACE (the reference returns a new
+cache): a full-width cache is hundreds of MB, and copying it every step
+would double decode's memory traffic.
 """
 from __future__ import annotations
 
@@ -17,21 +18,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import ops as kops
+
 from . import modules as M
 
 NEG_INF = -1e30
 
 
 def select_logits(logits: torch.Tensor, logits_at=None) -> torch.Tensor:
-    """Pick one position per row from (B, S, V) logits: the last one, or
-    ``logits_at`` (scalar or (B,) positions, e.g. the true last token of a
-    right-padded prompt)."""
+    """Pick positions per row from (B, S, V) logits: the last one, or
+    ``logits_at`` — scalar or (B,) positions (e.g. the true last token of
+    a right-padded prompt) give (B, V); (B, T) positions give (B, T, V)."""
     if logits_at is None:
         return logits[:, -1]
     idx = torch.as_tensor(logits_at, device=logits.device).long()
     if idx.dim() == 0:
         idx = idx.expand(logits.shape[0])
-    return logits[torch.arange(logits.shape[0], device=logits.device), idx]
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    if idx.dim() == 1:
+        return logits[rows, idx]
+    return logits[rows[:, None], idx]
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +158,123 @@ def init_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int,
         length=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+# ---------------------------------------------------------------------------
+# Paged KV cache: a global page pool per layer + per-slot page tables
+# ---------------------------------------------------------------------------
+# Pool row ``n_pages`` is the SCRATCH page: it absorbs every write a
+# contiguous cache would mask or drop (free slots, span tails past
+# max_len, unallocated blocks).  Reads gather ``pool[table]``, which
+# rebuilds exactly the contiguous (B, max_pages * page_size, ...) view, so
+# the masked-softmax attention runs the same ops on the same bits and
+# paged fp decode reproduces contiguous decode's logits.  int8 pools store
+# each token row absmax-quantized (``kernels.ops.quantize_activations``)
+# with its scale beside it, dequantized at the gather (error <= scale/2).
+
+
+class PagedKVCache(NamedTuple):
+    kp: torch.Tensor                 # (n_pages+1, page_size, KH, D)
+    vp: torch.Tensor                 # (n_pages+1, page_size, KH, D)
+    k_scale: Optional[torch.Tensor]  # (n_pages+1, page_size) f32, int8 pool
+    v_scale: Optional[torch.Tensor]
+    table: torch.Tensor              # (B, max_pages) int64
+    length: torch.Tensor             # (B,) int32
+
+
+def init_paged_kv_cache(batch: int, max_len: int, kv_heads: int,
+                        head_dim: int, *, page_size: int, n_pages: int,
+                        dtype=torch.bfloat16, kv_dtype=None, device=None,
+                        table: Optional[torch.Tensor] = None
+                        ) -> PagedKVCache:
+    """An empty pool, every table entry at scratch.  ``table`` lets the
+    layers of one model share one table tensor (the engine mirrors it from
+    the host)."""
+    if max_len % page_size:
+        raise ValueError(
+            f"page_size {page_size} must divide max_len {max_len}")
+    int8 = kv_dtype == "int8"
+    pool_dtype = torch.int8 if int8 else dtype
+    shape = (n_pages + 1, page_size, kv_heads, head_dim)
+
+    def scale():
+        return (torch.zeros((n_pages + 1, page_size), dtype=torch.float32,
+                            device=device) if int8 else None)
+
+    if table is None:
+        table = torch.full((batch, max_len // page_size), n_pages,
+                           dtype=torch.long, device=device)
+    return PagedKVCache(
+        kp=torch.zeros(shape, dtype=pool_dtype, device=device),
+        vp=torch.zeros(shape, dtype=pool_dtype, device=device),
+        k_scale=scale(), v_scale=scale(), table=table,
+        length=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def paged_write_ids(table: torch.Tensor, length: torch.Tensor, S: int,
+                    page_size: int, scratch: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Page ids + within-page offsets (both (B, S)) for S tokens appended
+    at each slot's fill level.  Positions past max_len and unallocated
+    blocks route to the scratch page — the paged form of the contiguous
+    paths' masking / dropped writes."""
+    mp = table.shape[1]
+    idx = (length.long()[:, None]
+           + torch.arange(S, device=length.device)[None, :])
+    blk = torch.clamp(idx // page_size, max=mp - 1)
+    pid = torch.gather(table.long(), 1, blk)
+    pid = torch.where(idx >= mp * page_size, scratch, pid)
+    return pid, idx % page_size
+
+
+def pool_write(pool: torch.Tensor, scale: Optional[torch.Tensor],
+               pid: torch.Tensor, off: torch.Tensor,
+               rows: torch.Tensor) -> None:
+    """Scatter rows (B, S, feat...) into ``pool[pid, off]`` in place; an
+    int8 pool quantizes each token row and stores its scale.  Duplicate
+    (pid, off) pairs only ever target scratch, which is never read
+    unmasked."""
+    if scale is None:
+        pool[pid, off] = rows.to(pool.dtype)
+        return
+    xq, sc = kops.quantize_activations(
+        rows.reshape(rows.shape[:2] + (-1,)).float())
+    pool[pid, off] = xq.reshape(rows.shape)
+    scale[pid, off] = sc[..., 0]
+
+
+def pool_view(pool: torch.Tensor, scale: Optional[torch.Tensor],
+              table: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Gather each slot's pages into the contiguous-equivalent
+    (B, max_pages * page_size, feat...) view: fp pools verbatim, int8
+    pools dequantized through their per-token scales into ``out_dtype``."""
+    g = pool[table]                                 # (B, mp, ps, feat...)
+    if scale is not None:
+        sc = scale[table].reshape(g.shape[:3] + (1,) * (g.dim() - 3))
+        g = (g.float() * sc).to(out_dtype)
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+def _span_write(buf: torch.Tensor, rows: torch.Tensor,
+                base: torch.Tensor) -> None:
+    """``buf[b, base[b] + j] = rows[b, j]`` in place, dropping positions
+    past the end of ``buf`` (the reference's scatter ``mode="drop"``):
+    clamping would overwrite a slot's last real row.  Dropped rows are sent
+    to the last position carrying exactly the value that position ends up
+    holding (the last in-bounds row's, or its old value when none is in
+    bounds), so the duplicate writes agree and no host sync is needed."""
+    B, S = rows.shape[:2]
+    s_max = buf.shape[1]
+    dev = buf.device
+    j = torch.arange(S, device=dev)
+    last = s_max - 1 - base.long()                  # row that writes s_max-1
+    src = torch.minimum(j[None, :], last[:, None]).clamp(min=0)
+    tail = (1,) * (rows.dim() - 2)
+    vals = torch.take_along_dim(rows, src.view((B, S) + tail), dim=1)
+    vals = torch.where((last < 0).view((B, 1) + tail),
+                       buf[:, s_max - 1:], vals.to(buf.dtype))
+    tgt = (base.long()[:, None] + j[None, :]).clamp(max=s_max - 1)
+    buf[torch.arange(B, device=dev)[:, None], tgt] = vals
+
+
 class Attention(nn.Module):
     def __init__(self, q, k, v, o, q_norm=None, k_norm=None):
         super().__init__()
@@ -160,13 +283,19 @@ class Attention(nn.Module):
         self.register_buffer("k_norm", k_norm)
 
 
-def gqa_attention(p: Attention, x: torch.Tensor, cfg,
-                  cache: Optional[KVCache] = None
-                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
+                  span: bool = False):
     """GQA attention.  Without a cache: causal self-attention.  With one:
     S == 1 appends at each slot's own fill level and attends the whole
     cache (decode); S > 1 appends at the uniform fill level
-    ``cache.length[0]`` (prefill into a fresh or uniformly filled cache)."""
+    ``cache.length[0]`` (prefill into a fresh or uniformly filled cache).
+
+    ``span=True`` (speculative verify, S > 1): the S tokens append at each
+    slot's OWN fill level and attention runs decode's masked softmax over
+    the whole cache, so a span is the computation of S successive decode
+    steps; writes past the cache end are dropped.  A ``PagedKVCache``
+    takes decode and span (prefill stays contiguous: the engine page-
+    inserts the fragments)."""
     B, S, _ = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if getattr(cfg, "attn_window", None) is not None:
@@ -193,6 +322,23 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg,
         out = blocked_attention(q, k, v, causal=True, q_block=cfg.q_block,
                                 kv_block=cfg.kv_block)
         new_cache = None
+    elif isinstance(cache, PagedKVCache):
+        if S > 1 and not span:
+            raise NotImplementedError(
+                "paged caches take no chunked prefill: the engine prefills "
+                "contiguous fragments and page-inserts them")
+        pid, off = paged_write_ids(cache.table, cache.length, S,
+                                   cache.kp.shape[1], cache.kp.shape[0] - 1)
+        pool_write(cache.kp, cache.k_scale, pid, off, k)
+        pool_write(cache.vp, cache.v_scale, pid, off, v)
+        new_len = cache.length + S
+        k_all = pool_view(cache.kp, cache.k_scale, cache.table, q.dtype)
+        v_all = pool_view(cache.vp, cache.v_scale, cache.table, q.dtype)
+        if S == 1:
+            out = _decode_attention(q, k_all, v_all, new_len)
+        else:
+            out = _span_decode_attention(q, k_all, v_all, cache.length)
+        new_cache = cache._replace(length=new_len)
     elif S == 1:
         # decode: write at each slot's own fill level.  A free slot's
         # counter keeps growing with the batch; clamping keeps its write in
@@ -204,6 +350,11 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg,
         new_len = cache.length + 1
         out = _decode_attention(q, cache.k, cache.v, new_len)
         new_cache = KVCache(cache.k, cache.v, new_len)
+    elif span:
+        _span_write(cache.k, k, cache.length)
+        _span_write(cache.v, v, cache.length)
+        out = _span_decode_attention(q, cache.k, cache.v, cache.length)
+        new_cache = KVCache(cache.k, cache.v, cache.length + S)
     else:
         # prefill at the uniform fill level of the batch
         start = cache.length[0].long()
@@ -225,18 +376,38 @@ def _decode_attention(q, k_cache, v_cache, kv_len):
     masked softmax; kv_len (B,) valid entries per slot.  Operands are taken
     in the cache's dtype and multiplied in f32, as the reference's
     f32-accumulating einsum does."""
+    return _decode_rows(q, k_cache.float(), v_cache.float(), kv_len,
+                        k_cache.dtype, v_cache.dtype)
+
+
+def _decode_rows(q, kf, vf, kv_len, k_dtype, v_dtype):
+    """``_decode_attention`` on the cache already widened to f32 (``kf``,
+    ``vf``; ``k_dtype``/``v_dtype`` the cache's own dtypes)."""
     B, _, H, D = q.shape
-    _, S, KH, Dv = v_cache.shape
+    _, S, KH, Dv = vf.shape
     G = H // KH
-    qh = (q.reshape(B, KH, G, D) * (D ** -0.5)).to(k_cache.dtype)
-    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k_cache.float())
+    qh = (q.reshape(B, KH, G, D) * (D ** -0.5)).to(k_dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), kf)
     pos = torch.arange(S, device=q.device)
     mask = pos[None, None, None, :] < kv_len.long()[:, None, None, None]
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskv->bkgv", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+    out = torch.einsum("bkgs,bskv->bkgv", p.to(v_dtype).float(), vf)
     return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def _span_decode_attention(q, k_cache, v_cache, base_len):
+    """Multi-token decode (speculative verify): q (B,S,H,D) against the
+    whole cache; row s of slot b attends positions < base_len[b] + s + 1
+    (its own K/V included, as in decode).  The reference batches the S
+    rows into one einsum, which XLA reduces exactly as S decode einsums;
+    torch's einsum sums in another order at another shape, so the port
+    runs decode's own ops row by row (the cache widened to f32 once) and
+    the verify's attention is bitwise S successive decode steps'."""
+    kf, vf = k_cache.float(), v_cache.float()
+    return torch.cat([_decode_rows(q[:, j:j + 1], kf, vf, base_len + j + 1,
+                                   k_cache.dtype, v_cache.dtype)
+                      for j in range(q.shape[1])], dim=1)
 
 
 def attention_init(gen: torch.Generator, cfg, dtype=torch.float32,

@@ -3,8 +3,9 @@
 
 Blocks live in an ``nn.ModuleList`` and run in a Python loop (the
 reference scans a layer-stacked tree); the serving cache is a list with
-one ``KVCache`` per layer.  Entry points: init_params, forward,
-init_cache, prefill, decode_step.
+one ``KVCache`` (or, paged, one ``PagedKVCache``) per layer.  Entry
+points: init_params, forward, init_cache, prefill, decode_step,
+decode_span.
 """
 from __future__ import annotations
 
@@ -79,10 +80,10 @@ def init_params(gen: torch.Generator, cfg, device) -> Transformer:
                                                       device=device), head)
 
 
-def block_apply(p: Block, x: torch.Tensor, cfg,
-                cache: Optional[L.KVCache] = None):
+def block_apply(p: Block, x: torch.Tensor, cfg, cache=None,
+                span: bool = False):
     h = M.rms_norm(p.ln1, x, cfg.norm_eps)
-    a, new_cache = L.gqa_attention(p.attn, h, cfg, cache)
+    a, new_cache = L.gqa_attention(p.attn, h, cfg, cache, span=span)
     x = x + a
     h = M.rms_norm(p.ln2, x, cfg.norm_eps)
     m = (L.gelu_mlp(p.mlp, h) if cfg.mlp_type == "gelu"
@@ -91,13 +92,16 @@ def block_apply(p: Block, x: torch.Tensor, cfg,
 
 
 def forward(model: Transformer, cfg, tokens: torch.Tensor,
-            caches: Optional[List[L.KVCache]] = None
-            ) -> Tuple[torch.Tensor, Optional[List[L.KVCache]], torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V), new caches, aux loss (0))."""
+            caches: Optional[List] = None, span: bool = False
+            ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V), new caches, aux loss (0)).
+    ``span``: the S tokens append at each slot's own fill level (see
+    ``layers.gqa_attention``)."""
     x = M.embed(model.embedding, tokens)
     new_caches = None if caches is None else []
     for i, blk in enumerate(model.blocks):
-        x, c = block_apply(blk, x, cfg, None if caches is None else caches[i])
+        x, c = block_apply(blk, x, cfg, None if caches is None else caches[i],
+                           span=span)
         if caches is not None:
             new_caches.append(c)
     x = M.rms_norm(model.final_norm, x, cfg.norm_eps)
@@ -109,11 +113,45 @@ def forward(model: Transformer, cfg, tokens: torch.Tensor,
     return logits, new_caches, torch.zeros((), device=x.device)
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype,
-               device) -> List[L.KVCache]:
+def validate_paged_support(cfg) -> None:
+    """Which configs can serve from a paged KV cache: position-indexed,
+    fill-masked, non-ring cache storage (the page table replays the
+    contiguous layout exactly)."""
+    if cfg.family in ("rwkv", "hybrid"):
+        raise NotImplementedError(
+            f"paged KV cache: the {cfg.family} family keeps recurrent "
+            f"state, not per-position K/V rows — there is nothing to page")
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "paged KV cache: encdec serving is unsupported (ServingEngine "
+            "rejects the family at construction)")
+    if cfg.attn_window is not None:
+        raise NotImplementedError(
+            "paged KV cache: sliding-window ring caches index slots by "
+            "position % W, which a page table does not reproduce")
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device, *,
+               page_size: Optional[int] = None,
+               n_pages: Optional[int] = None, kv_dtype=None) -> List:
+    """One cache per layer.  With ``page_size`` set, each layer gets a
+    paged pool instead of contiguous strips, all layers sharing one page
+    table (``n_pages`` defaults to contiguous capacity, batch * max_len
+    tokens; ``kv_dtype='int8'`` stores resident pages quantized)."""
+    if page_size is not None:
+        validate_paged_support(cfg)
     validate_family(cfg)
-    return [L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                            dtype, device) for _ in range(cfg.n_layers)]
+    if page_size is None:
+        return [L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                                dtype, device) for _ in range(cfg.n_layers)]
+    if n_pages is None:
+        n_pages = batch * (max_len // page_size)
+    table = torch.full((batch, max_len // page_size), n_pages,
+                       dtype=torch.long, device=device)
+    return [L.init_paged_kv_cache(
+        batch, max_len, cfg.n_kv_heads, cfg.head_dim, page_size=page_size,
+        n_pages=n_pages, dtype=dtype, kv_dtype=kv_dtype, device=device,
+        table=table) for _ in range(cfg.n_layers)]
 
 
 def prefill(model, cfg, tokens, caches, logits_at=None):
@@ -130,3 +168,41 @@ def decode_step(model, cfg, token: torch.Tensor, caches):
         token = token[:, None]
     logits, caches, _ = forward(model, cfg, token, caches)
     return logits[:, -1], caches
+
+
+def validate_span_support(cfg) -> None:
+    """Which configs support span decode: an S-token span call is exactly
+    S successive decode steps and a rejected tail can be rolled back.  The
+    engine's speculation gate calls this too, so the two cannot drift."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "span decode: encdec serving is unsupported (ServingEngine "
+            "rejects the family at construction)")
+    if cfg.family in ("rwkv", "hybrid"):
+        raise NotImplementedError(
+            f"span decode: the {cfg.family} family folds every token into "
+            f"recurrent state (rwkv wkv / the hybrid's mamba2 SSM), which "
+            f"cannot be rolled back after a rejected speculation window; "
+            f"serve it without speculation")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "span decode: moe's capacity-bounded router couples the span "
+            "tokens (cap and the group-local cumsum depend on token "
+            "count), so span logits would differ from successive decode "
+            "steps and greedy speculation would not be lossless; serve "
+            "moe without speculation")
+    if cfg.attn_window is not None:
+        raise NotImplementedError(
+            "span decode: a sliding-window ring cache keeps only the LAST "
+            "W keys (slot = position % W) — a span write would clobber "
+            "evicted keys and rollback cannot restore them; serve "
+            "windowed configs without speculation")
+
+
+def decode_span(model, cfg, tokens: torch.Tensor, caches):
+    """Append S = tokens.shape[1] tokens at each slot's OWN fill level and
+    return the logits at every span position: (B, S, V), new caches — the
+    speculative verify, the computation of S successive decode steps."""
+    validate_span_support(cfg)
+    logits, caches, _ = forward(model, cfg, tokens, caches, span=True)
+    return logits, caches

@@ -433,3 +433,174 @@ def test_plan_shared_memory_and_residency_match_the_card(card):
                     assert got[0] == lp.smem, (bits, k_out, m, compute)
                     assert got[1] >= lp.blocks_per_sm, (bits, k_out, m,
                                                         compute, got[1])
+
+
+# ------------------------------------------------------------------ serving
+
+def small_claq_model(seed, device, bits=None):
+    """The llama1_7b smoke model (vocab 128, 2 layers) whose block matmuls
+    are synthetic CLAQ tensors: columns 2/3/4-bit in a random mix (gathered
+    plans, as an AP+OR target's), or all ``bits`` (aligned, as a flat
+    draft's); 0..2 outliers a column.  Embedding, norms and lm_head are
+    dense, from the same seed."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import modules as M
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_smoke_config("llama1_7b"), vocab=128,
+                              n_layers=2)
+    rng = np.random.default_rng(seed)
+    D, H, KH, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+
+    def q(rows, cols):
+        column_bits = (np.full(cols, bits) if bits is not None else
+                       rng.choice([2, 3, 4], size=cols, p=[0.8, 0.1, 0.1]))
+        levels = 1 << column_bits
+        codes = rng.integers(0, 1 << 16, size=(rows, cols)) % levels[None]
+        cb = rng.normal(size=(cols, 16)) * cols ** -0.5
+        cb[np.arange(16)[None, :] >= levels[:, None]] = np.inf
+        cb = np.sort(cb, axis=1)              # valid centroids first, sorted
+        counts = rng.integers(0, 3, size=cols)
+        mask = np.zeros((rows, cols), bool)
+        for j, c in enumerate(counts):
+            mask[rng.permutation(rows)[:c], j] = True
+        Q = rng.normal(size=(rows, cols)) * (4 * cols ** -0.5)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32)  # noqa: E731
+                                      if np.asarray(a).dtype.kind == "f"
+                                      else a, device=device)
+        return M.Dense(build_quantized_tensor(t(codes), t(cb), column_bits,
+                                              counts, t(Q), t(mask)))
+
+    def dense(i, o):
+        return M.Dense(torch.as_tensor(
+            rng.normal(size=(i, o)).astype(np.float32) * i ** -0.5,
+            device=device))
+
+    ones = lambda: torch.ones(D, device=device)    # noqa: E731
+    blocks = [tf.Block(ones(), ones(),
+                       L.Attention(q(H * hd, D), q(KH * hd, D),
+                                   q(KH * hd, D), q(D, H * hd)),
+                       L.SwiGLU(q(F, D), q(F, D), q(D, F)))
+              for _ in range(cfg.n_layers)]
+    emb = torch.as_tensor(rng.normal(size=(cfg.vocab, D)).astype(np.float32)
+                          * 0.5, device=device)
+    return cfg, tf.Transformer(emb, blocks, ones(), dense(D, cfg.vocab))
+
+
+SERVE_PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8], [9, 10],
+                 [11, 12, 13, 14, 15, 16, 17, 18, 19],
+                 [20, 21, 22, 23], [30, 31, 32, 33, 34, 35, 36]]
+
+
+def _serve_waves(eng, max_new=10, logits=None):
+    """Admit SERVE_PROMPTS as slots free up; tokens in prompt order.  With
+    ``logits`` (a dict, vanilla engines), each decoded token's logits row
+    is filed there under (prompt index, token position)."""
+    from repro_torch.models import api
+    inner, last, rows = api.decode_step, {}, {}
+
+    def recorded(*a, **k):
+        out = inner(*a, **k)
+        last["logits"] = out[0]
+        return out
+
+    pending, order = list(SERVE_PROMPTS), []
+    if logits is not None:
+        api.decode_step = recorded
+    try:
+        while pending or eng.active:
+            if pending and eng.free:
+                n = min(len(pending), len(eng.free))
+                order += eng.add_requests(pending[:n], max_new_tokens=max_new)
+                del pending[:n]
+            at = {u: (r.slot, len(r.tokens)) for u, r in eng.active.items()}
+            emitted = eng.step()
+            if logits is not None:
+                for u, t in emitted.items():
+                    slot, j = at[u]
+                    rows[u, j] = last["logits"][slot].float()
+                    assert int(rows[u, j].argmax()) == t
+    finally:
+        api.decode_step = inner
+    fin = eng.take_finished()
+    assert all(fin[u].state.value == "finished" for u in order)
+    if logits is not None:
+        logits.update({(order.index(u), j): r for (u, j), r in rows.items()})
+    return [fin[u].tokens for u in order]
+
+
+def test_paged_fp_tokens_equal_contiguous_on_the_card(card):
+    """Paged fp serving through K1 gives exactly the contiguous engine's
+    tokens (the gathered view has the contiguous cache's shape, so the
+    card runs the same ops on the same bits), with and without prefix
+    sharing, f32 and bf16 caches."""
+    from repro_torch.serve import ServingEngine
+    cfg, model = small_claq_model(0, card)
+    launches = dm.launch_count
+    for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(n_slots=4, max_len=64, min_bucket=8, dtype=dtype,
+                  device="cuda")
+        base = _serve_waves(ServingEngine(model, cfg, **kw))
+        for share in (True, False):
+            eng = ServingEngine(model, cfg, kv_layout="paged", page_size=8,
+                                share_prefixes=share, **kw)
+            assert _serve_waves(eng) == base
+            assert eng.stats()["paged"]["pages_in_use"] <= eng.n_pages
+    assert dm.launch_count > launches
+
+
+def test_speculative_tokens_equal_vanilla_on_the_card(card):
+    """Speculative serving through K1 (the draft's aligned plans at
+    M = n_slots, the target's gathered plans at the verify's
+    M = n_slots * (gamma+1)) emits vanilla's tokens, except at a near
+    tie: there vanilla's own decode logits must have a top-2 gap, and a
+    deficit of the speculative token to their maximum, below twice the
+    largest |verify - successive decode| logit difference measured on the
+    same cache (K1 may sum a verify row in another order than a decode
+    row).  The target as its own draft accepts most windows, so verify
+    rows past the first are emitted and rollbacks keep k > 0 tokens."""
+    import copy
+
+    from repro_torch.models import api
+    from repro_torch.serve import ServingEngine, SpecConfig
+    cfg, target = small_claq_model(0, card)
+    _, draft = small_claq_model(1, card, bits=2)
+    kw = dict(n_slots=4, max_len=64, min_bucket=8, device="cuda")
+    rows = {}
+    base = _serve_waves(ServingEngine(target, cfg, **kw), logits=rows)
+
+    # the verify's difference from successive decodes on one window
+    eng = ServingEngine(target, cfg, **kw)
+    eng.add_requests(SERVE_PROMPTS[:4], max_new_tokens=10)
+    span = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab, size=(4, 5)), device=card)
+    with torch.no_grad():
+        c = copy.deepcopy(eng.cache)
+        vl, _ = api.decode_span(eng.params, cfg, span, copy.deepcopy(c))
+        outs = []
+        for j in range(span.shape[1]):
+            lg, c = api.decode_step(eng.params, cfg, span[:, j], c)
+            outs.append(lg)
+    tol = 2 * float((vl - torch.stack(outs, 1)).abs().max())
+
+    aligned = dm.aligned_launch_count
+    for gamma, d in ((1, draft), (4, draft), (4, target)):
+        eng = ServingEngine(target, cfg, draft_params=d,
+                            spec=SpecConfig(gamma=gamma), **kw)
+        got = _serve_waves(eng)
+        for i, (g, b) in enumerate(zip(got, base)):
+            if g == b:
+                continue
+            j = next(k for k, (u, v) in enumerate(zip(g, b)) if u != v)
+            row = rows[i, j]            # a KeyError: it diverged at prefill
+            top2 = torch.topk(row, 2).values
+            assert float(top2[0] - top2[1]) < tol, (i, g, b, tol)
+            assert float(top2[0] - row[g[j]]) < tol, (i, g, b, tol)
+        assert eng.stats()["verify_traces"] == 1
+        if d is target:
+            assert eng.stats()["acceptance_rate"] > 0.5
+    assert dm.aligned_launch_count > aligned

@@ -175,9 +175,9 @@ def test_run_to_completion_surfaces_unfinished_work(quantized):
 
 def test_engine_knobs_not_ported_are_rejected(quantized):
     _, tcfg, _, tm = quantized
-    with pytest.raises(TypeError):
-        ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
-                      guards=True)
-    with pytest.raises(TypeError):
-        ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
-                      kv_layout="paged")
+    for knob in (dict(guards=True), dict(on_pressure="truncate"),
+                 dict(chunked_prefill=16), dict(mesh=None),
+                 dict(telemetry=None), dict(queue_depth=4)):
+        with pytest.raises(TypeError):
+            ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
+                          **knob)
