@@ -60,7 +60,29 @@ Phases (any failure raises and ends the run with a non-zero exit):
      matrix also quantized on the CPU and held against the card's (with
      a full-rank Hessian; calibration Hessians are reported), then the
      target served with int8 activations, vanilla and speculatively
-     (acceptance rate; near-tie rule).
+     (acceptance rate; near-tie rule);
+  9. the serving control plane on phase 4's model (run after 4c, before
+     phase 5): (a) phase 4's prompts through ``submit()`` under a
+     StepClock and a seeded pressure-only fault plan — at least 2
+     requests preempted and resumed (batch-1 prefill, M = 1 decode
+     replay), all FINISHED, tokens held to phase 4's under the near-tie
+     rule (a first-token divergence is judged on the prompt's batch-1
+     prefill row), ms per resume; (b) ``guards=True`` with a plan
+     injecting NaN and Inf into a row each and one transient step failure,
+     under ``run_to_completion(retry=...)``: exactly the injected requests
+     FAILED, the rest phase 4's tokens (near-tie rule), decode ms per step
+     with guards beside phase 4's; (c) four prompts of 150-240 tokens in
+     64-token chunks under a 64-token budget, interleaved with decode,
+     against the monolithic run of the same schedule (near-tie rule,
+     prefill ms of both); (d) a seeded storm replayed on a speculative
+     (4b's draft, gamma 4), chunked, paged engine with the full SLO
+     controller, a StepCostModel and a StepClock — the ladder reaches
+     spec_off, the report validates, two replays give byte-identical
+     reports, the Perfetto export is well formed; (e) the same trace under
+     the wall clock, no controller: TTFT, TPOT and queue-wait percentiles.
+     Phase 5's and 7b's new-M passes then also hold K1 and K1e at the M
+     values only phase 9 gave K1 (1, the resume buckets, Bb * 64, 12 for
+     spec_half's verify; bf16, aligned and gathered plans).
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -95,6 +117,14 @@ MAX_NEW = 16
 PROFILE_STEP = 8                   # two decode steps from the 9th on run
 #                                    under the profiler, once every prompt
 #                                    is admitted (no prefill in the window)
+PREEMPT_SEED = 3                   # 9a's pressure plan
+GUARD_SEED = 1                     # 9b's NaN/Inf + transient-failure plan
+CHUNK_PROMPT_LENS = (150, 180, 210, 240)   # 9c (+ MAX_NEW <= max_len)
+CHUNK_TOKENS = 64
+STORM = dict(seed=4, steps=12, step_ms=10.0, arrival_lambda=0.6,
+             burst_every=4, burst_size=4, prompt_len=(20, 100),
+             max_new=(4, 8), deadline_frac=0.0)    # 9d/9e arrival trace
+STORM_TTFT_MS = 100.0              # 9d's SLO target (virtual ms)
 
 
 def log(msg: str) -> None:
@@ -264,13 +294,16 @@ def bound_of(n_bytes, flops, dtype):
 # ----------------------------------------------------------------- phases
 
 def phase_kernels(dm, ops, plan, ref, served, main_ms, gen, host_gen,
-                  act="f32"):
+                  act="f32", modes=("aligned", "gathered", "blocked"),
+                  dtypes=(torch.float32, torch.bfloat16)):
     """Kernel vs plain version at every M of ``main_ms`` and each of
     llama1_7b's matrix shapes; ``served`` maps (out, in) to a plan of the
     served model.  act="int8" runs K1e: x quantized per token, int8 x in
     every launch and the scale on the last (gather="kernel") or after the
     chain (blocked), also held within ``ref_act_int8_bound`` of the
-    f32-activation kernel.  Returns the records and the largest error."""
+    f32-activation kernel.  ``modes``/``dtypes`` narrow the cases (the
+    served model's bf16 plans at phase 9's M values).  Returns the records
+    and the largest error."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     cases = []
     max_err = 0.0
@@ -288,7 +321,9 @@ def phase_kernels(dm, ops, plan, ref, served, main_ms, gen, host_gen,
                     ("aligned", single, w_single, "kernel"),
                     ("gathered", ap, w_ap, "kernel"),
                     ("blocked", ap, w_ap, "xla")):
-                for dtype in (torch.float32, torch.bfloat16):
+                if mode not in modes:
+                    continue
+                for dtype in dtypes:
                     x = x32.to(dtype)
                     scale = None
                     xk = x
@@ -436,7 +471,8 @@ def plan_launches(model):
     return len(groups), sum(g.x_start is not None for g in groups)
 
 
-def drive(eng, prompts, dm, api, cfg, tag, one_by_one=False):
+def drive(eng, prompts, dm, api, cfg, tag, one_by_one=False,
+          prefill_rows=False):
     """Serve ``prompts`` through ``eng`` (admitted as slots free up, or
     one per admission call with ``one_by_one``; ``MAX_NEW`` tokens each),
     with the launch counts set to 0 just before and read just after.
@@ -446,7 +482,8 @@ def drive(eng, prompts, dm, api, cfg, tag, one_by_one=False):
     aligned and gathered apart) and no plain version; returns the record
     (tokens in prompt order under "tokens"; a vanilla engine's decode
     logits under "decode_logits": per request, token position -> the f32
-    logits row that decode step emitted it from)."""
+    logits row that decode step emitted it from; with ``prefill_rows``,
+    each prompt's batch-1 prefill row under "prefill_logits")."""
     t_lpm, t_al = plan_launches(eng.params)
     d_lpm, d_al = (plan_launches(eng.draft_params) if eng.spec is not None
                    else (0, 0))
@@ -570,8 +607,24 @@ def drive(eng, prompts, dm, api, cfg, tag, one_by_one=False):
         res["decode_logits"] = [rows[u] for u in order]
         assert all(sorted(r) == list(range(1, MAX_NEW))
                    for r in res["decode_logits"])
+    if prefill_rows:
+        res["prefill_logits"] = prefill_logits(api, eng, cfg, prompts)
     log("sample tokens: " + str([t[:8] for t in res["tokens"][:2]]))
     return res
+
+
+def prefill_logits(api, eng, cfg, prompts):
+    """Each prompt's logits row from a batch-1 prefill on ``eng``'s
+    params (f32), the row a first-token divergence is judged on."""
+    from repro_torch.models.modules import activation_quant
+    out = []
+    with torch.no_grad(), activation_quant(eng.act_dtype):
+        for p in prompts:
+            lg, _ = api.prefill_step(
+                eng.params, cfg, {"tokens": torch.tensor([p], device="cuda")},
+                api.make_cache(cfg, 1, eng.max_len, torch.bfloat16, "cuda"))
+            out.append(lg[0].float())
+    return out
 
 
 class DecodeLogits:
@@ -657,7 +710,8 @@ def phase_serve(api, dm, ServingEngine, module_tensors, cfg, gen, host_gen):
     assert all(t.is_cuda for t in module_tensors(model))
     prompts = [torch.randint(1, cfg.vocab, (n,), generator=host_gen).tolist()
                for n in PROMPT_LENS]
-    return drive(eng, prompts, dm, api, cfg, "serve"), model, prompts
+    return (drive(eng, prompts, dm, api, cfg, "serve", prefill_rows=True),
+            model, prompts)
 
 
 def phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts):
@@ -718,15 +772,22 @@ def near_ties(got, base, limit, tag):
     emitted the token from) must show a near tie: their top-2 gap, and the
     speculative token's deficit to their maximum, both below ``limit``
     (twice the largest |verify - successive decode| logit difference).
-    Returns the divergences."""
+    A divergence at the first token reads the prompt's batch-1 prefill
+    row (``prefill_logits``); a shorter ``got`` (a quarantined request) is
+    held to vanilla's prefix.  Returns the divergences."""
     out = []
     for i, (g, w, rows) in enumerate(zip(got, base["tokens"],
                                          base["decode_logits"])):
-        if g == w:
+        if g == w[:len(g)]:          # equal, or a quarantined prefix
             continue
         j = next(k for k, (a, b) in enumerate(zip(g, w)) if a != b)
-        assert j in rows, (tag, i, j, "vanilla emitted it from prefill")
-        row = rows[j]
+        if j == 0:
+            # the first token comes from a prefill: its row at batch 1
+            assert "prefill_logits" in base, (tag, i, "diverged at prefill")
+            row = base["prefill_logits"][i]
+        else:
+            assert j in rows, (tag, i, j, "vanilla emitted it from prefill")
+            row = rows[j]
         top2 = torch.topk(row, 2).values
         out.append(dict(request=i, position=j, vanilla_token=w[j],
                         spec_token=g[j], gap=float(top2[0] - top2[1]),
@@ -1045,6 +1106,378 @@ def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts):
     return res
 
 
+# ------------------------------------------------------------ phase 9
+
+def reset_counts(dm):
+    dm.launch_count = dm.int8_launch_count = dm.plain_count = 0
+    dm.aligned_launch_count = 0
+
+
+def read_counts(dm):
+    """The launch counts of the run since ``reset_counts``; the main path
+    must not have run the plain version on the card."""
+    assert dm.plain_count == 0, "the main path ran the plain version"
+    return dict(launches=dm.launch_count, aligned=dm.aligned_launch_count,
+                gathered=dm.launch_count - dm.aligned_launch_count,
+                int8=dm.int8_launch_count)
+
+
+def engine_kernel_m(eng):
+    """Every M an engine's run gave K1: prefill Bb * bucket (resumes at
+    Bb = 1), decode rows (n_slots; 1 in a resume's replay), chunks
+    Bb * chunk_tokens, verify rows n_slots * (gamma_eff + 1)."""
+    ms = {b * n for b, n in eng.bucketing.stats.per_shape}
+    for kind in ("decode", "draft_decode"):
+        ms |= {shape[0] for shape in eng.call_shapes[kind]}
+    for kind in ("chunk_prefill", "draft_chunk_prefill", "verify"):
+        ms |= {b * c for b, c in eng.call_shapes[kind]}
+    return ms
+
+
+def synced_timer(fn, spent):
+    """``fn`` wrapped to append its synchronized wall time (s) to
+    ``spent``."""
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+    return timed
+
+
+def serve_queued(eng, prompts, api, submit_at=None, clock=None,
+                 record=False, max_steps=600):
+    """Submit prompt i at step ``submit_at[i]`` (default all at 0)
+    through ``submit()`` and step (advancing ``clock``) until every
+    request is terminal.  With ``record`` (a vanilla, unchunked engine)
+    the decode logits each token was emitted from are kept, as ``drive``
+    keeps them.  Returns tokens in prompt order, the requests, per-step
+    wall times of steps that ran no prefill, and the rows."""
+    submit_at = submit_at or [0] * len(prompts)
+    rec = DecodeLogits(api, record)
+    rows, uids, decode_s = {}, [None] * len(prompts), []
+    for step in range(max_steps):
+        for i, at_step in enumerate(submit_at):
+            if at_step == step:
+                uids[i] = eng.submit(prompts[i], max_new_tokens=MAX_NEW)
+        if (None not in uids and not eng.active and not len(eng.queue)
+                and not eng.pending_prefills):
+            break
+        if record:
+            eng.pump()        # admit first, so the slots below are current
+        at = {u: (r.slot, len(r.tokens)) for u, r in eng.active.items()}
+        calls = sum(eng.bucketing.stats.per_shape.values())
+        chunks = eng.chunks_processed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rec:
+            emitted = eng.step()
+        torch.cuda.synchronize()
+        if (emitted and calls == sum(eng.bucketing.stats.per_shape.values())
+                and chunks == eng.chunks_processed):
+            decode_s.append(time.perf_counter() - t0)
+        rec.file(rows, at, emitted)
+        if clock is not None:
+            clock.advance(eng.last_step_cost_ms)
+    else:
+        raise AssertionError(f"not drained in {max_steps} steps")
+    fin = eng.take_finished()
+    reqs = [fin[u] for u in uids]
+    return dict(tokens=[r.tokens for r in reqs], reqs=reqs,
+                decode_s=decode_s,
+                decode_logits=[rows.get(u, {}) for u in uids])
+
+
+def phase_preempt_resume(api, dm, serve_mod, cfg, model, prompts, base,
+                         limit):
+    """9a: phase 4's prompts through ``submit()`` under a StepClock with a
+    seeded pressure-only fault plan: at least 2 requests preempted and
+    resumed (prefill of the prompt at batch 1, decode replay of the
+    prefix at M = 1), every request FINISHED, tokens held to phase 4's
+    under the near-tie rule; ms per resume timed around ``_admit_resume``."""
+    S = serve_mod
+    plan = S.FaultInjector(seed=PREEMPT_SEED, horizon=32, nan_faults=0,
+                           inf_faults=0, transient_failures=0,
+                           pressure_windows=2, pressure_len=(3, 5),
+                           pressure_frac=(0.12, 0.2), burst_every=0,
+                           arrival_lambda=0.0)
+    clock = S.StepClock(10.0)
+    eng = S.ServingEngine(model, cfg, n_slots=4, max_len=256,
+                          dtype=torch.bfloat16, faults=plan, clock=clock,
+                          device="cuda")
+    resume_s, replayed = [], []
+    inner = eng._admit_resume
+
+    def resume(req):
+        replayed.append(len(req.tokens) - 1)
+        synced_timer(inner, resume_s)(req)
+    eng._admit_resume = resume
+    reset_counts(dm)
+    t0 = time.perf_counter()
+    run = serve_queued(eng, prompts, api, clock=clock)
+    run_s = time.perf_counter() - t0
+    counts = read_counts(dm)
+    st = eng.stats()
+    assert all(r.state.value == "finished" and len(r.tokens) == MAX_NEW
+               for r in run["reqs"]), [r.state for r in run["reqs"]]
+    preempted = [i for i, r in enumerate(run["reqs"]) if r.preemptions]
+    assert len(preempted) >= 2 and st["resumes"] >= 2, (preempted, st)
+    div = near_ties(run["tokens"], base, limit, "preempt_resume")
+    res = dict(plan=plan.describe(), preemptions=st["preemptions"],
+               resumes=st["resumes"], preempted_requests=preempted,
+               replayed_tokens=replayed, ms_per_resume=[t * 1e3
+                                                        for t in resume_s],
+               engine_steps=st["engine_steps"], run_s=run_s,
+               divergences=len(div), divergence_records=div,
+               kernel_m=sorted(engine_kernel_m(eng)), **counts)
+    log("preempt_resume " + json.dumps(res))
+    return res
+
+
+def phase_guards_faults(api, dm, serve_mod, cfg, model, prompts, base,
+                        limit):
+    """9b: guards on and a plan injecting NaN and Inf into one row each and
+    failing one step transiently, under ``run_to_completion(retry=...)``:
+    exactly the injected requests FAILED (with diagnostics), the others
+    FINISHED with phase 4's tokens under the near-tie rule; the decode ms
+    per step with the guard's counts riding the token transfer, beside
+    phase 4's."""
+    S = serve_mod
+    plan = S.FaultInjector(seed=GUARD_SEED, horizon=24, nan_faults=1,
+                           inf_faults=1, pressure_windows=0,
+                           transient_failures=1, burst_every=0,
+                           arrival_lambda=0.0)
+    eng = S.ServingEngine(model, cfg, n_slots=4, max_len=256,
+                          dtype=torch.bfloat16, guards=True, faults=plan,
+                          device="cuda")
+    injected, faults = {}, [0]
+    inner_iv = plan.inject_vector
+
+    def inject_vector(step, n_slots, occupied=()):
+        vec = inner_iv(step, n_slots, occupied)
+        for s in np.flatnonzero(~np.isfinite(vec)):
+            uid = next(u for u, r in eng.active.items() if r.slot == s)
+            injected[uid] = step
+        return vec
+    plan.inject_vector = inject_vector
+    step_s = []
+    inner_step = eng.step
+
+    def step():
+        calls = sum(eng.bucketing.stats.per_shape.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = inner_step()
+        except S.EngineFault:
+            faults[0] += 1
+            raise
+        torch.cuda.synchronize()
+        if out and calls == sum(eng.bucketing.stats.per_shape.values()):
+            step_s.append(time.perf_counter() - t0)
+        return out
+    eng.step = step
+    reset_counts(dm)
+    uids = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    eng.run_to_completion(max_steps=200,
+                          retry=S.RetryPolicy(max_attempts=4, backoff_s=0.0))
+    counts = read_counts(dm)
+    fin = eng.take_finished()
+    failed = {u for u in uids if fin[u].state.value == "failed"}
+    assert injected and failed == set(injected), (failed, injected)
+    assert faults[0] >= 1, "no transient step failure was planned in the run"
+    for u in uids:
+        r = fin[u]
+        if u in failed:
+            d = r.diagnostics
+            assert d["kind"] == "nonfinite_logits" and d["phase"] == "decode"
+            assert d["engine_step"] == injected[u] and d["nonfinite"] > 0
+        else:
+            assert r.state.value == "finished" and len(r.tokens) == MAX_NEW
+    div = near_ties([fin[u].tokens for u in uids], base, limit,
+                    "guards_faults")
+    res = dict(plan=plan.describe(), injected={str(u): s for u, s in
+                                               injected.items()},
+               failed=sorted(failed), transient_faults=faults[0],
+               diagnostics=[fin[u].diagnostics for u in sorted(failed)],
+               decode_steps=len(step_s),
+               decode_ms_per_step=float(np.mean(step_s)) * 1e3,
+               decode_ms_per_step_min=float(np.min(step_s)) * 1e3,
+               phase4_decode_ms_per_step=base["decode_ms_per_step"],
+               phase4_decode_ms_per_step_min=base["decode_ms_per_step_min"],
+               divergences=len(div), divergence_records=div,
+               kernel_m=sorted(engine_kernel_m(eng)), **counts)
+    log("guards_faults " + json.dumps(res))
+    return res
+
+
+def phase_chunked(api, dm, serve_mod, cfg, model, limit, host_gen):
+    """9c: four long prompts (``CHUNK_PROMPT_LENS``), two submitted at
+    step 0 and one each at steps 3 and 5, served with 64-token chunks
+    under a 64-token budget (chunks interleave with the running requests'
+    decode) and monolithically on the same schedule: tokens held to the
+    monolithic run's under the near-tie rule, prefill ms of both."""
+    S = serve_mod
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=host_gen).tolist()
+               for n in CHUNK_PROMPT_LENS]
+    at = [0, 0, 3, 5]
+    kw = dict(n_slots=4, max_len=256, dtype=torch.bfloat16, device="cuda")
+    out = {}
+    for tag, chunked in (("monolithic", None),
+                         ("chunked", S.ChunkedPrefillConfig(
+                             chunk_tokens=CHUNK_TOKENS,
+                             budget_tokens=CHUNK_TOKENS))):
+        eng = S.ServingEngine(model, cfg, chunked_prefill=chunked, **kw)
+        spent = []
+        if chunked is None:
+            eng._prefill = synced_timer(eng._prefill, spent)
+        else:
+            eng._run_chunk = synced_timer(eng._run_chunk, spent)
+        reset_counts(dm)
+        run = serve_queued(eng, prompts, api, submit_at=at,
+                           record=chunked is None)
+        counts = read_counts(dm)
+        assert all(r.state.value == "finished" and len(r.tokens) == MAX_NEW
+                   for r in run["reqs"])
+        if chunked is None:
+            assert all(sorted(r) == list(range(1, MAX_NEW))
+                       for r in run["decode_logits"])
+            run["prefill_logits"] = prefill_logits(api, eng, cfg, prompts)
+        st = eng.stats()
+        run.update(prefill_ms=sum(spent) * 1e3, prefill_calls=len(spent),
+                   decode_ms_per_step=float(np.mean(run["decode_s"])) * 1e3,
+                   kernel_m=sorted(engine_kernel_m(eng)),
+                   chunked=st.get("chunked"), **counts)
+        out[tag] = run
+    div = near_ties(out["chunked"]["tokens"], out["monolithic"], limit,
+                    "chunked")
+    res = {tag: {k: v for k, v in r.items() if k in (
+        "prefill_ms", "prefill_calls", "decode_ms_per_step", "kernel_m",
+        "chunked", "launches", "aligned", "gathered")}
+        for tag, r in out.items()}
+    res.update(prompt_lens=list(CHUNK_PROMPT_LENS), submit_at_step=at,
+               divergences=len(div), divergence_records=div)
+    log("chunked " + json.dumps(res))
+    return res
+
+
+def storm_engine(serve_mod, cfg, model, draft, clock, controller):
+    S = serve_mod
+    return S.ServingEngine(
+        model, cfg, n_slots=4, max_len=256, dtype=torch.bfloat16,
+        draft_params=draft, spec=S.SpecConfig(gamma=GAMMA),
+        chunked_prefill=CHUNK_TOKENS, kv_layout="paged",
+        page_size=PAGE_SIZE, controller=controller,
+        cost_model=S.StepCostModel() if controller is not None else None,
+        clock=clock, telemetry=S.Telemetry(), queue_depth=64,
+        device="cuda")
+
+
+def phase_storm(api, dm, serve_mod, cfg, model, draft):
+    """9d: the seeded storm (``STORM``) replayed on a speculative engine
+    (phase 4b's synthetic draft, gamma 4), chunked, on an fp page pool,
+    with the full SLO controller, a StepCostModel and a StepClock: the
+    ladder reaches spec_off, the report validates, every request ends
+    terminal, and a second replay gives a byte-identical report; the
+    Perfetto export's structure.  9e: the same trace on the same engine
+    under the wall clock, no controller: TTFT, TPOT and queue wait from
+    the port's own spans."""
+    import tempfile
+    S = serve_mod
+    trace = S.synthesize_trace(vocab=cfg.vocab, **STORM)
+    reports, runs = [], {}
+    for i in range(2):
+        ctl = S.AdmissionController(S.SLOConfig(ttft_p99_ms=STORM_TTFT_MS),
+                                    mode="full")
+        eng = storm_engine(S, cfg, model, draft, S.StepClock(10.0), ctl)
+        reset_counts(dm)
+        t0 = time.perf_counter()
+        rep = S.Replayer(eng, trace,
+                         retry=S.RetryPolicy(backoff_s=0.0)).run()
+        runs[f"replay_{i}"] = dict(run_s=time.perf_counter() - t0,
+                                   kernel_m=sorted(engine_kernel_m(eng)),
+                                   **read_counts(dm))
+        S.validate_report(rep)
+        reports.append(json.dumps(rep, sort_keys=True))
+        if i == 0:
+            first, tel = rep, eng.telemetry
+    assert reports[0] == reports[1], "two StepClock replays differ"
+    states = [r["state"] for r in first["per_request"]]
+    assert all(st in ("finished", "truncated", "abandoned", "failed")
+               for st in states), states
+    log_ = first["controller"]["decision_log"]
+    up = [d["rung_name"] for d in log_ if d["kind"] == "rung_up"]
+    assert "spec_off" in up, up
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "storm.perfetto.json"
+        S.write_perfetto(str(path), tel)
+        doc = json.loads(path.read_text())
+    evs = doc["traceEvents"]
+    tracks = sorted(e["args"]["name"] for e in evs
+                    if e["ph"] == "M" and e["name"] == "thread_name")
+    assert tracks == ["controller", "queue"] + [f"slot {i}"
+                                                for i in range(4)], tracks
+    spans = [e for e in evs if e["ph"] == "X"]
+    assert spans and all(e["dur"] >= 0 and 1 <= e["tid"] <= 4
+                         for e in spans)
+    assert {"queue_depth", "active_slots", "pages_in_use"} <= {
+        e["name"] for e in evs if e["ph"] == "C"}
+    res = dict(trace=dict(STORM, n_arrivals=len(trace)),
+               ttft_p99_ms_target=STORM_TTFT_MS,
+               rungs_up=up, rung_changes=first["controller"]["rung_changes"],
+               sheds=first["controller"]["sheds"],
+               defers=first["controller"]["defers"],
+               by_state=first["requests"]["by_state"],
+               engine_steps=first["engine_steps"],
+               virtual=dict(ttft_ms=first["ttft_ms"],
+                            tpot_ms=first["tpot_ms"],
+                            queue_wait_ms=first["queue_wait_ms"]),
+               spec=first["spec"], chunked=first["chunked"],
+               paged=first["paged"], report_bytes=len(reports[0]),
+               reports_identical=True, perfetto_events=len(evs), **runs)
+    log("storm " + json.dumps(res))
+
+    # 9e: the wall clock
+    eng = storm_engine(S, cfg, model, draft, None, None)
+    reset_counts(dm)
+    t0 = time.perf_counter()
+    rep = S.Replayer(eng, trace, retry=S.RetryPolicy(backoff_s=0.0)).run()
+    wall = dict(run_s=time.perf_counter() - t0,
+                kernel_m=sorted(engine_kernel_m(eng)), **read_counts(dm))
+    S.validate_report(rep)
+    assert rep["ttft_ms"]["count"] > 0
+    wall.update({k: rep[k] for k in ("ttft_ms", "tpot_ms", "queue_wait_ms",
+                                     "elapsed_s", "engine_steps")},
+                by_state=rep["requests"]["by_state"], tokens=rep["tokens"],
+                spec=rep["spec"])
+    log("storm_wall_clock " + json.dumps(wall))
+    for k in ("ttft_ms", "tpot_ms", "queue_wait_ms"):
+        h = rep[k]
+        log(f"  {k}: p50 {h['p50']:.1f}  p90 {h['p90']:.1f}  p99 "
+            f"{h['p99']:.1f}  (n={h['count']})")
+    res["wall_clock"] = wall
+    return res
+
+
+def phase_control_plane(api, dm, serve_mod, cfg, model, draft, prompts,
+                        base, limit, host_gen):
+    """Phase 9: the serving control plane at full width (see the module
+    docstring); returns the records by sub-phase."""
+    t0 = time.perf_counter()
+    out = dict(
+        preempt_resume=phase_preempt_resume(api, dm, serve_mod, cfg, model,
+                                            prompts, base, limit),
+        guards_faults=phase_guards_faults(api, dm, serve_mod, cfg, model,
+                                          prompts, base, limit),
+        chunked=phase_chunked(api, dm, serve_mod, cfg, model, limit,
+                              host_gen),
+        storm=phase_storm(api, dm, serve_mod, cfg, model, draft))
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not __debug__:
         print("chip_smoke: run without -O; its checks are asserts",
@@ -1064,6 +1497,7 @@ def main() -> int:
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.models import api
     from repro_torch.models.modules import module_tensors
+    from repro_torch import serve as serve_mod
     from repro_torch.serve import ServingEngine, SpecConfig
 
     # 1. device
@@ -1107,8 +1541,22 @@ def main() -> int:
     paged = phase_paged_serve(api, dm, ServingEngine, SpecConfig, cfg, model,
                               prompts, serve, spec, spec_self, draft, limit,
                               host_gen)
+
+    # 9. the control plane: preempt/resume, guards and faults, chunked
+    # prefill, an overload storm under the SLO controller, the wall clock
+    control = phase_control_plane(api, dm, serve_mod, cfg, model, draft,
+                                  prompts, serve, limit, host_gen)
     del draft
     torch.cuda.empty_cache()
+    runs9 = {"preempt_resume": control["preempt_resume"],
+             "guards_faults": control["guards_faults"],
+             "chunked_monolithic": control["chunked"]["monolithic"],
+             "chunked": control["chunked"]["chunked"],
+             "storm_replay": control["storm"]["replay_0"],
+             "storm_replay_again": control["storm"]["replay_1"],
+             "storm_wall_clock": control["storm"]["wall_clock"]}
+    m9 = set().union(*(r["kernel_m"] for r in runs9.values()))
+    assert {1, 4 * (GAMMA // 2 + 1)} <= m9, sorted(m9)
 
     # 5. kernel vs plain version at the shapes the serve phase ran, on the
     # served model's first plan of each matrix shape (the "aligned" cases
@@ -1128,6 +1576,13 @@ def main() -> int:
     cases_new, max_err_new = phase_kernels(dm, ops, plan, ref, served,
                                            new_m, gen, host_gen)
     max_err = max(max_err, max_err_new)
+    # the M values only phase 9 gave K1, on its bf16 plans
+    new_m9 = sorted(m9 - set(serve["kernel_m"]) - set(new_m))
+    log(f"kernel checks at phase 9's M: {new_m9}")
+    cases_9, max_err_9 = phase_kernels(
+        dm, ops, plan, ref, served, new_m9, gen, host_gen,
+        modes=("aligned", "gathered"), dtypes=(torch.bfloat16,))
+    max_err = max(max_err, max_err_9)
 
     # 6. the same model and prompts with int8 activations (K1e)
     serve8 = phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts)
@@ -1153,6 +1608,13 @@ def main() -> int:
                                              new_m8, gen, host_gen,
                                              act="int8")
     max_err8 = max(max_err8, max_err8_new)
+    # and at phase 9's M values (K1e on the same bf16 plans)
+    new_m89 = sorted(m9 - set(serve8["kernel_m"]) - set(new_m8))
+    log(f"K1e checks at phase 9's M: {new_m89}")
+    cases8_9, max_err8_9 = phase_kernels(
+        dm, ops, plan, ref, served, new_m89, gen, host_gen, act="int8",
+        modes=("aligned", "gathered"), dtypes=(torch.bfloat16,))
+    max_err8 = max(max_err8, max_err8_9)
     del served
     torch.cuda.empty_cache()
 
@@ -1186,16 +1648,20 @@ def main() -> int:
     kernels = [
         record("dequant_matmul", "src/repro/kernels/dequant_matmul.py:92",
                serve, main_case(cases, serve["decode_m"]), max_err,
-               cases + cases_new, "main_path_launches"),
+               cases + cases_new + cases_9, "main_path_launches"),
         record("dequant_matmul_int8",
                "src/repro/kernels/dequant_matmul.py:160", serve8,
                main_case(cases8, serve8["decode_m"]), max_err8,
-               cases8 + cases8_new, "main_path_int8_launches"),
+               cases8 + cases8_new + cases8_9, "main_path_int8_launches"),
     ]
-    kernels[0]["checked_m"] = sorted(set(serve["kernel_m"]) | set(new_m))
-    kernels[1]["checked_m"] = sorted(set(serve8["kernel_m"]) | set(new_m8))
+    kernels[0]["checked_m"] = sorted(set(serve["kernel_m"]) | set(new_m)
+                                     | set(new_m9))
+    kernels[1]["checked_m"] = sorted(set(serve8["kernel_m"]) | set(new_m8)
+                                     | set(new_m89))
     assert set(qserve["spec"]["kernel_m"]) <= set(kernels[1]["checked_m"])
     assert set(spec["kernel_m"]) <= set(kernels[0]["checked_m"])
+    assert m9 <= set(kernels[0]["checked_m"])
+    assert m9 <= set(kernels[1]["checked_m"])
 
     def split(run):
         return dict(launches=run["main_path_launches"],
@@ -1204,7 +1670,9 @@ def main() -> int:
 
     kernels[0]["launches_by_path"] = dict(
         spec_serve=split(spec), spec_self_serve=split(spec_self),
-        **{tag: split(run) for tag, run in paged.items()})
+        **{tag: split(run) for tag, run in paged.items()},
+        **{tag: {k: run[k] for k in ("launches", "aligned", "gathered")}
+           for tag, run in runs9.items()})
     kernels[1]["launches_quantize_serve"] = qserve["main_path_int8_launches"]
     kernels[1]["launches_by_path"] = dict(
         quantize_serve=split(qserve), quantize_spec_serve=split(qserve["spec"]))

@@ -1,11 +1,13 @@
 """Serving launcher: quantize (optional) + batched engine demo (port of
-the quantize-then-serve, speculation and paging paths of
-``repro.launch.serve``).
+``repro.launch.serve`` without its mesh and contract flags).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1_7b \
       --smoke --bits 2.2 --act-dtype int8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1_7b \
       --smoke --bits 2.2 --spec-gamma 4 --kv-layout paged --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1_7b \
+      --smoke --inject-faults --chunk-tokens 16 --slo-ttft-p99-ms 200 \
+      --telemetry --stats --device cpu
 
 A random-init model (seed 0) is CLAQ-quantized in process when ``--bits``
 is given (calibration on 8 synthetic 64-token segments, K-Means with 6
@@ -15,10 +17,15 @@ iterations, GPTQ blocks of 32, Adaptive Precision for a fractional
 same calibration (``claq_quantize_with_draft``) for a quantized target,
 with K-Means + Outlier Reservation 0.1 for an fp one.  ``--kv-layout
 paged`` serves from a page pool (``--page-size``, ``--kv-pool-pages``,
-``--kv-dtype``).  ``--device`` defaults to ``cuda`` and raises without a
-card; pass ``cpu`` to run the kernels' plain versions.  The reference's
-other flags (meshes, lifecycle, telemetry, control) belong to later
-slices.
+``--kv-dtype``).  Requests go through ``submit()`` and the bounded
+admission queue (``--queue-depth``, ``--deadline-ms``); the control plane
+has ``--chunk-tokens``, ``--slo-ttft-p99-ms`` / ``--controller-mode`` /
+``--cost-model``, ``--guards``, ``--on-pressure``, ``--inject-faults`` /
+``--fault-seed`` (a seeded fault plan under a virtual clock), and
+``--telemetry`` / ``--replay-trace`` / ``--report-json`` /
+``--telemetry-trace`` / ``--stats``.  ``--device`` defaults to ``cuda``
+and raises without a card; pass ``cpu`` to run the kernels' plain
+versions.
 """
 from __future__ import annotations
 
@@ -36,7 +43,11 @@ from repro_torch.core import APConfig, CLAQConfig, ORConfig
 from repro_torch.data import calibration_set
 from repro_torch.launch.quantize import claq_quantize, claq_quantize_with_draft
 from repro_torch.models import api
-from repro_torch.serve import ServingEngine, SpecConfig
+from repro_torch.serve import (AdmissionController, AdmissionRejected,
+                               FaultInjector, Replayer, RetryPolicy,
+                               ServingEngine, SLOConfig, SpecConfig,
+                               StepClock, StepCostModel, Telemetry,
+                               build_report, load_trace, write_perfetto)
 
 
 def main(argv=None):
@@ -90,6 +101,62 @@ def main(argv=None):
                          "= per-token dynamic absmax quantization folded "
                          "into the kernel (changes numerics within the "
                          "bound of kernels/ref.ref_act_int8_bound)")
+    ap.add_argument("--queue-depth", type=int, default=0,
+                    help="bounded admission queue depth (0 = engine "
+                         "default, 2x slots); submissions beyond it see "
+                         "typed backpressure and wait in the launcher")
+    ap.add_argument("--deadline-ms", type=float, default=0,
+                    help="per-request SLO deadline; expired work is "
+                         "ABANDONED (queued or running), 0 = none")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="chunked prefill: split admitted prompts' prefill "
+                         "into chunks of this many tokens interleaved with "
+                         "decode (0 = monolithic; must divide --max-len)")
+    ap.add_argument("--slo-ttft-p99-ms", type=float, default=0,
+                    help="attach the SLO-guarded admission controller "
+                         "defending this p99 TTFT target via the "
+                         "degradation ladder (0 = off)")
+    ap.add_argument("--controller-mode", choices=("admission", "full"),
+                    default="full",
+                    help="controller ladder: 'admission' = defer/shed "
+                         "only; 'full' adds spec_half/spec_off/kv_int8 "
+                         "rungs (capability-gated)")
+    ap.add_argument("--cost-model", action="store_true",
+                    help="price each step from the work it ran (padded "
+                         "prefill tokens, decode/draft calls, verify "
+                         "span) — implied by --slo-ttft-p99-ms")
+    ap.add_argument("--guards", action="store_true",
+                    help="count non-finite logits per row each step; a "
+                         "non-finite row quarantines only its own request "
+                         "(FAILED + diagnostics)")
+    ap.add_argument("--on-pressure", choices=("preempt", "truncate"),
+                    default="preempt",
+                    help="cache-pressure policy: preempt (evict + resume, "
+                         "default) or truncate")
+    ap.add_argument("--inject-faults", action="store_true",
+                    help="drive the run under a seeded fault plan (NaN/Inf "
+                         "logits, pressure windows, transient step "
+                         "failures); implies --guards and a virtual clock "
+                         "so outcomes replay exactly")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the injected fault plan")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="attach the per-request span recorder — lifecycle "
+                         "events + TTFT/TPOT histograms, host-side only")
+    ap.add_argument("--replay-trace", metavar="PATH",
+                    help="drive submissions from this JSONL arrival trace "
+                         "instead of --requests (implies --telemetry; "
+                         "synthesize one with `python -m "
+                         "repro_torch.serve.replay`)")
+    ap.add_argument("--report-json", metavar="PATH",
+                    help="write the end-of-run scheduling report here "
+                         "(implies --telemetry)")
+    ap.add_argument("--telemetry-trace", metavar="PATH",
+                    help="write a Chrome/Perfetto trace_event JSON here "
+                         "(implies --telemetry)")
+    ap.add_argument("--stats", action="store_true",
+                    help="print the uniform metrics report at exit (every "
+                         "stats() counter through the metrics registry)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; no silent CPU "
                          "fallback)")
@@ -135,6 +202,25 @@ def main(argv=None):
         print(f"[serve] fp target + {drep.mean_effective_bits:.2f}-bit "
               f"CLAQ draft")
 
+    injector = None
+    clock = None
+    if args.inject_faults:
+        # faults imply guards (NaN injection must quarantine, not poison)
+        # and a virtual clock (deadline outcomes must replay exactly)
+        injector = FaultInjector(seed=args.fault_seed)
+        clock = StepClock()
+        print(f"[serve] fault plan (seed {args.fault_seed}): "
+              f"{json.dumps(injector.describe())}")
+    telemetry = (Telemetry()
+                 if (args.telemetry or args.replay_trace or args.report_json
+                     or args.telemetry_trace) else None)
+    controller = None
+    if args.slo_ttft_p99_ms > 0:
+        controller = AdmissionController(
+            SLOConfig(ttft_p99_ms=args.slo_ttft_p99_ms),
+            mode=args.controller_mode)
+    cost_model = (StepCostModel()
+                  if args.cost_model or controller is not None else None)
     paged = args.kv_layout == "paged"
     eng = ServingEngine(model, cfg, n_slots=args.slots,
                         max_len=args.max_len, min_bucket=args.min_bucket,
@@ -142,13 +228,28 @@ def main(argv=None):
                         draft_params=draft, spec=spec,
                         draft_plan_bn=args.draft_plan_bn or None,
                         draft_plan_bk=args.draft_plan_bk or None,
-                        act_dtype=args.act_dtype, kv_layout=args.kv_layout,
+                        act_dtype=args.act_dtype,
+                        guards=args.guards or args.inject_faults,
+                        faults=injector,
+                        queue_depth=args.queue_depth or None,
+                        on_pressure=args.on_pressure, clock=clock,
+                        kv_layout=args.kv_layout,
                         page_size=args.page_size if paged else None,
                         kv_pages=(args.kv_pool_pages or None) if paged
                         else None,
                         kv_dtype=(args.kv_dtype if paged
                                   and args.kv_dtype != "f32" else None),
+                        telemetry=telemetry,
+                        chunked_prefill=args.chunk_tokens or None,
+                        controller=controller, cost_model=cost_model,
                         device=device)
+    if controller is not None:
+        print(f"[serve] SLO controller: p99 TTFT target "
+              f"{args.slo_ttft_p99_ms:.0f}ms, ladder "
+              f"{'->'.join(controller.ladder)}")
+    if args.chunk_tokens:
+        print(f"[serve] chunked prefill: {args.chunk_tokens}-token chunks "
+              f"interleaved with decode")
     if paged:
         print(f"[serve] paged KV cache: page_size={eng.page_size}, "
               f"pool={eng.n_pages} pages, resident dtype "
@@ -159,25 +260,52 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     pending = [rng.integers(1, cfg.vocab, size=rng.integers(4, 12)).tolist()
                for _ in range(args.requests)]
+    # bounded retry absorbs the injected transient step failures; under
+    # the virtual clock the backoff never sleeps
+    retry = RetryPolicy(max_attempts=4,
+                        backoff_s=0.0 if injector is not None else 0.05)
     t0 = time.time()
     steps = 0
     step_tokens = 0
     t_decode = 0.0
-    while pending or eng.active:
-        if pending and eng.free:
-            n = min(len(pending), len(eng.free))
-            eng.add_requests(pending[:n], max_new_tokens=args.max_new)
-            del pending[:n]
-        ts = time.time()
-        emitted = eng.step()
-        if emitted:
-            steps += 1
-            step_tokens += sum(len(v) if isinstance(v, list) else 1
-                               for v in emitted.values())
-            t_decode += time.time() - ts
+    backpressure_waits = 0
+    fault_retries = 0
+    report = None
+    if args.replay_trace:
+        # trace-driven mode: the Replayer owns arrivals, stepping and the
+        # end-of-run report; --requests is ignored
+        trace = load_trace(args.replay_trace)
+        print(f"[serve] replaying {len(trace)} arrivals from "
+              f"{args.replay_trace}")
+        report = Replayer(eng, trace, retry=retry).run()
+        steps = report["driver_steps"]
+        backpressure_waits = report["scheduling"]["backpressure_waits"]
+        fault_retries = report["scheduling"]["transient_retries"]
+    else:
+        while pending or eng.active or len(eng.queue) or eng.pending_prefills:
+            while pending:
+                try:
+                    eng.submit(pending[0], max_new_tokens=args.max_new,
+                               deadline_ms=args.deadline_ms or None)
+                    pending.pop(0)
+                except AdmissionRejected:
+                    if not eng.active and not len(eng.queue):
+                        raise    # empty engine rejected it: will never fit
+                    backpressure_waits += 1  # queue full: drain first
+                    break
+            ts = time.time()
+            emitted, retries = retry.run(eng.step)
+            fault_retries += retries
+            if clock is not None:
+                clock.advance()
+            if emitted:
+                steps += 1
+                step_tokens += sum(len(v) if isinstance(v, list) else 1
+                                   for v in emitted.values())
+                t_decode += time.time() - ts
     finished = eng.take_finished()
     dt = time.time() - t0
-    total_tokens = sum(len(r.tokens) for r in finished.values())
+    total_tokens = sum(r.tokens_out for r in finished.values())
     st = eng.stats()
     print(f"[serve] {len(finished)} requests, {total_tokens} tokens, "
           f"{dt:.2f}s ({total_tokens / dt:.1f} tok/s)")
@@ -201,11 +329,41 @@ def main(argv=None):
               f"{pg['n_pages']}, prefix hits {pg['prefix_hits']}, "
               f"copy-on-write {pg['cow_copies']}, "
               f"{pg['bytes_per_page']} bytes a page")
-    print(f"[serve] lifecycle: {json.dumps(st['lifecycle'])}")
-    if eng.active:
+    nonterminal = len(eng.active) + st["queued"] + eng.pending_prefills
+    print(f"[serve] lifecycle: {json.dumps(st['lifecycle'])}, preemptions "
+          f"{st['preemptions']}, resumes {st['resumes']}, backpressure "
+          f"waits {backpressure_waits}, transient-fault retries "
+          f"{fault_retries}")
+    if telemetry is not None and report is None:
+        # non-replay run with telemetry on: the report the Replayer would
+        # have produced
+        report = build_report(
+            eng, elapsed=dt, driver_steps=steps,
+            extra={"backpressure_waits": backpressure_waits,
+                   "transient_retries": fault_retries,
+                   "expired_at_submit": 0, "rejected_unfittable": 0})
+    if report is not None:
+        tt, tp = report["ttft_ms"], report["tpot_ms"]
+        print(f"[serve] ttft_ms p50/p90/p99 = {tt['p50']:.2f}/"
+              f"{tt['p90']:.2f}/{tt['p99']:.2f}  tpot_ms p50/p90/p99 = "
+              f"{tp['p50']:.2f}/{tp['p90']:.2f}/{tp['p99']:.2f}  "
+              f"tokens/s/slot = {report['tokens']['per_s_per_slot']:.2f}")
+    if args.report_json:
+        with open(args.report_json, "w") as f:
+            json.dump(report, f, indent=2, sort_keys=True)
+        print(f"[serve] scheduling report -> {args.report_json}")
+    if args.telemetry_trace:
+        write_perfetto(args.telemetry_trace, telemetry)
+        print(f"[serve] perfetto trace -> {args.telemetry_trace} "
+              f"(open at ui.perfetto.dev)")
+    if args.stats:
+        print(eng.metrics().render(title="serve metrics"))
+    if nonterminal:
         raise SystemExit(
-            f"[serve] {len(eng.active)} requests never reached a terminal "
+            f"[serve] {nonterminal} requests never reached a terminal "
             f"state — lifecycle invariant violated")
+    if args.inject_faults:
+        print("[serve] fault plan survived: every request terminal")
     return st
 
 

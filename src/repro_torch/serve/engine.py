@@ -1,6 +1,9 @@
 """Batched serving engine (port of ``repro.serve.engine``): slot-based
 continuous batching over a fixed-size decode batch, with bucketed prefill
-admission into free slots, self-speculative decoding and a paged KV cache.
+admission into free slots, self-speculative decoding, a paged KV cache and
+the reference's control plane — the request lifecycle with preemption and
+resume, numeric guards and fault injection, chunked prefill, the SLO
+admission controller and telemetry.
 
 Admission pads each prompt to its power-of-2 length bucket
 (serve/bucketing.py) and prefills the prompts sharing a bucket in ONE
@@ -21,6 +24,44 @@ dequant-GEMM kernel, one launch per distinct bit-width.
 per-token dynamic int8 activations (``modules.activation_quant`` scopes
 prefill and decode; the scales ride each matmul's last launch).
 
+Request lifecycle (serve/lifecycle.py): every request carries an explicit
+state machine (QUEUED -> [PREFILLING ->] RUNNING -> {FINISHED, TRUNCATED,
+ABANDONED, FAILED, PREEMPTED}; PREEMPTED -> QUEUED) with an optional
+deadline and priority.  ``submit()`` enqueues into a bounded admission
+queue and raises typed ``AdmissionRejected`` backpressure when it is full;
+each ``step()`` first runs ``pump()``: deadline-expired work is ABANDONED
+(queued, prefilling or running — partial tokens are kept), cache pressure
+is applied, the controller decides, and free slots are filled from the
+queue (highest priority first, resumed work ahead of fresh).
+
+Preemption (``on_pressure="preempt"``, the default): when the effective
+slot-cache limit drops below a request's fill (``set_cache_pressure``, a
+fault plan's pressure window), when the page pool runs dry at decode, or
+when strictly-higher-priority work waits behind a full engine, the
+lowest-priority/youngest victim is PREEMPTED — its slot cleared by
+``_rollback_tail`` — and re-queued at the front.  Resume re-prefills the
+ORIGINAL prompt at batch 1, then replays the generated prefix through
+decode at batch 1, teacher-forced: the decode steps the uninterrupted run
+executed, so on the CPU a resumed request's tokens are bitwise an
+uninterrupted run's.  (Prefilling prompt + prefix would not be: prefill
+reduces attention blockwise with an online softmax, decode directly.)
+Truncation survives where resume is impossible (the fill reached
+``max_len``), under ``on_pressure="truncate"``, and for int8 resident
+pages and kv_int8 admissions, whose quantized history an fp replay cannot
+reproduce.
+
+Numeric guards (``guards=True``): one ``isfinite`` count per row of the
+prefill, decode and verify logits, brought to the host in the SAME
+transfer as the sampled tokens; a non-finite row quarantines ONLY its
+request (FAILED, with phase, count and engine step) — mid speculation
+window the slot is rolled back first.  ``faults=FaultInjector(...)``
+(serve/faults.py) adds its per-slot NaN/Inf vector to the logits on the
+device before the argmax and the guard (only at the steps its plan names:
+elsewhere the vector is zeros and adding it changes no bit), drives
+pressure windows, and raises planned transient ``EngineFault``s before
+any state changes, so a bounded-retry caller simply calls ``step()``
+again.  Engines without guards or faults run the same step as before.
+
 Self-speculative decoding (``draft_params=`` — the same checkpoint
 quantized at a lower bit-width from the same calibration, see
 ``launch.quantize.claq_quantize_with_draft`` — and ``spec=SpecConfig(γ)``):
@@ -30,7 +71,9 @@ greedy acceptance, and a per-slot rollback of both caches
 (``_rollback_tail``).  Retirement applies token by token in emission
 order, so a request retires at the token vanilla decode would retire it
 at.  The draft gets its own plans (``draft_plan_bn``/``draft_plan_bk``
-cap its tiles) and its own cache, prefilled beside the target's.
+cap its tiles) and its own cache, prefilled beside the target's.  The
+window's drafts, greedy tokens and guard counts come to the host in one
+transfer.
 
 Paged KV cache (``kv_layout="paged"``): each layer owns a page pool
 ``(n_pages + 1, page_size, ...)`` (the last row is the scratch page) and
@@ -38,19 +81,32 @@ every slot a page-table row, mirrored on the host and copied to the device
 before a step that reads it (``_sync_tables``).  Pages are allocated on
 demand — at admission for the prompt (all or nothing: ``PoolExhausted``
 leaves nothing admitted), before each step for the step's K/V writes
-(``_ensure_capacity``) — zeroed when fresh, and freed at retirement.
-Prefill stays contiguous; fragments are scattered into pages afterwards
-(``_paged_insert``).  Paged fp decode is bit-identical to contiguous
-decode: the gathered view has the contiguous cache's shape.
+(``_ensure_capacity``) — zeroed when fresh, and freed at retirement and
+preemption.  Prefill stays contiguous; fragments are scattered into pages
+afterwards (``_paged_insert``).  Paged fp decode is bit-identical to
+contiguous decode: the gathered view has the contiguous cache's shape.
 ``kv_dtype="int8"`` stores pages quantized per token row (scale/2 error
 per element, about 1/4 of fp32's bytes).  Requests sharing a prompt
 prefix share physical pages (``PrefixRegistry``, refcounted) and copy on
 write at their first write into a shared page.  Under pool pressure at
-decode time the port does what the reference does with
-``on_pressure="truncate"``: registry entries are evicted first, then the
-starved request retires TRUNCATED with ``pool_exhausted`` diagnostics (the
-reference's preemption under pool pressure comes with the lifecycle
-slice).
+decode, registry entries are evicted first, then victims are preempted;
+the starved request retires TRUNCATED (``pool_exhausted`` diagnostics)
+only when nothing preemptible is left.
+
+Chunked prefill (``chunked_prefill=C`` or a ``ChunkedPrefillConfig``):
+admission reserves slots (and pages) and the prompts prefill C tokens at a
+time into a contiguous fragment, interleaved with decode steps under a
+per-step token budget; the batched cache is written once, at completion.
+
+Overload control (``controller=AdmissionController(...)``, attached last
+in ``__init__``) walks a degradation ladder — ``spec_half`` (γ//2
+windows), ``spec_off`` (vanilla decode that keeps the draft cache
+filled), ``kv_int8`` (new admissions' K/V through int8-page numerics),
+``shed`` — and sets the chunk budget; ``cost_model=StepCostModel()``
+prices each step from the work it ran (``last_step_cost_ms``), which the
+replayer advances a ``StepClock`` by.  ``telemetry=Telemetry()`` records
+per-request spans at the reference's call sites; it only observes (no
+tensor is read for it).
 
 PyTorch runs eagerly, so there are no traces to count: ``prefill_traces``
 is the number of distinct (batch, bucket) prefill shapes run, and the
@@ -58,18 +114,15 @@ other ``*_traces`` counters of ``stats()`` the distinct shapes of their
 calls — the quantities the reference bounds by its trace counts.
 
 Port note — not accepted yet (each queued in ROADMAP.md): a device mesh
-(``mesh``), chunked prefill (``chunked_prefill``), numeric guards
-(``guards``), fault injection (``faults``), the queued admission path with
-backpressure, priorities, deadlines and preemption (``submit``,
-``queue_depth``, ``on_pressure``, ``clock``), the overload controller and
-cost model (``controller``, ``cost_model``), telemetry (``telemetry``) and
-the contract checker (``verify_contracts``).  Passing any of them raises
-``TypeError``; a family other than dense raises ``NotImplementedError``.
+(``mesh``) and the contract checker (``verify_contracts``); passing either
+raises ``TypeError``.  A family other than dense raises
+``NotImplementedError`` (so MLA chunked prefill is refused with MLA).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -85,11 +138,21 @@ from repro_torch.models import transformer as tf
 
 from . import lifecycle as lc
 from . import speculative
+from .admission import AdmissionController, StepCostModel
 from .bucketing import BucketingPolicy
-from .lifecycle import (AdmissionRejected, IncompleteRun, RequestState,
+from .chunked_prefill import ChunkedPrefillConfig, PrefillGroup
+from .faults import FaultInjector, nonfinite_rows
+from .lifecycle import (AdmissionQueue, AdmissionRejected, DeadlineExceeded,
+                        EngineFault, IncompleteRun, RequestState, RetryPolicy,
                         TERMINAL_STATES)
 from .paging import PageAllocator, PoolExhausted, PrefixRegistry
 from .speculative import SpecConfig
+from .telemetry import MetricsRegistry, Telemetry, registry_from_stats
+
+# Families whose caches are position-indexed and masked by a fill counter,
+# making right-padding invisible to valid tokens (the reference's gate for
+# bucketing and chunked prefill; the port serves dense only).
+_PADDED_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass
@@ -101,7 +164,20 @@ class Request:
     tokens: List[int] = dataclasses.field(default_factory=list)
     slot: int = -1
     state: RequestState = RequestState.QUEUED
+    priority: int = 0                   # higher preempts lower under load
+    deadline: Optional[float] = None    # absolute clock() time, or None
+    submitted_at: float = 0.0
+    preemptions: int = 0                # times this request was preempted
     diagnostics: Optional[Dict[str, Any]] = None
+    kv_int8: bool = False               # admitted under the kv_int8 rung:
+                                        # prefill K/V carries int8-page
+                                        # numerics, so no fp resume replay
+                                        # can reproduce it (non-preemptible)
+
+    @property
+    def tokens_out(self) -> int:
+        """Tokens emitted so far (the TPOT denominator is one less)."""
+        return len(self.tokens)
 
     @property
     def done(self) -> bool:
@@ -151,12 +227,12 @@ def _masked_group_insert(full: List[L.KVCache], frag: List[L.KVCache],
 def _rollback_tail(cache: List, new_lens) -> List:
     """Rewind every slot's fill counter to ``new_lens`` ((B,) ints) and,
     in a contiguous cache, zero the K/V positions at or past it, in place
-    — the per-slot rollback a rejected speculation window needs (a slot
-    whose length is 0 is cleared).  The rolled-back cache is bit-identical
-    to one that never saw the tail (the tail past a slot's fill is zero
-    from init and the masked insert).  A paged cache rewinds by its fill
-    counter alone: the tail's rows stay in their pages, hidden by the mask
-    and overwritten by the next window."""
+    — the per-slot rollback a rejected speculation window needs, and (with
+    a victim's length set to 0) the slot clear preemption needs.  The
+    rolled-back cache is bit-identical to one that never saw the tail (the
+    tail past a slot's fill is zero from init and the masked insert).  A
+    paged cache rewinds by its fill counter alone: the tail's rows stay in
+    their pages, hidden by the mask and overwritten by the next write."""
     dev = cache[0].length.device
     n = torch.as_tensor(np.asarray(new_lens), dtype=torch.int32, device=dev)
     out = []
@@ -170,6 +246,13 @@ def _rollback_tail(cache: List, new_lens) -> List:
     return out
 
 
+def _take_rows(frag: List[L.KVCache], rows: Sequence[int]) -> List[L.KVCache]:
+    """The fragment rows ``rows`` of a contiguous prefill fragment."""
+    idx = torch.as_tensor(list(rows), dtype=torch.long,
+                          device=frag[0].k.device)
+    return [L.KVCache(c.k[idx], c.v[idx], c.length[idx]) for c in frag]
+
+
 class ServingEngine:
     def __init__(self, params, cfg, n_slots: int = 8, max_len: int = 1024,
                  dtype=torch.float32, prepare: bool = True,
@@ -180,21 +263,37 @@ class ServingEngine:
                  draft_plan_bn: Optional[int] = None,
                  draft_plan_bk: Optional[int] = None,
                  act_dtype: Optional[str] = None,
+                 guards: bool = False,
+                 faults: Optional[FaultInjector] = None,
+                 queue_depth: Optional[int] = None,
+                 on_pressure: str = "preempt",
+                 clock=None,
                  kv_layout: str = "contiguous",
                  page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
-                 share_prefixes: bool = True, device="cuda"):
+                 share_prefixes: bool = True,
+                 telemetry: Optional[Telemetry] = None,
+                 chunked_prefill=None,
+                 controller: Optional[AdmissionController] = None,
+                 cost_model: Optional[StepCostModel] = None,
+                 device="cuda"):
         """``params``: a ``Transformer`` (``models.api.init_params`` or
         ``convert.from_numpy_tree``) on ``device``.  ``dtype`` is the KV
         cache's (of the prefill fragments, and of fp pages).  ``prepare``
         compiles quantized kernels into plans (in place); ``plan_bn`` /
         ``plan_bk`` cap the plan's block sizes.  ``act_dtype``: None/"f32",
         or "int8" (needs ``prepare``).  ``draft_params`` + ``spec``:
-        self-speculative decoding.  ``kv_layout="paged"`` with
-        ``page_size`` (default 16; divides ``max_len``), ``kv_pages``
-        (default: contiguous capacity), ``kv_dtype`` (None/"f32" or
-        "int8") and ``share_prefixes``: the paged KV cache."""
+        self-speculative decoding.  ``guards``/``faults``: numeric guards
+        and a seeded fault plan.  ``queue_depth`` bounds the admission
+        queue (default 2 * n_slots); ``on_pressure`` is "preempt" or
+        "truncate"; ``clock`` is the engine's monotonic clock (default
+        ``time.monotonic``; ``lifecycle.StepClock`` for replayable runs).
+        ``kv_layout="paged"`` with ``page_size`` (default 16; divides
+        ``max_len``), ``kv_pages`` (default: contiguous capacity),
+        ``kv_dtype`` (None/"f32" or "int8") and ``share_prefixes``: the
+        paged KV cache.  ``telemetry``, ``chunked_prefill``, ``controller``
+        and ``cost_model``: see the module docstring."""
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "ServingEngine serves decoder-only families; encdec "
@@ -204,6 +303,10 @@ class ServingEngine:
             raise ValueError(
                 "act_dtype='int8' needs ahead-of-time plans — drop "
                 "prepare=False (the int8 path runs on prepared leaves only)")
+        if on_pressure not in ("preempt", "truncate"):
+            raise ValueError(
+                f"on_pressure must be 'preempt' or 'truncate', got "
+                f"{on_pressure!r}")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be 'contiguous' or 'paged', got "
@@ -255,6 +358,26 @@ class ServingEngine:
                     "launch.quantize.claq_quantize_with_draft)")
         elif draft_params is not None:
             raise ValueError("draft_params given without spec=SpecConfig(...)")
+        # ---- chunked prefill (serve/chunked_prefill.py) ------------------
+        # Chunks ride the model's uniform-fill prefill branch, which only
+        # the linear-cache padded families have; the gate is hard.
+        self.chunked: Optional[ChunkedPrefillConfig] = None
+        if chunked_prefill is not None:
+            cpc = (chunked_prefill
+                   if isinstance(chunked_prefill, ChunkedPrefillConfig)
+                   else ChunkedPrefillConfig(chunk_tokens=int(chunked_prefill)))
+            if (cfg.family not in _PADDED_FAMILIES
+                    or cfg.attn_window is not None):
+                raise NotImplementedError(
+                    f"chunked prefill supports the padded linear-cache "
+                    f"families {_PADDED_FAMILIES} (family={cfg.family!r}, "
+                    f"attn_window={cfg.attn_window!r})")
+            if max_len % cpc.chunk_tokens:
+                raise ValueError(
+                    f"chunk_tokens={cpc.chunk_tokens} must divide max_len="
+                    f"{max_len}: the final chunk would run past the cache "
+                    f"end")
+            self.chunked = cpc
         tf.validate_family(cfg)
         self.device = dev_lib.resolve(device)
         prep_kw = {}
@@ -267,8 +390,44 @@ class ServingEngine:
         self.act_dtype = act_dtype
         self.n_slots = n_slots
         self.max_len = max_len
+        # ---- lifecycle / robustness knobs --------------------------------
+        self.guards = bool(guards)
+        self.faults = faults
+        self.on_pressure = on_pressure
+        self._clock = clock if clock is not None else time.monotonic
+        # Per-request span recorder (serve/telemetry.py): every hook call
+        # is guarded by ``is not None``, and it binds THIS engine's clock,
+        # so StepClock runs record deterministic timestamps.
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.attach(n_slots=n_slots, clock=self._clock)
+        self._pressure_limit: Optional[int] = None
+        # int8 resident pages cannot preempt: resume replays history
+        # through fp decode, which cannot reproduce the quantized K/V the
+        # uninterrupted run accumulated — pressure truncates instead
+        self._preemptible = self.kv_dtype != "int8"
+        self.queue = AdmissionQueue(
+            queue_depth if queue_depth is not None else max(2 * n_slots, 1))
         self.bucketing = BucketingPolicy(min_bucket=min_bucket,
                                          max_len=max_len, enabled=bucketing)
+        self._prefill_groups: List[PrefillGroup] = []
+        self.chunks_processed = 0
+        # ---- overload control plane (serve/admission.py) -----------------
+        self.controller = controller
+        self.cost_model = cost_model
+        self.last_step_cost_ms: Optional[float] = None
+        self._step_prefill_tokens = 0
+        self._step_decode_calls = 0
+        self._step_draft_calls = 0
+        self._step_verify_tokens = 0
+        # degradation-ladder knobs the controller drives; nominal values
+        # make an uncontrolled engine behave exactly as before
+        self._gamma_eff = spec.gamma if spec is not None else 0
+        self._spec_enabled = spec is not None
+        self._kv_int8_admission = False
+        # distinct speculative window sizes this engine may verify at
+        # (controller.attach adds γ//2 when the spec_half rung exists)
+        self.verify_gammas = {spec.gamma} if spec is not None else set()
         self._cache_dtype = dtype
         self._cache_kw: Dict[str, Any] = {}
         if self._paged:
@@ -317,19 +476,37 @@ class ServingEngine:
         self.last_token = np.zeros((n_slots,), np.int64)
         self._uid = 0
         # distinct operand shapes per call kind ("decode", "draft_prefill",
-        # "draft_decode", "verify"): the port's counterpart of the
-        # reference's per-jit trace counters
+        # "draft_decode", "verify", "chunk_prefill", "draft_chunk_prefill"):
+        # the port's counterpart of the reference's per-jit trace counters
         self.call_shapes: Dict[str, set] = collections.defaultdict(set)
         self.emitted_tokens = 0
         self.engine_steps = 0
         self.spec_drafted = 0
         self.spec_accepted = 0
+        # lifecycle counters: terminal states, preemption/resume traffic,
+        # and typed admission rejections (backpressure observed)
         self.state_counts: collections.Counter = collections.Counter()
+        self.preemptions = 0
+        self.resumes = 0
+        self.admission_rejections = 0
+
+        # The controller reads the engine's realized capabilities (spec,
+        # kv_dtype) to build its ladder and may extend verify_gammas, so
+        # it attaches last.
+        if controller is not None:
+            controller.attach(self)
 
     def _make_slot_cache(self) -> List:
         return api.make_cache(self.cfg, self.n_slots, self.max_len,
                               dtype=self._cache_dtype, device=self.device,
                               **self._cache_kw)
+
+    @property
+    def clock(self):
+        """The engine's injectable monotonic clock (``StepClock`` in
+        deterministic runs) — callers and the replayer read time through
+        this, never through the wall clock directly."""
+        return self._clock
 
     @property
     def prefill_traces(self) -> int:
@@ -408,20 +585,24 @@ class ServingEngine:
                     raise
                 self.page_evictions += 1
 
-    def _plan_pages(self, req: Request, n_tokens: int):
+    def _plan_pages(self, req: Request, n_tokens: int,
+                    exact_ok: bool = True):
         """Reserve the pages covering ``n_tokens`` resident positions for
         one request: shared prefix pages first (retained read-only from
         the registry), fresh private pages for the rest.  Returns
         ``(pages, table_row, write_row)`` — ``write_row`` marks the blocks
         the admission scatter may write (scratch everywhere else: shared
         pages stay read-only until COW).  All-or-nothing: on
-        ``PoolExhausted`` no reference survives."""
+        ``PoolExhausted`` no reference survives.  ``exact_ok=False``
+        (resume) shares only whole pages, since the resumed request's
+        tokens diverge inside the first partial page."""
         ps, scratch = self.page_size, self.allocator.scratch
         mp = self.max_len // ps
         nb = -(-n_tokens // ps)
         shared: List[int] = []
         if self.prefix_registry is not None:
-            _, shared = self.prefix_registry.lookup(req.prompt)
+            _, shared = self.prefix_registry.lookup(req.prompt,
+                                                    exact_ok=exact_ok)
             shared = shared[:nb]
         if shared:
             # retain BEFORE allocating: allocation may evict the donor's
@@ -444,9 +625,10 @@ class ServingEngine:
         return pages, row, wrow
 
     def _release_pages(self, req: Request) -> None:
-        """Drop a retiring request's page references and point its table
-        row back at scratch.  The stale device rows stay until the pages
-        are reallocated (and zeroed) — the mask already hides them."""
+        """Drop a retiring/preempted request's page references and point
+        its table row back at scratch.  The stale device rows stay until
+        the pages are reallocated (and zeroed) — the mask already hides
+        them."""
         if not self._paged:
             return
         pages = self._req_pages.pop(req.uid, None)
@@ -495,6 +677,39 @@ class ServingEngine:
             out.append(pl._replace(length=length))
         return out
 
+    def _insert(self, frag: List[L.KVCache], dfrag, slots: Sequence[int],
+                lens: Sequence[int], wrows, masked: bool) -> None:
+        """Write prefill fragment rows (and the draft's) into the slot
+        caches: the masked insert, or the paged scatter with ``wrows``."""
+        if self._paged:
+            self.cache = self._paged_insert(self.cache, frag, slots, lens,
+                                            wrows)
+            if dfrag is not None:
+                self.draft_cache = self._paged_insert(
+                    self.draft_cache, dfrag, slots, lens, wrows)
+        else:
+            self.cache = _masked_group_insert(self.cache, frag, slots, lens,
+                                              masked)
+            if dfrag is not None:
+                self.draft_cache = _masked_group_insert(
+                    self.draft_cache, dfrag, slots, lens, masked)
+
+    def _bind_pages(self, reqs: Sequence[Request], slots: Sequence[int],
+                    plans: Dict[int, Any]) -> None:
+        """After a paged insert: point the slots' table rows at the
+        requests' planned pages and register their prompts for sharing
+        (never a fake-quantized prefix on an fp pool: a nominal sharer
+        would read kv_int8 numerics)."""
+        for req, slot in zip(reqs, slots):
+            pages, row, _ = plans[req.uid]
+            self._tables[slot] = row
+            self._req_pages[req.uid] = list(pages)
+            if (self.prefix_registry is not None
+                    and not (req.kv_int8 and self.kv_dtype != "int8")):
+                self.prefix_registry.register(req.prompt, pages)
+            self._note_page_peaks(req)
+        self._tables_dirty = True
+
     # ------------------------------------------------------------------ admit
     @staticmethod
     def _fill(req: Request) -> int:
@@ -504,7 +719,8 @@ class ServingEngine:
         return len(req.prompt) + len(req.tokens) - 1
 
     def _make_request(self, prompt: Sequence[int], max_new_tokens: int,
-                      eos_id: Optional[int]) -> Request:
+                      eos_id: Optional[int], priority: int,
+                      deadline_ms: Optional[float]) -> Request:
         prompt = list(prompt)
         if len(prompt) == 0:
             raise AdmissionRejected("empty prompt")
@@ -515,9 +731,37 @@ class ServingEngine:
                 f"{self.max_len}; shorten the prompt, lower "
                 f"max_new_tokens, or build the engine with a larger "
                 f"max_len")
-        req = Request(self._uid, prompt, max_new_tokens, eos_id)
+        now = self._clock()
+        deadline = None
+        if deadline_ms is not None:
+            if deadline_ms <= 0:
+                raise DeadlineExceeded(
+                    f"deadline_ms={deadline_ms} is already expired at "
+                    f"submission")
+            deadline = now + deadline_ms / 1e3
+        req = Request(self._uid, prompt, max_new_tokens, eos_id,
+                      priority=priority, deadline=deadline, submitted_at=now)
         self._uid += 1
         return req
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
+               eos_id: Optional[int] = None, priority: int = 0,
+               deadline_ms: Optional[float] = None) -> int:
+        """Enqueue one request into the bounded admission queue (the
+        backpressure path — ``AdmissionRejected`` when the queue is full
+        or the request can never fit, ``DeadlineExceeded`` when its SLO
+        is already blown).  Admission into a free slot happens at the
+        next ``step()``/``pump()``; returns the uid."""
+        try:
+            req = self._make_request(prompt, max_new_tokens, eos_id,
+                                     priority, deadline_ms)
+            self.queue.push(req)
+        except AdmissionRejected:
+            self.admission_rejections += 1
+            raise
+        if self.telemetry is not None:
+            self.telemetry.on_submit(req, self.engine_steps)
+        return req.uid
 
     def add_request(self, prompt: Sequence[int], max_new_tokens: int = 16,
                     eos_id: Optional[int] = None) -> int:
@@ -525,18 +769,24 @@ class ServingEngine:
 
     def add_requests(self, prompts: Sequence[Sequence[int]],
                      max_new_tokens: int = 16,
-                     eos_id: Optional[int] = None) -> List[int]:
-        """Admit prompts directly into free slots; those sharing a length
-        bucket are prefilled in one batched call.  Returns uids in prompt
-        order (an immediate EOS or a one-token budget retires at
-        admission — look in ``finished``).  A paged engine whose pool
-        cannot hold every prompt raises ``PoolExhausted`` and admits
-        none."""
+                     eos_id: Optional[int] = None, priority: int = 0,
+                     deadline_ms: Optional[float] = None) -> List[int]:
+        """Admit prompts directly into free slots (bypassing the queue);
+        those sharing a length bucket are prefilled in one batched call.
+        Returns uids in prompt order (an immediate EOS or a one-token
+        budget retires at admission — look in ``finished``).  Raises typed
+        ``AdmissionRejected`` when the slots don't exist — use
+        ``submit()`` for queued, backpressured admission.  A paged engine
+        whose pool cannot hold every prompt raises ``PoolExhausted`` and
+        admits none."""
         if len(prompts) > len(self.free):
             raise AdmissionRejected(
                 f"need {len(prompts)} free slots, have {len(self.free)}")
-        reqs = [self._make_request(p, max_new_tokens, eos_id)
-                for p in prompts]
+        reqs = [self._make_request(p, max_new_tokens, eos_id, priority,
+                                   deadline_ms) for p in prompts]
+        if self.telemetry is not None:
+            for req in reqs:
+                self.telemetry.on_submit(req, self.engine_steps)
         self._admit(reqs)
         return [r.uid for r in reqs]
 
@@ -552,8 +802,27 @@ class ServingEngine:
                 frag, logits_at=torch.as_tensor(lens - 1,
                                                 device=self.device))
 
+    def _sample(self, logits: torch.Tensor):
+        """Greedy tokens of ``logits`` (B, ..., V) and, with guards, the
+        per-row non-finite counts — brought to the host in ONE transfer.
+        Returns (tokens, counts or None) as numpy."""
+        nxt = logits.argmax(dim=-1)
+        if not self.guards:
+            return nxt.cpu().numpy(), None
+        nf = nonfinite_rows(logits).to(nxt.dtype)
+        host = torch.cat([nxt.reshape(nxt.shape[0], -1), nf[:, None]],
+                         dim=1).cpu().numpy()
+        return host[:, :-1].reshape(nxt.shape), host[:, -1]
+
     @torch.no_grad()
     def _admit(self, reqs: List[Request]) -> None:
+        """Prefill-admit fresh requests into free slots, grouped by length
+        bucket (one batched prefill per group).  Chunked engines route to
+        ``_admit_chunked``: slots are reserved now, prefill happens chunk
+        by chunk across subsequent steps."""
+        if self.chunked is not None:
+            self._admit_chunked(reqs)
+            return
         groups: Dict[int, List[int]] = {}
         for i, req in enumerate(reqs):
             groups.setdefault(self.bucketing.bucket_for(len(req.prompt)),
@@ -569,7 +838,9 @@ class ServingEngine:
                 for pages, _, _ in plans.values():
                     self.allocator.free(pages)
                 raise
+        tel = self.telemetry
         for bucket, idxs in groups.items():
+            t0 = tel.now() if tel is not None else 0.0
             B = len(idxs)
             # batch size bucketed too (next power of 2, capped at n_slots);
             # dummy tail rows prefill padding that is never inserted
@@ -584,48 +855,330 @@ class ServingEngine:
             dfrag = None
             if self.spec is not None:
                 # the draft needs the prompt in ITS cache too: its first
-                # proposal continues from the target-sampled first token
+                # proposal continues from the target's first token
                 self.call_shapes["draft_prefill"].add((Bb, bucket))
                 _, dfrag = self._prefill(self.draft_params, toks, lens)
-            firsts = logits.argmax(dim=-1).cpu().numpy()
+            self._step_prefill_tokens += Bb * bucket * (
+                2 if self.spec is not None else 1)
+            if self._kv_int8_admission:
+                # kv_int8 degradation rung: admit through int8 resident-page
+                # numerics (the pool quantizes anyway when it is int8);
+                # always mark the request so preemption skips it
+                for i in idxs:
+                    reqs[i].kv_int8 = True
+                if self.kv_dtype != "int8":
+                    frag = self._fake_quant_frag(frag)
+                    if dfrag is not None:
+                        dfrag = self._fake_quant_frag(dfrag)
+            firsts, nf_h = self._sample(logits)
             slots = [self.free.pop(0) for _ in idxs]
             true_lens = lens[:B].tolist()
+            wrows = (np.stack([plans[reqs[i].uid][2] for i in idxs])
+                     if self._paged else None)
+            self._insert(frag, dfrag, slots, true_lens, wrows,
+                         self.bucketing.enabled)
             if self._paged:
-                wrows = np.stack([plans[reqs[i].uid][2] for i in idxs])
-                self.cache = self._paged_insert(self.cache, frag, slots,
-                                                true_lens, wrows)
-                if dfrag is not None:
-                    self.draft_cache = self._paged_insert(
-                        self.draft_cache, dfrag, slots, true_lens, wrows)
-                for r, i in enumerate(idxs):
-                    req = reqs[i]
-                    pages, row, _ = plans[req.uid]
-                    self._tables[slots[r]] = row
-                    self._req_pages[req.uid] = list(pages)
-                    if self.prefix_registry is not None:
-                        self.prefix_registry.register(req.prompt, pages)
-                    self._note_page_peaks(req)
-                self._tables_dirty = True
-            else:
-                masked = self.bucketing.enabled
-                self.cache = _masked_group_insert(self.cache, frag, slots,
-                                                  true_lens, masked)
-                if dfrag is not None:
-                    self.draft_cache = _masked_group_insert(
-                        self.draft_cache, dfrag, slots, true_lens, masked)
+                self._bind_pages([reqs[i] for i in idxs], slots, plans)
+            if tel is not None:
+                tel.on_admit([reqs[i].uid for i in idxs], slots, bucket,
+                             Bb, tel.now() - t0, self.engine_steps)
             for r, i in enumerate(idxs):
                 req = reqs[i]
                 req.slot = slots[r]
                 req.transition(RequestState.RUNNING)
                 self.active[req.uid] = req
-                self._append_token(req, int(firsts[r]))
+                if nf_h is not None and nf_h[r] > 0:
+                    # non-finite prompt logits: quarantine at admission —
+                    # no first token is sampled from garbage
+                    self._quarantine(req, "prefill", int(nf_h[r]))
+                else:
+                    self._append_token(req, int(firsts[r]))
+
+    # ------------------------------------------------------- chunked prefill
+    def _admit_chunked(self, reqs: List[Request]) -> None:
+        """Reserve slots and open a ``PrefillGroup``: the prompts prefill
+        chunk by chunk across subsequent steps (``_process_chunks``) and
+        the batched cache is only written at completion, so a
+        mid-``PREFILLING`` preempt needs no rollback.  Paged pools reserve
+        every page up front, all or nothing, as ``_admit`` does."""
+        plans: Dict[int, Any] = {}
+        if self._paged:
+            try:
+                for req in reqs:
+                    plans[req.uid] = self._plan_pages(req, len(req.prompt))
+            except PoolExhausted:
+                for pages, _, _ in plans.values():
+                    self.allocator.free(pages)
+                raise
+        tel = self.telemetry
+        B = len(reqs)
+        Bb = min(1 << (B - 1).bit_length(), self.n_slots)
+        frag = api.make_cache(self.cfg, Bb, self.max_len,
+                              dtype=self._cache_dtype, device=self.device)
+        draft_frag = None
+        if self.spec is not None:
+            draft_frag = api.make_cache(self.cfg, Bb, self.max_len,
+                                        dtype=self._cache_dtype,
+                                        device=self.device)
+        slots = [self.free.pop(0) for _ in reqs]
+        group = PrefillGroup(
+            reqs=list(reqs), slots=slots,
+            lens=[len(r.prompt) for r in reqs], bb=Bb, frag=frag,
+            draft_frag=draft_frag, plans=plans,
+            t0=tel.now() if tel is not None else 0.0)
+        for req, slot in zip(reqs, slots):
+            req.slot = slot
+            req.transition(RequestState.PREFILLING)
+            if self._paged:
+                # pages live in _req_pages from reservation on, so the
+                # one release path covers cancel mid-prefill and retire
+                self._req_pages[req.uid] = list(plans[req.uid][0])
+        self._prefill_groups.append(group)
+
+    @property
+    def pending_prefills(self) -> int:
+        """Live requests currently mid-chunked-prefill."""
+        return sum(len(g.live_rows()) for g in self._prefill_groups)
+
+    @property
+    def prefill_backlog_tokens(self) -> int:
+        """Padded prefill tokens still owed to pending groups — the
+        controller's defer signal."""
+        if self.chunked is None:
+            return 0
+        C = self.chunked.chunk_tokens
+        return sum(g.bb * C * g.chunks_remaining(C)
+                   for g in self._prefill_groups)
+
+    def _process_chunks(self) -> None:
+        """Advance pending prefill groups by whole chunks, head group
+        first, under the per-step padded-token budget (controller budget
+        when attached, else the config's).  At least one chunk runs per
+        step — progress is unconditional — and a group that finishes is
+        completed immediately so its first tokens land this step."""
+        if not self._prefill_groups:
+            return
+        C = self.chunked.chunk_tokens
+        if self.controller is not None:
+            budget = self.controller.prefill_budget()
+        else:
+            budget = self.chunked.budget_tokens
+        spent = 0
+        progressed = False
+        while self._prefill_groups:
+            g = self._prefill_groups[0]
+            if not g.live_rows() or g.done:
+                self._prefill_groups.pop(0)
+                self._finish_group(g)
+                continue
+            cost = g.bb * C
+            if budget is not None and progressed and spent + cost > budget:
+                break
+            self._run_chunk(g, C)
+            spent += cost
+            progressed = True
+            if g.done:
+                self._prefill_groups.pop(0)
+                self._finish_group(g)
+
+    @torch.no_grad()
+    def _run_chunk(self, g: PrefillGroup, C: int) -> None:
+        """Run one ``(bb, C)`` chunk for a group: every live row advances
+        C positions in the fragment cache.  Rows whose TRUE last prompt
+        token falls inside this chunk stash their first-token argmax (and
+        guard count) for completion; other rows' chunk logits are padding
+        and are ignored, as monolithic prefill ignores all but the last
+        position."""
+        start = g.progress
+        toks = np.zeros((g.bb, C), np.int64)
+        for i in g.live_rows():
+            seg = g.reqs[i].prompt[start:start + C]
+            toks[i, :len(seg)] = seg
+        lens = np.ones((g.bb,), np.int64)
+        for i, n in enumerate(g.lens):
+            lens[i] = n
+        self.call_shapes["chunk_prefill"].add((g.bb, C))
+        toks_d = torch.as_tensor(toks, device=self.device)
+        with nn.activation_quant(self.act_dtype):
+            logits, g.frag = api.prefill_step(
+                self.params, self.cfg, {"tokens": toks_d}, g.frag,
+                logits_at=torch.as_tensor(np.clip(lens - 1 - start, 0, C - 1),
+                                          device=self.device))
+            if self.spec is not None:
+                self.call_shapes["draft_chunk_prefill"].add((g.bb, C))
+                _, g.draft_frag = api.prefill_step(
+                    self.draft_params, self.cfg, {"tokens": toks_d},
+                    g.draft_frag)
+        g.progress = start + C
+        self.chunks_processed += 1
+        self._step_prefill_tokens += g.bb * C * (
+            2 if self.spec is not None else 1)
+        fin = [i for i in g.live_rows() if start <= g.lens[i] - 1 < start + C]
+        if fin:
+            firsts, nf_h = self._sample(logits)
+            for i in fin:
+                g.firsts[i] = int(firsts[i])
+                if nf_h is not None:
+                    g.nf[i] = int(nf_h[i])
+        if self.telemetry is not None:
+            live = g.live_rows()
+            self.telemetry.on_chunk(
+                [g.reqs[i].uid for i in live],
+                [g.slots[i] for i in live], start, C, g.bb,
+                self.engine_steps)
+
+    @torch.no_grad()
+    def _finish_group(self, g: PrefillGroup) -> None:
+        """Complete a finished group: insert the fragment rows of every
+        surviving member into the slot caches (the same masked insert /
+        paged scatter as monolithic admission), transition them
+        PREFILLING -> RUNNING, and release their stashed first tokens."""
+        rows = g.live_rows()
+        if not rows:
+            return
+        tel = self.telemetry
+        reqs = [g.reqs[i] for i in rows]
+        slots = [g.slots[i] for i in rows]
+        lens = [g.lens[i] for i in rows]
+        sel = _take_rows(g.frag, rows)
+        dsel = _take_rows(g.draft_frag, rows) if g.draft_frag is not None \
+            else None
+        if self._kv_int8_admission:
+            for req in reqs:
+                req.kv_int8 = True
+            if self.kv_dtype != "int8":
+                sel = self._fake_quant_frag(sel)
+                if dsel is not None:
+                    dsel = self._fake_quant_frag(dsel)
+        wrows = (np.stack([g.plans[r.uid][2] for r in reqs])
+                 if self._paged else None)
+        # always masked: the fragment fill is chunk-padded past each row's
+        # true length, so the tail must be zeroed on insert
+        self._insert(sel, dsel, slots, lens, wrows, True)
+        if self._paged:
+            # real data lands in the pages only now: registering the
+            # prefix any earlier would let a sharer read garbage
+            self._bind_pages(reqs, slots, g.plans)
+        if tel is not None:
+            tel.on_admit([r.uid for r in reqs], slots, g.progress, g.bb,
+                         tel.now() - g.t0, self.engine_steps)
+        for req, i in zip(reqs, rows):
+            req.transition(RequestState.RUNNING)
+            self.active[req.uid] = req
+            nfc = g.nf.get(i, 0)
+            if nfc > 0:
+                self._quarantine(req, "prefill", nfc)
+            else:
+                self._append_token(req, g.firsts[i])
+
+    def _fake_quant_frag(self, frag: List[L.KVCache]) -> List[L.KVCache]:
+        """Round-trip a fragment's K/V through the int8 resident-page
+        numerics (per-token-row absmax/127, the quantizer the paged pool
+        applies on write) — the kv_int8 rung's operating point for fp
+        pools."""
+        def fq(t):
+            xq, sc = kops.quantize_activations(
+                t.reshape(t.shape[0], t.shape[1], -1).float())
+            return (xq.float() * sc).reshape(t.shape).to(t.dtype)
+        return [L.KVCache(fq(c.k), fq(c.v), c.length) for c in frag]
+
+    def _preempt_prefilling(self, req: Request, reason: str) -> None:
+        """Preempt a mid-``PREFILLING`` request: drop its fragment
+        progress and re-queue at the front.  No cache rollback — the slot
+        row was never written — so only the reservation unwinds.  The
+        caller cancels it from its group first."""
+        if self.telemetry is not None:
+            self.telemetry.on_preempt([(req.uid, req.slot)], reason,
+                                      self.engine_steps)
+        req.transition(RequestState.PREEMPTED)
+        req.preemptions += 1
+        self.preemptions += 1
+        self._release_pages(req)
+        self.free.append(req.slot)
+        req.slot = -1
+        req.transition(RequestState.QUEUED)
+        self.queue.push_front(req)
+
+    @torch.no_grad()
+    def _admit_resume(self, req: Request) -> None:
+        """Resume a preempted request into a free slot: bucketed prefill
+        of the ORIGINAL prompt at batch 1, then a teacher-forced decode
+        replay of the generated prefix at batch 1 — the decode steps the
+        uninterrupted run already executed — and one insert of the
+        rebuilt fragment.  Replay runs fault-free (injection targets
+        engine steps; catch-up re-executes history that ran cleanly)."""
+        P, toks = req.prompt, req.tokens
+        n = len(P)
+        fill = n + len(toks) - 1
+        tel = self.telemetry
+        t0 = tel.now() if tel is not None else 0.0
+        # Paged: reserve the resumed fill's pages BEFORE any replay work —
+        # PoolExhausted must leave the request untouched (still QUEUED) so
+        # _pump_queue can park it at the queue front.  Only whole prefix
+        # pages are shared: the replayed decode writes land past them.
+        plan = None
+        if self._paged:
+            plan = self._plan_pages(req, fill, exact_ok=False)
+        bucket = self.bucketing.bucket_for(n)
+        ta = np.zeros((1, bucket), np.int64)
+        ta[0, :n] = P
+        self.bucketing.record(1, bucket)
+        lens = np.array([n], np.int64)
+        _, frag = self._prefill(self.params, ta, lens)
+        if bucket != n:
+            # the masked insert's padding fix: zero the padded K/V tail,
+            # pin the fill counter to n
+            frag = _rollback_tail(frag, lens)
+        dfrag = None
+        if self.spec is not None:
+            self.call_shapes["draft_prefill"].add((1, bucket))
+            _, dfrag = self._prefill(self.draft_params, ta, lens)
+            if bucket != n:
+                dfrag = _rollback_tail(dfrag, lens)
+        with nn.activation_quant(self.act_dtype):
+            for t in toks[:-1]:
+                tok = torch.tensor([t], dtype=torch.long, device=self.device)
+                self.call_shapes["decode"].add((1,))
+                _, frag = api.decode_step(self.params, self.cfg, tok, frag)
+                self._step_decode_calls += 1
+                if self.spec is not None:
+                    self.call_shapes["draft_decode"].add((1,))
+                    _, dfrag = api.decode_step(self.draft_params, self.cfg,
+                                               tok, dfrag)
+                    self._step_draft_calls += 1
+        self._step_prefill_tokens += bucket * (
+            2 if self.spec is not None else 1)
+        slot = self.free.pop(0)
+        self._insert(frag, dfrag, [slot], [fill],
+                     plan[2][None] if plan is not None else None, False)
+        if self._paged:
+            pages, row, _ = plan
+            self._tables[slot] = row
+            self._req_pages[req.uid] = list(pages)
+            self._tables_dirty = True
+            self._note_page_peaks(req)
+        req.slot = slot
+        req.transition(RequestState.RUNNING)
+        self.active[req.uid] = req
+        self.last_token[slot] = toks[-1]
+        self.resumes += 1
+        if tel is not None:
+            tel.on_resume(req.uid, slot, max(len(toks) - 1, 0),
+                          tel.now() - t0, self.engine_steps)
 
     # -------------------------------------------------------------- lifecycle
     def _retire(self, req: Request,
                 state: RequestState = RequestState.FINISHED,
                 diagnostics: Optional[Dict[str, Any]] = None) -> None:
+        """Move a request (active or queued) to ``finished`` in a terminal
+        state and recycle its slot — the one retirement bookkeeping for
+        budget/EOS, truncation, abandonment, shedding and quarantine."""
         if diagnostics is not None:
             req.diagnostics = diagnostics
+        if self.telemetry is not None:
+            # before the slot recycle: the event carries the slot the
+            # request retired from (-1 for queued work)
+            self.telemetry.on_retire(req, state, self.engine_steps)
         req.transition(state)
         self._release_pages(req)
         if req.slot >= 0:
@@ -635,24 +1188,98 @@ class ServingEngine:
         self.finished[req.uid] = req
         self.state_counts[state.value] += 1
 
+    def _quarantine(self, req: Request, phase: str, count: int) -> None:
+        """Numeric-guard quarantine: FAIL only the offending request, with
+        diagnostics, while the rest of the batch proceeds."""
+        self._retire(req, RequestState.FAILED, diagnostics={
+            "kind": "nonfinite_logits", "phase": phase,
+            "nonfinite": count, "engine_step": self.engine_steps})
+
     def _append_token(self, req: Request, t: int) -> None:
         """Append a sampled token and apply retirement (budget / EOS) — the
         one place the check lives, prefill's first token included."""
         req.tokens.append(t)
         self.last_token[req.slot] = t
+        if self.telemetry is not None:
+            self.telemetry.on_token(req, self.engine_steps)
         if (len(req.tokens) >= req.max_new_tokens
                 or (req.eos_id is not None and t == req.eos_id)):
             self._retire(req, RequestState.FINISHED)
 
+    def set_cache_pressure(self, limit: Optional[int]) -> None:
+        """Force an effective slot-cache limit below ``max_len`` (None
+        releases it).  Requests whose fill reaches the limit are preempted
+        (or truncated under ``on_pressure="truncate"``) at the next step;
+        the fault injector applies the same mechanism from its seeded
+        pressure windows."""
+        if limit is not None and limit < 2:
+            raise ValueError(f"pressure limit must be >= 2, got {limit}")
+        self._pressure_limit = limit
+
+    def _effective_limit(self, step_idx: int) -> int:
+        limit = self.max_len
+        if self._pressure_limit is not None:
+            limit = min(limit, self._pressure_limit)
+        if self.faults is not None:
+            fp = self.faults.pressure(step_idx, self.max_len)
+            if fp is not None:
+                limit = min(limit, fp)
+        return limit
+
+    def _victim_order(self) -> List[Request]:
+        """Preemption order: lowest priority first, youngest (largest uid)
+        within a priority — the cheapest work to redo."""
+        return sorted(self.active.values(),
+                      key=lambda r: (r.priority, -r.uid))
+
+    def _preempt(self, victims: List[Request], reason: str) -> None:
+        """Evict ``victims`` from their slots and re-queue them (front,
+        bound-exempt) for a resume.  The slot caches are cleared with ONE
+        rollback — victims' lengths pinned to 0 (K/V zeroed), surviving
+        slots at their true fill (a no-op for them) — so a recycled slot
+        is indistinguishable from a never-used one."""
+        if self.telemetry is not None:
+            self.telemetry.on_preempt([(r.uid, r.slot) for r in victims],
+                                      reason, self.engine_steps)
+        for req in victims:
+            req.transition(RequestState.PREEMPTED)
+            req.preemptions += 1
+            self.preemptions += 1
+            del self.active[req.uid]
+            self._release_pages(req)
+            self.free.append(req.slot)
+            req.slot = -1
+        lens = np.zeros((self.n_slots,), np.int32)
+        for r in self.active.values():
+            lens[r.slot] = self._fill(r)
+        self.cache = _rollback_tail(self.cache, lens)
+        if self.spec is not None:
+            self.draft_cache = _rollback_tail(self.draft_cache, lens)
+        for req in victims:
+            req.transition(RequestState.QUEUED)
+            self.queue.push_front(req)
+
     # ---------------------------------------------------------- decode pages
     def _alloc_decode_page(self, req: Request) -> int:
-        """One fresh page for a running request's next K/V write, evicting
-        registry entries first; ``PoolExhausted`` propagates when none
-        remain (the reference's preemption under pool pressure comes with
-        the lifecycle slice)."""
-        page = self._alloc_evicting(1)[0]
-        self._note_page_peaks()
-        return page
+        """One fresh page for a running request's next K/V write: evict
+        registry entries first, then preempt victims (policy permitting)
+        until the pool yields a page; ``PoolExhausted`` propagates when
+        nothing preemptible remains."""
+        while True:
+            try:
+                page = self._alloc_evicting(1)[0]
+                self._note_page_peaks()
+                return page
+            except PoolExhausted:
+                # kv_int8 admissions are excluded: an fp prefix replay at
+                # resume cannot reproduce their quantized cache history
+                victims = [r for r in self._victim_order()
+                           if r.uid != req.uid and not r.kv_int8]
+                if (victims and self._preemptible
+                        and self.on_pressure == "preempt"):
+                    self._preempt(victims[:1], reason="pool_exhausted")
+                    continue
+                raise
 
     def _reserve_blocks(self, req: Request, horizon: int,
                         cow: List, fresh: List) -> None:
@@ -661,9 +1288,9 @@ class ServingEngine:
         pages (queued in ``fresh`` for zeroing), shared blocks (refcount >
         1) are replaced by private copies (queued in ``cow``) with the
         shared reference dropped — copy-on-write at the first write into
-        shared territory.  Entries are uid-tagged: a later retirement may
-        free and recycle pages queued earlier, and the caller filters
-        stale entries by current ownership."""
+        shared territory.  Entries are uid-tagged: a preemption triggered
+        by a later allocation may free and recycle pages queued earlier,
+        and the caller filters stale entries by current ownership."""
         ps, scratch = self.page_size, self.allocator.scratch
         fill = self._fill(req)
         lo = fill // ps
@@ -692,14 +1319,16 @@ class ServingEngine:
         """Pre-step page reservation: every block the next ``horizon`` K/V
         writes touch must be private and allocated before the step runs
         (the model routes out-of-table writes to the scratch page).  Under
-        exhaustion the starved request retires TRUNCATED with
-        ``pool_exhausted`` diagnostics — typed, observable backpressure."""
+        exhaustion with nothing preemptible the starved request retires
+        TRUNCATED with ``pool_exhausted`` diagnostics."""
         if not self._paged or not self.active:
             return
         cow: List = []
         fresh: List = []
         for uid in sorted(self.active):
-            req = self.active[uid]
+            req = self.active.get(uid)
+            if req is None:      # preempted by an earlier iteration's alloc
+                continue
             try:
                 self._reserve_blocks(req, horizon, cow, fresh)
             except PoolExhausted:
@@ -708,8 +1337,8 @@ class ServingEngine:
                     "pages_in_use": self.allocator.pages_in_use,
                     "n_pages": self.allocator.n_pages,
                     "engine_step": self.engine_steps})
-        # a retirement mid-loop may have freed (and recycled) queued pages;
-        # only zero/copy pages their planner still owns
+        # a preemption or retirement mid-loop may have freed (and recycled)
+        # queued pages; only zero/copy pages their planner still owns
         own = {u: set(p) for u, p in self._req_pages.items()}
         zs = [p for u, p in fresh if p in own.get(u, ())]
         pairs = [(o, n) for u, o, n in cow if n in own.get(u, ())]
@@ -718,44 +1347,255 @@ class ServingEngine:
         if pairs:
             self._copy_pages(pairs)
 
+    # --------------------------------------------------------------- pumping
+    def _admissible(self, req: Request, limit: int) -> bool:
+        """A queued request may take a slot only if its (prospective) fill
+        sits below the effective cache limit — admitting it under pressure
+        would just preempt it right back."""
+        fill = len(req.prompt) + max(len(req.tokens), 1) - 1
+        return fill < limit
+
+    def pump(self) -> None:
+        """Lifecycle housekeeping without decoding: abandon deadline-expired
+        work (queued, prefilling and running — partial tokens are kept),
+        apply cache pressure (preempt, or truncate under the opt-in
+        policy), let the controller decide, then fill free slots from the
+        queue — resumed work first, then fresh work, highest priority
+        first; strictly-higher-priority queued work may preempt the
+        lowest-priority/youngest running victim.  ``step()`` calls this
+        first, so a caller that only calls ``step()`` still drives every
+        request to a terminal state."""
+        step_idx = self.engine_steps
+        now = self._clock()
+        for req in list(self.active.values()):
+            if req.deadline is not None and now >= req.deadline:
+                self._retire(req, RequestState.ABANDONED, diagnostics={
+                    "kind": "deadline", "where": "running",
+                    "engine_step": step_idx})
+        for g in self._prefill_groups:
+            for i in g.live_rows():
+                req = g.reqs[i]
+                if req.deadline is not None and now >= req.deadline:
+                    g.cancel(req.uid)
+                    self._retire(req, RequestState.ABANDONED, diagnostics={
+                        "kind": "deadline", "where": "prefilling",
+                        "engine_step": step_idx})
+        limit = self._effective_limit(step_idx)
+        # cache pressure reaches mid-PREFILLING work too: a prompt that no
+        # longer fits under the limit is cancelled from its group
+        # (preempt-to-queue when policy and numerics allow — free, since
+        # the slot row was never written — else typed truncation)
+        for g in self._prefill_groups:
+            for i in g.live_rows():
+                req = g.reqs[i]
+                if len(req.prompt) >= limit:
+                    g.cancel(req.uid)
+                    if (self.on_pressure == "preempt" and self._preemptible
+                            and not req.kv_int8):
+                        self._preempt_prefilling(req, "cache_pressure")
+                    else:
+                        self._retire(req, RequestState.TRUNCATED,
+                                     diagnostics={
+                                         "kind": "cache_pressure",
+                                         "limit": limit,
+                                         "engine_step": step_idx})
+        victims: List[Request] = []
+        for req in self._victim_order():
+            fill = self._fill(req)
+            if fill >= self.max_len:
+                # the slot cache is genuinely full before the budget: a
+                # resume could not fit the replayed prefix either, so this
+                # is terminal truncation whatever the policy
+                self._retire(req, RequestState.TRUNCATED)
+            elif fill >= limit:
+                if (self.on_pressure == "preempt" and self._preemptible
+                        and not req.kv_int8):
+                    victims.append(req)
+                else:
+                    self._retire(req, RequestState.TRUNCATED, diagnostics={
+                        "kind": "cache_pressure", "limit": limit,
+                        "engine_step": step_idx})
+        if victims:
+            self._preempt(victims, reason="cache_pressure")
+        if self.controller is not None:
+            # the controller decides BEFORE admission: rung moves and
+            # shedding apply to the queue this pump is about to drain
+            self.controller.on_step(self)
+        self._pump_queue(now, limit)
+
+    def _pump_queue(self, now: float, limit: int) -> None:
+        for req in self.queue.expire(now):
+            self._retire(req, RequestState.ABANDONED, diagnostics={
+                "kind": "deadline", "where": "queued",
+                "engine_step": self.engine_steps})
+        # strictly-higher-priority queued work evicts the lowest-priority/
+        # youngest running request when no slot is free
+        while (len(self.queue) and not self.free and self._preemptible
+               and self.on_pressure == "preempt"):
+            best = self.queue.peek_best(lambda r: self._admissible(r, limit))
+            victims = [r for r in self._victim_order() if not r.kv_int8]
+            if (best is None or not victims
+                    or best.priority <= victims[0].priority):
+                break
+            self._preempt([victims[0]], reason="priority")
+        # admit: resumed requests one by one (each replays its own prefix),
+        # fresh requests collected and admitted in one bucketed batch.
+        # Under controller deferral only resumed work passes (its slot
+        # debt already exists; deferring it would strand generated tokens)
+        allow_fresh = (self.controller.allow_fresh(self)
+                       if self.controller is not None else True)
+        fresh: List[Request] = []
+        while len(self.free) - len(fresh) > 0:
+            req = self.queue.pop_best(
+                lambda r: self._admissible(r, limit)
+                and (allow_fresh or r.tokens))
+            if req is None:
+                break
+            if req.tokens:
+                try:
+                    self._admit_resume(req)
+                except PoolExhausted:
+                    # page-pool backpressure: the resume waits its turn at
+                    # the queue front; pages drain as running work retires
+                    self.queue.push_front(req)
+                    break
+            else:
+                fresh.append(req)
+        if fresh:
+            try:
+                self._admit(fresh)
+            except PoolExhausted:
+                for r in reversed(fresh):
+                    self.queue.push_front(r)
+        if self.controller is not None and not allow_fresh and self.free:
+            blocked = sum(1 for r in self.queue.requests()
+                          if not r.tokens and self._admissible(r, limit))
+            if blocked:
+                self.controller.note_defer(self, blocked)
+
+    def _tick(self) -> None:
+        """Per-step lifecycle prologue.  A planned transient fault raises
+        BEFORE any state mutation, so a caller's retry of ``step()`` is
+        idempotent."""
+        if (self.faults is not None
+                and self.faults.should_fail_step(self.engine_steps)):
+            raise EngineFault(
+                f"injected transient step failure at engine step "
+                f"{self.engine_steps}", transient=True, diagnostics={
+                    "kind": "transient_step_failure",
+                    "engine_step": self.engine_steps})
+        self.pump()
+
+    def _inject_vec(self) -> Optional[torch.Tensor]:
+        """The fault injector's additive per-slot logit vector for this
+        step on the device, or None when no injector is wired or its plan
+        names no fault here (the vector is then zeros, and adding zeros
+        changes no logit)."""
+        if self.faults is None:
+            return None
+        occupied = sorted(r.slot for r in self.active.values())
+        vec = self.faults.inject_vector(self.engine_steps, self.n_slots,
+                                        occupied)
+        if not vec.any():
+            return None
+        return torch.from_numpy(vec).to(self.device)
+
     # ------------------------------------------------------------------- step
-    @torch.no_grad()
     def step(self) -> Dict[int, Any]:
-        """One engine step for every active slot.  Requests whose slot
-        cache is full retire TRUNCATED first.  Vanilla: one batched
-        decode, returns {uid: new token}.  Speculative: one
+        """One engine step for every active slot, after the lifecycle
+        prologue (deadlines, cache pressure, controller, queue admission —
+        see ``pump()``; a planned transient fault raises
+        ``EngineFault(transient=True)`` before any mutation).  Vanilla:
+        one batched decode, returns {uid: new token}.  Speculative: one
         propose/verify/rollback window, returns {uid: [tokens]} — 1 to
         γ+1 tokens per request, each what vanilla greedy decode would
-        emit."""
-        for req in list(self.active.values()):
-            if self._fill(req) >= self.max_len:
-                self._retire(req, RequestState.TRUNCATED)
+        emit.  Quarantined requests emit nothing and are absent from the
+        dict.  With a ``cost_model``, the step's modeled cost is published
+        as ``last_step_cost_ms``."""
+        self._step_prefill_tokens = 0
+        self._step_decode_calls = 0
+        self._step_draft_calls = 0
+        self._step_verify_tokens = 0
+        out = self._step_inner()
+        if self.cost_model is not None:
+            self.last_step_cost_ms = self.cost_model.cost_ms(
+                prefill_tokens=self._step_prefill_tokens,
+                decode_calls=self._step_decode_calls,
+                draft_calls=self._step_draft_calls,
+                verify_tokens=self._step_verify_tokens)
+        return out
+
+    @torch.no_grad()
+    def _step_inner(self) -> Dict[int, Any]:
+        self._tick()
+        if self.chunked is not None:
+            # interleave pending prefill chunks BEFORE decode: completed
+            # groups join `active` and decode this very step
+            self._process_chunks()
+        tel = self.telemetry
+        if tel is not None:
+            tel.sample("queue_depth", self.engine_steps, len(self.queue))
+            tel.sample("active_slots", self.engine_steps, len(self.active))
+            if self._paged:
+                tel.sample("pages_in_use", self.engine_steps,
+                           self.allocator.pages_in_use)
         if not self.active:
+            if len(self.queue) or self._prefill_groups:
+                # idle step with pending work: step-indexed fault plans
+                # must still elapse, or inadmissible work would livelock
+                self.engine_steps += 1
             return {}
         if self._paged:
             # reserve (zeroed, private) pages for every K/V write this step
             # issues — one for vanilla decode, the whole window for
             # speculation — then push the dirty table mirror
-            self._ensure_capacity(self.spec.gamma + 1
-                                  if self.spec is not None else 1)
+            self._ensure_capacity(
+                self._gamma_eff + 1
+                if self.spec is not None and self._spec_enabled else 1)
             if not self.active:
+                if len(self.queue) or self._prefill_groups:
+                    self.engine_steps += 1
                 return {}
             self._sync_tables()
-        if self.spec is not None:
+        if self.spec is not None and self._spec_enabled:
             return self._spec_step()
-        self.call_shapes["decode"].add((self.n_slots,))
+        step_idx = self.engine_steps
+        slot_of = {uid: r.slot for uid, r in self.active.items()}
+        t0 = tel.now() if tel is not None else 0.0
         toks = torch.as_tensor(self.last_token, device=self.device)
+        iv = self._inject_vec()
+        self.call_shapes["decode"].add((self.n_slots,))
         with nn.activation_quant(self.act_dtype):
             logits, self.cache = api.decode_step(self.params, self.cfg, toks,
                                                  self.cache)
-        nxt = logits.argmax(dim=-1).cpu().numpy()
+            if self.spec is not None:
+                # spec_off rung: advance the draft cache with the SAME
+                # token so both caches stay uniformly filled and
+                # re-enabling speculation is seamless
+                self.call_shapes["draft_decode"].add((self.n_slots,))
+                _, self.draft_cache = api.decode_step(
+                    self.draft_params, self.cfg, toks, self.draft_cache)
+                self._step_draft_calls += 1
+        self._step_decode_calls += 1
+        if iv is not None:
+            logits = logits + iv.to(logits.dtype)[:, None]
+        nxt, nf_h = self._sample(logits)
         emitted = {}
         for uid, req in list(self.active.items()):
-            t = int(nxt[req.slot])
+            s = req.slot
+            if nf_h is not None and nf_h[s] > 0:
+                # non-finite row: quarantine ONLY this request; the other
+                # rows of the same batched decode are unaffected
+                self._quarantine(req, "decode", int(nf_h[s]))
+                continue
+            t = int(nxt[s])
             emitted[uid] = t
             self._append_token(req, t)
         self.engine_steps += 1
         self.emitted_tokens += len(emitted)
+        if tel is not None:
+            tel.on_step("decode", {u: 1 for u in emitted}, slot_of,
+                        tel.now() - t0, step_idx)
         return emitted
 
     def _spec_step(self) -> Dict[int, List[int]]:
@@ -763,13 +1603,23 @@ class ServingEngine:
         write-only, so both caches advance to fill+γ+1), ONE target span
         verify, greedy acceptance, then one rollback of both caches to
         fill+accepted.  Retirement (EOS / budget / cache full) applies
-        token by token in emission order."""
-        gamma = self.spec.gamma
+        token by token in emission order.  A non-finite verify row (guards
+        on) emits nothing: the slot rolls back to empty and the request is
+        quarantined.  The window's drafts, greedy tokens and guard counts
+        reach the host in one transfer."""
+        # γ_eff: the controller's spec_half rung halves the window
+        gamma = self._gamma_eff
         cfg = self.cfg
+        tel = self.telemetry
+        step_idx = self.engine_steps
+        slot_of = {uid: r.slot for uid, r in self.active.items()}
+        accepted_ks: List[int] = []
+        t0 = tel.now() if tel is not None else 0.0
         # per-slot fill BEFORE the window: the window itself writes the
         # pending last token's K/V
         base_fill = {uid: self._fill(r) for uid, r in self.active.items()}
         last = torch.as_tensor(self.last_token, device=self.device)
+        iv = self._inject_vec()
         self.call_shapes["draft_decode"].add((self.n_slots,))
         self.call_shapes["verify"].add((self.n_slots, gamma + 1))
         cur, d_cols = last, []
@@ -787,13 +1637,28 @@ class ServingEngine:
             span = torch.cat([last[:, None], drafts_t], dim=1)
             vlogits, self.cache = api.decode_span(self.params, cfg, span,
                                                   self.cache)
-        drafts = drafts_t.cpu().numpy()
-        greedy = vlogits.argmax(dim=-1).cpu().numpy()
+        self._step_draft_calls += gamma + 1
+        self._step_verify_tokens += gamma + 1
+        if iv is not None:
+            vlogits = vlogits + iv.to(vlogits.dtype)[:, None, None]
+        cols = [drafts_t, vlogits.argmax(dim=-1)]
+        if self.guards:
+            cols.append(nonfinite_rows(vlogits).to(drafts_t.dtype)[:, None])
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        drafts, greedy = host[:, :gamma], host[:, gamma:2 * gamma + 1]
+        nf_h = host[:, -1] if self.guards else None
 
         emitted: Dict[int, List[int]] = {}
         lens = np.zeros((self.n_slots,), np.int32)   # 0 = free/retired slot
         for uid, req in list(self.active.items()):
             s = req.slot
+            if nf_h is not None and nf_h[s] > 0:
+                # mid-window quarantine: no token of this window can be
+                # trusted, so emit nothing; lens[s] = 0 clears the slot in
+                # the rollback below before it is recycled
+                self._quarantine(req, "verify", int(nf_h[s]))
+                lens[s] = 0
+                continue
             k, toks = speculative.accept_greedy(drafts[s], greedy[s])
             appended: List[int] = []
             for t in toks:
@@ -811,30 +1676,66 @@ class ServingEngine:
             self.spec_drafted += gamma
             self.spec_accepted += k
             self.emitted_tokens += len(appended)
+            accepted_ks.append(k)
             lens[s] = 0 if req.done else base_fill[uid] + len(appended)
         self.engine_steps += 1
         self.cache = _rollback_tail(self.cache, lens)
         self.draft_cache = _rollback_tail(self.draft_cache, lens)
+        if tel is not None:
+            tel.on_step("spec", {u: len(v) for u, v in emitted.items()},
+                        slot_of, tel.now() - t0, step_idx,
+                        window=speculative.window_summary(gamma,
+                                                          accepted_ks))
+            for k in accepted_ks:
+                tel.registry.histogram(
+                    "spec_accepted_per_window", lo=0.5,
+                    hi=float(max(gamma + 1, 2)), per_decade=16).observe(k)
         return emitted
 
-    def run_to_completion(self, max_steps: int = 256,
-                          strict: bool = True) -> List[int]:
-        """Step until every request is terminal.  Returns the uids still
-        running when ``max_steps`` runs out ([] == all finished); with
-        ``strict`` that raises ``IncompleteRun`` with the partial outputs."""
-        for _ in range(max_steps):
-            if not self.active:
+    def run_to_completion(self, max_steps: int = 256, strict: bool = True,
+                          retry: Optional[RetryPolicy] = None) -> List[int]:
+        """Step until every submitted request is terminal (the queue
+        drains through ``pump()`` inside ``step()``).  Returns the uids
+        still in flight when ``max_steps`` runs out ([] == all finished);
+        with ``strict`` that raises ``IncompleteRun`` with the partial
+        outputs and lifecycle states.  ``retry=RetryPolicy(...)`` absorbs
+        transient ``EngineFault``s (bounded attempts, backoff); without
+        it they propagate."""
+        consecutive_faults = 0
+        steps = 0
+        while steps < max_steps:
+            if (not self.active and not len(self.queue)
+                    and not self._prefill_groups):
                 return []
-            self.step()
-        unfinished = sorted(self.active)
+            try:
+                self.step()
+            except EngineFault as e:
+                if retry is None or not e.transient:
+                    raise
+                consecutive_faults += 1
+                if consecutive_faults >= retry.max_attempts:
+                    raise
+                backoff = (retry.backoff_s
+                           * retry.multiplier ** (consecutive_faults - 1))
+                if backoff > 0:
+                    retry.sleep(backoff)
+                continue
+            consecutive_faults = 0
+            steps += 1
+        prefilling = [r for g in self._prefill_groups for r in g.live()]
+        unfinished = sorted(set(self.active) | set(self.queue.uids())
+                            | {r.uid for r in prefilling})
         if unfinished and strict:
+            reqs = dict(self.active)
+            reqs.update({r.uid: r for r in self.queue.requests()})
+            reqs.update({r.uid: r for r in prefilling})
             raise IncompleteRun(
                 f"run_to_completion: max_steps={max_steps} exhausted with "
                 f"{len(unfinished)} requests not terminal (uids "
                 f"{unfinished}); partial outputs and lifecycle states "
                 f"attached to this error",
-                partial={u: list(self.active[u].tokens) for u in unfinished},
-                states={u: self.active[u].state for u in unfinished})
+                partial={u: list(reqs[u].tokens) for u in unfinished},
+                states={u: reqs[u].state for u in unfinished})
         return unfinished
 
     # ------------------------------------------------------------------ stats
@@ -846,17 +1747,25 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         s = self.bucketing.stats
         out = {
-            "act_dtype": self.act_dtype or "f32",
             "prefill_traces": self.prefill_traces,
             "decode_traces": len(self.call_shapes["decode"]),
             "buckets": list(self.bucketing.buckets()),
             "bucket_hits": s.hits,
             "bucket_misses": s.misses,
             "bucket_hit_rate": s.hit_rate,
+            "act_dtype": self.act_dtype or "f32",
             "emitted_tokens": self.emitted_tokens,
             "engine_steps": self.engine_steps,
             "tokens_per_step": (self.emitted_tokens / self.engine_steps
                                 if self.engine_steps else 0.0),
+            "queued": len(self.queue),
+            "queue_depth": self.queue.depth,
+            "queue_peak_depth": self.queue.peak_depth,
+            "guards": self.guards,
+            "on_pressure": self.on_pressure,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "admission_rejections": self.admission_rejections,
             "lifecycle": {st.value: self.state_counts.get(st.value, 0)
                           for st in sorted(TERMINAL_STATES,
                                            key=lambda s: s.value)},
@@ -905,6 +1814,8 @@ class ServingEngine:
         if self.spec is not None:
             out.update({
                 "spec_gamma": self.spec.gamma,
+                "spec_gamma_eff": self._gamma_eff,
+                "spec_enabled": self._spec_enabled,
                 "spec_drafted": self.spec_drafted,
                 "spec_accepted": self.spec_accepted,
                 # fraction of proposed draft tokens the target kept
@@ -915,4 +1826,37 @@ class ServingEngine:
                 "draft_decode_traces": len(self.call_shapes["draft_decode"]),
                 "verify_traces": len(self.call_shapes["verify"]),
             })
+        if self.chunked is not None:
+            out["chunked"] = {
+                "chunk_tokens": self.chunked.chunk_tokens,
+                "budget_tokens": self.chunked.budget_tokens,
+                "chunk_prefill_traces": len(self.call_shapes["chunk_prefill"]),
+                "draft_chunk_prefill_traces": len(
+                    self.call_shapes["draft_chunk_prefill"]),
+                "chunks_processed": self.chunks_processed,
+                "groups_pending": len(self._prefill_groups),
+                "prefilling": self.pending_prefills,
+            }
+        if self.last_step_cost_ms is not None:
+            out["last_step_cost_ms"] = self.last_step_cost_ms
+        if self.controller is not None:
+            out["controller"] = self.controller.stats()
         return out
+
+    def reset_peaks(self) -> None:
+        """Drop high-water marks (queue depth, page peaks) to CURRENT
+        occupancy.  Back-to-back A/B replays share one process; without
+        this the second run's report inherits the first run's peaks."""
+        self.queue.reset_peaks()
+        if self._paged:
+            self.peak_pages_in_use = self.allocator.pages_in_use
+            self.peak_pages_per_request = max(
+                (len(p) for p in self._req_pages.values()), default=0)
+
+    def metrics(self) -> MetricsRegistry:
+        """Every ``stats()`` number projected onto the telemetry registry
+        as ``serve.*`` gauges (joining the span-derived histograms and
+        timelines when a recorder is attached)."""
+        reg = (self.telemetry.registry if self.telemetry is not None
+               else MetricsRegistry())
+        return registry_from_stats(self.stats(), reg)

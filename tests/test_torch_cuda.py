@@ -77,7 +77,7 @@ def plan_for(bits, x_mode, rng, device):
     return pqt
 
 
-@pytest.mark.parametrize("m", [3, 16, 37])
+@pytest.mark.parametrize("m", [1, 3, 12, 16, 37])
 @pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("x_mode", ["aligned", "gathered", "blocked"])
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
@@ -102,7 +102,7 @@ def test_kernel_matches_plain_version(card, bits, x_mode, compute, m):
 
 
 @pytest.mark.parametrize("with_acc", [False, True])
-@pytest.mark.parametrize("m", [3, 16, 37])
+@pytest.mark.parametrize("m", [1, 3, 12, 16, 37])
 @pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("x_mode", ["aligned", "gathered", "blocked"])
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
@@ -604,3 +604,60 @@ def test_speculative_tokens_equal_vanilla_on_the_card(card):
         if d is target:
             assert eng.stats()["acceptance_rate"] > 0.5
     assert dm.aligned_launch_count > aligned
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_mode", ["aligned", "gathered"])
+def test_decode_rows_at_m1_bitwise_rows_at_n_slots(card, x_mode, compute):
+    """A resume replays decode at M = 1; the batch decodes at M = n_slots
+    (4).  Both take the same launch plan (one M tile of block_m rows, the
+    same K slices), so each row of the M = 4 chain is bit for bit the
+    M = 1 chain on that row alone — at the test's shape and at
+    llama1_7b's."""
+    for n, k in ((4096, 4096), (11008, 4096), (4096, 11008)):
+        p1, p4 = (dm.launch_plan(m, n, k, 2, compute) for m in (1, 4))
+        assert (p1.block_m, p1.m_tiles, p1.chunks_per_slice, p1.slices) == (
+            p4.block_m, p4.m_tiles, p4.chunks_per_slice, p4.slices)
+    rng = np.random.default_rng(11)
+    pqt = plan_for(2, x_mode, rng, card)
+    x = torch.as_tensor(rng.normal(size=(4, COLS)).astype(np.float32),
+                        device=card).to(compute)
+
+    def chain(xs):
+        y = None
+        for xg, kw in ops.group_calls(xs, pqt, "kernel"):
+            y = dm.dequant_matmul(xg, acc=y, compute_dtype=compute, **kw)
+        return y
+
+    full = chain(x)
+    for r in range(4):
+        assert torch.equal(chain(x[r:r + 1].contiguous())[0], full[r]), r
+
+
+def test_guarded_decode_quarantines_an_injected_row_on_the_card(card):
+    """Guards on the card: a NaN the fault plan adds to one slot's decode
+    logits FAILS exactly that request (phase "decode", its count), in the
+    same host transfer as the tokens; the other requests emit the
+    unguarded engine's tokens bit for bit."""
+    from repro_torch.serve import FaultInjector, ServingEngine
+    cfg, model = small_claq_model(0, card)
+    kw = dict(n_slots=4, max_len=64, min_bucket=8, device="cuda")
+    base = _serve_waves(ServingEngine(model, cfg, **kw))
+    plan = FaultInjector(seed=2, horizon=8, nan_faults=1, inf_faults=0,
+                         pressure_windows=0, transient_failures=0,
+                         burst_every=0, arrival_lambda=0.0)
+    (step,) = plan.logit_faults
+    eng = ServingEngine(model, cfg, guards=True, faults=plan, **kw)
+    uids = eng.add_requests(SERVE_PROMPTS[:4], max_new_tokens=10)
+    eng.run_to_completion()
+    fin = eng.take_finished()
+    failed = [u for u in uids if fin[u].state.value == "failed"]
+    assert len(failed) == 1
+    d = fin[failed[0]].diagnostics
+    assert d["kind"] == "nonfinite_logits" and d["phase"] == "decode"
+    assert d["engine_step"] == step and d["nonfinite"] == cfg.vocab
+    for i, u in enumerate(uids):
+        if u in failed:
+            assert fin[u].tokens == base[i][:step + 1]
+        else:
+            assert fin[u].state.value == "finished" and fin[u].tokens == base[i]

@@ -5,8 +5,9 @@ paged tokens, page tables, allocator and registry state equal to the JAX
 paged engine's; int8 pages (the pool bitwise the reference's, budgets
 kept, under 1/3 of fp's bytes); prefix sharing with copy-on-write;
 all-or-nothing admission under ``PoolExhausted``; decode-time exhaustion
-retiring TRUNCATED with ``pool_exhausted`` diagnostics as the reference
-does with ``on_pressure="truncate"``; config validation; the
+retiring TRUNCATED with ``pool_exhausted`` diagnostics under
+``on_pressure="truncate"`` and preempting (then resuming) under the
+default ``"preempt"``, both as the reference does; config validation; the
 ``stats()["paged"]`` keys; and speculation on paged caches."""
 import dataclasses
 
@@ -257,7 +258,8 @@ def test_decode_time_exhaustion_retires_truncated_like_reference(fp_model):
     reference does under on_pressure="truncate" — same states, same
     tokens."""
     prompts = [list(range(1, 14)), list(range(1, 14))]
-    eng = _engine(fp_model, **PAGED, kv_pages=4, n_slots=2)
+    eng = _engine(fp_model, **PAGED, kv_pages=4, n_slots=2,
+                  on_pressure="truncate")
     uids = eng.add_requests(prompts, max_new_tokens=20)
     eng.run_to_completion(max_steps=200)
     fin = eng.take_finished()
@@ -277,6 +279,42 @@ def test_decode_time_exhaustion_retires_truncated_like_reference(fp_model):
     _assert_tokens_match(fp_model[3], fp_model[1], prompts,
                          [fin[u].tokens for u in uids],
                          [jfin[u].tokens for u in juids])
+
+
+def test_decode_time_exhaustion_preempts_by_default_like_reference(fp_model):
+    """The same starved pool under the default ``on_pressure="preempt"``:
+    the younger request is preempted (not truncated) and resumes once the
+    other retires — states, preemptions, resumes and ``stats()["paged"]``
+    equal to the JAX engine's default, tokens bitwise the unpressured
+    contiguous run's."""
+    prompts = [list(range(1, 14)), list(range(1, 14))]
+    base = _drain(_engine(fp_model, n_slots=2), prompts, max_new=20)
+
+    def run(eng):
+        uids = eng.add_requests(prompts, max_new_tokens=20)
+        eng.run_to_completion(max_steps=200)
+        fin = eng.take_finished()
+        st = eng.stats()
+        return ([fin[u].tokens for u in uids],
+                [(fin[u].state.value, fin[u].diagnostics, fin[u].preemptions)
+                 for u in uids],
+                (st["preemptions"], st["resumes"], st["lifecycle"]),
+                st["paged"])
+
+    got, out, counts, paged = run(_engine(fp_model, **PAGED, kv_pages=4,
+                                          n_slots=2))
+    jgot, jout, jcounts, jpaged = run(_jax_engine(fp_model, **PAGED,
+                                                  kv_pages=4, n_slots=2))
+    assert counts[0] >= 1 and counts[1] == counts[0], counts
+    assert all(s == "finished" for s, _, _ in out)
+    assert out == jout and counts == jcounts
+    for key in ("n_pages", "pages_in_use", "peak_pages_in_use",
+                "peak_pages_per_request", "pages_allocated_total",
+                "pages_freed_total", "prefix_hits", "prefix_shared_tokens",
+                "cow_copies", "page_evictions", "registry_entries"):
+        assert paged[key] == jpaged[key], key
+    assert got == base
+    _assert_tokens_match(fp_model[3], fp_model[1], prompts, got, jgot)
 
 
 # -------------------------------------------------------------- config guards

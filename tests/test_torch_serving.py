@@ -174,10 +174,15 @@ def test_run_to_completion_surfaces_unfinished_work(quantized):
 
 
 def test_engine_knobs_not_ported_are_rejected(quantized):
+    """Only the device mesh and the contract checker are still refused;
+    the control plane's knobs are accepted."""
     _, tcfg, _, tm = quantized
-    for knob in (dict(guards=True), dict(on_pressure="truncate"),
-                 dict(chunked_prefill=16), dict(mesh=None),
-                 dict(telemetry=None), dict(queue_depth=4)):
+    for knob in (dict(mesh=None), dict(verify_contracts=True)):
         with pytest.raises(TypeError):
             ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
                           **knob)
+    eng = ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
+                        guards=True, on_pressure="truncate",
+                        chunked_prefill=8, telemetry=None, queue_depth=4)
+    assert eng.guards and eng.on_pressure == "truncate"
+    assert eng.chunked.chunk_tokens == 8 and eng.queue.depth == 4
