@@ -1,5 +1,7 @@
-"""Weights in from numpy: the reference package's parameter tree, given as
-numpy arrays, becomes the port's modules.
+"""Weights in from numpy and back out: the reference package's parameter
+tree, given as numpy arrays, becomes the port's modules, and
+``to_numpy_tree`` gives it back (``from_numpy_tree(to_numpy_tree(m))`` is
+bitwise ``m``).
 
 The tree has the reference's layout — ``embed.embedding``, layer-stacked
 ``blocks`` leaves with a leading ``(L, ...)`` axis, ``final_norm.scale``,
@@ -11,7 +13,10 @@ CLAQ ``QuantizedTensor`` crosses as a plain dict::
      "shape": (rows, cols)}
 
 with the same optional leading layer axis on every array.  Packed words
-keep their bits as int32 (see core/packing.py).
+keep their bits as int32 (see core/packing.py) and leave as uint32.
+``param_tree`` is the same layout over the model's own tensors, block
+leaves as ``tree.LayerStack``s: the tree the optimizer and the
+checkpoint walk.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as dev_lib
+from repro_torch import tree as tree_lib
 from repro_torch.core.quantized import QuantStripe, QuantizedTensor
 from repro_torch.models import layers as L
 from repro_torch.models import modules as M
@@ -37,6 +43,46 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch -> numpy on the host; bfloat16 leaves as numpy's bfloat16,
+    which exists only where ``ml_dtypes`` has registered it (a process
+    that imports the reference); checkpoints store bf16 without it."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            bf16 = np.dtype("bfloat16")
+        except TypeError:
+            raise TypeError("numpy has no bfloat16 type in this process "
+                            "(ml_dtypes is not loaded); a checkpoint "
+                            "stores bf16 without it") from None
+        return t.view(torch.int16).numpy().view(bf16)
+    return t.numpy()
+
+
+def quantized_to_numpy(qt) -> Dict[str, Any]:
+    """A QuantizedTensor, or a ``LayerStack`` of per-layer ones with equal
+    stripe shapes, in the dict form (stacked on a leading layer axis)."""
+    members = list(qt) if isinstance(qt, tree_lib.LayerStack) else [qt]
+
+    def arr(get, u32=False):
+        a = [tensor_to_numpy(get(m)) for m in members]
+        a = [x.view(np.uint32) for x in a] if u32 else a
+        return a[0] if len(members) == 1 and not isinstance(
+            qt, tree_lib.LayerStack) else np.stack(a)
+
+    first = members[0]
+    assert all(tuple(s.bits for s in m.stripes)
+               == tuple(s.bits for s in first.stripes)
+               and m.shape == first.shape for m in members)
+    return {"stripes": [{"packed": arr(lambda m: m.stripes[i].packed, True),
+                         "codebook": arr(lambda m: m.stripes[i].codebook),
+                         "bits": s.bits}
+                        for i, s in enumerate(first.stripes)],
+            **{f: arr(lambda m, f=f: getattr(m, f))
+               for f in ("col_perm", "out_idx", "out_val", "out_count")},
+            "shape": tuple(first.shape)}
 
 
 def quantized_from_numpy(d: Dict[str, Any], device="cuda",
@@ -106,3 +152,95 @@ def from_numpy_tree(tree: Dict[str, Any], cfg,
                           blocks,
                           tensor_from_numpy(tree["final_norm"]["scale"], dev),
                           head)
+
+
+def param_tree(model: tf.Transformer, cfg) -> Dict[str, Any]:
+    """The model's tensors in the reference's dense-family layout (no
+    copies): ``blocks`` leaves are ``LayerStack``s of the per-layer
+    tensors (a kernel may be a QuantizedTensor), then ``embed``,
+    ``final_norm`` and, unless embeddings are tied, ``lm_head``."""
+    tf.validate_family(cfg)
+    blocks = list(model.blocks)
+
+    def stack(get):
+        return tree_lib.LayerStack(get(b) for b in blocks)
+
+    def dense(get):
+        out = {"kernel": stack(lambda b: get(b).kernel)}
+        if get(blocks[0]).bias is not None:
+            out["bias"] = stack(lambda b: get(b).bias)
+        return out
+
+    attn = {n: dense(lambda b, n=n: getattr(b.attn, n)) for n in "qkvo"}
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": stack(lambda b: b.attn.q_norm)}
+        attn["k_norm"] = {"scale": stack(lambda b: b.attn.k_norm)}
+    names = ("up", "down") if cfg.mlp_type == "gelu" else ("gate", "up",
+                                                            "down")
+    mlp = {n: dense(lambda b, n=n: getattr(b.mlp, n)) for n in names}
+    out = {"blocks": {"attn": attn, "ln1": {"scale": stack(lambda b: b.ln1)},
+                      "ln2": {"scale": stack(lambda b: b.ln2)}, "mlp": mlp},
+           "embed": {"embedding": model.embedding},
+           "final_norm": {"scale": model.final_norm}}
+    if not cfg.tie_embeddings:
+        head = model.lm_head
+        out["lm_head"] = {"kernel": head.kernel}
+        if head.bias is not None:
+            out["lm_head"]["bias"] = head.bias
+    return out
+
+
+def _leaf_to_numpy(leaf):
+    """One tree leaf to numpy: a tensor, or a ``LayerStack`` stacked on a
+    leading layer axis (of QuantizedTensors: their dict form)."""
+    if isinstance(leaf, tree_lib.LayerStack):
+        if not isinstance(leaf[0], torch.Tensor):
+            return quantized_to_numpy(leaf)
+        return np.stack([tensor_to_numpy(t) for t in leaf])
+    return tensor_to_numpy(leaf)
+
+
+def to_numpy_tree(model: tf.Transformer, cfg) -> Dict[str, Any]:
+    """The model as the reference's numpy parameter tree, the inverse of
+    ``from_numpy_tree``: layer-stacked ``blocks`` leaves, a quantized
+    kernel in its dict form."""
+    return tree_lib.map_with_name(lambda _, leaf: _leaf_to_numpy(leaf),
+                                  param_tree(model, cfg))
+
+
+def opt_state_to_numpy(opt) -> Dict[str, Any]:
+    """An ``optim.OptState`` as numpy: ``m``/``v`` (and ``err``) in the
+    params' layer-stacked layout, ``step`` an int32 scalar; the reference
+    takes it as ``OptState(**d)``."""
+    def conv(t):
+        return None if t is None else tree_lib.map_with_name(
+            lambda _, leaf: _leaf_to_numpy(leaf), t)
+    return {"m": conv(opt.m), "v": conv(opt.v),
+            "step": tensor_to_numpy(opt.step), "err": conv(opt.err)}
+
+
+def opt_state_from_numpy(d: Dict[str, Any], model: tf.Transformer, cfg,
+                         device="cuda"):
+    """The inverse of ``opt_state_to_numpy``: moments split into per-layer
+    tensors in ``param_tree``'s layout."""
+    from repro_torch.optim.adamw import OptState
+    dev = dev_lib.resolve(device)
+    tmpl = param_tree(model, cfg)
+
+    def conv(np_tree):
+        if np_tree is None:
+            return None
+        arrays = dict(tree_lib.flatten(np_tree))    # name -> array
+
+        def one(name, leaf):
+            a = arrays[name]
+            if isinstance(leaf, tree_lib.LayerStack):
+                return tree_lib.LayerStack(tensor_from_numpy(x, dev)
+                                           for x in np.asarray(a))
+            return tensor_from_numpy(a, dev)
+        return tree_lib.map_with_name(one, tmpl)
+
+    return OptState(m=conv(d["m"]), v=conv(d["v"]),
+                    step=tensor_from_numpy(np.asarray(d["step"]), dev),
+                    err=conv(d.get("err")))
+

@@ -29,3 +29,6 @@ from .gptq import (  # noqa: F401
     gptq_quantize_matrix,
     proxy_loss,
 )
+from .rtn import rtn_quantize_matrix  # noqa: F401
+from .search import (MatrixInfo, SearchResult,  # noqa: F401
+                     assignment_to_claq_configs, heuristic_ap_search)

@@ -1,2 +1,3 @@
-"""Synthetic calibration data (port of ``repro.data``)."""
-from .pipeline import DataConfig, calibration_set, synth_batch  # noqa: F401
+"""Synthetic corpus and calibration data (port of ``repro.data``)."""
+from .pipeline import (DataConfig, SyntheticCorpus,  # noqa: F401
+                       calibration_set, synth_batch)

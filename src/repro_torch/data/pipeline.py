@@ -1,6 +1,6 @@
 """Synthetic-corpus data (port of ``repro.data.pipeline``): a hashed
 first-order Markov process mixed with Zipf unigrams, a pure function of
-(seed, step).
+(seed, step), so restarts and re-shards never replay or skip a batch.
 
 The successor hash is uint32 arithmetic in the reference.  torch has no
 full uint32 type, so it runs in int64 masked to 32 bits, with products
@@ -12,6 +12,7 @@ packages feed both the same tokens.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import torch
 
@@ -75,6 +76,30 @@ def synth_batch(cfg: DataConfig, step: int) -> torch.Tensor:
         use_struct = torch.rand(cfg.batch, generator=gen) < cfg.struct_prob
         cur = torch.where(use_struct, structured, noise)
     return torch.stack(toks, dim=1)
+
+
+class SyntheticCorpus:
+    """Step-indexed corpus with optional host sharding: shard ``shard`` of
+    ``num_shards`` gets its contiguous slice of each global batch."""
+
+    def __init__(self, cfg: DataConfig, shard: int = 0, num_shards: int = 1):
+        assert cfg.batch % num_shards == 0
+        self.cfg = cfg
+        self.shard = shard
+        self.num_shards = num_shards
+
+    def batch_at(self, step: int) -> torch.Tensor:
+        full = synth_batch(self.cfg, int(step))
+        if self.num_shards == 1:
+            return full
+        per = self.cfg.batch // self.num_shards
+        return full[self.shard * per:(self.shard + 1) * per]
+
+    def iterate(self, start_step: int = 0) -> Iterator[torch.Tensor]:
+        step = start_step
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 def calibration_set(vocab: int, n_segments: int = 128, seq_len: int = 2048,

@@ -15,6 +15,12 @@ def init_params(gen: torch.Generator, cfg, device="cuda"):
     return tf.init_params(gen, cfg, dev_lib.resolve(device))
 
 
+def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
+    """Next-token loss and {"nll", "aux"} (see transformer.lm_loss)."""
+    tf.validate_family(cfg)
+    return tf.lm_loss(params, cfg, batch)
+
+
 def make_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda", *, page_size: Optional[int] = None,
                n_pages: Optional[int] = None, kv_dtype=None):
@@ -27,11 +33,13 @@ def make_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def prefill_step(params, cfg, batch: Dict[str, torch.Tensor], cache,
                  logits_at=None):
-    """``batch["tokens"]`` (B, S); ``logits_at`` (scalar or (B,)) picks the
-    position whose logits are returned (default: the last)."""
+    """``batch["tokens"]`` (B, S), after ``batch["prefix_embeds"]`` (B, P,
+    D) when given; ``logits_at`` (scalar or (B,)) picks the position whose
+    logits are returned (default: the last)."""
     tf.validate_family(cfg)
     return tf.prefill(params, cfg, batch["tokens"], cache,
-                      logits_at=logits_at)
+                      logits_at=logits_at,
+                      prefix_embeds=batch.get("prefix_embeds"))
 
 
 def decode_step(params, cfg, token: torch.Tensor, cache):

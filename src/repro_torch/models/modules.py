@@ -183,7 +183,11 @@ def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
 
 
 def embed(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embedding[tokens.long()]
+    """Rows of ``embedding`` at ``tokens``, through ``F.embedding``: its
+    backward sums a repeated token's rows in a fixed order on the CPU,
+    where indexing's accumulating scatter does not (training would not
+    repeat itself bitwise)."""
+    return nn.functional.embedding(tokens.long(), embedding)
 
 
 # ---------------------------------------------------------------------------

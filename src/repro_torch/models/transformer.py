@@ -3,16 +3,20 @@
 
 Blocks live in an ``nn.ModuleList`` and run in a Python loop (the
 reference scans a layer-stacked tree); the serving cache is a list with
-one ``KVCache`` (or, paged, one ``PagedKVCache``) per layer.  Entry
-points: init_params, forward, init_cache, prefill, decode_step,
-decode_span.
+one ``KVCache`` (or, paged, one ``PagedKVCache``) per layer.  With
+``cfg.remat`` and grad enabled each block is recomputed in the backward
+pass (``torch.utils.checkpoint``), as the reference remats its scan body.
+Entry points: init_params, forward, lm_loss, init_cache, prefill,
+decode_step, decode_span.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import modules as M
@@ -91,17 +95,30 @@ def block_apply(p: Block, x: torch.Tensor, cfg, cache=None,
     return x + m, new_cache
 
 
-def forward(model: Transformer, cfg, tokens: torch.Tensor,
-            caches: Optional[List] = None, span: bool = False
+def forward(model: Transformer, cfg, tokens: Optional[torch.Tensor],
+            caches: Optional[List] = None, span: bool = False,
+            prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V), new caches, aux loss (0)).
-    ``span``: the S tokens append at each slot's own fill level (see
+    """tokens (B, S) -> (logits (B, P + S, V), new caches, aux loss (0)).
+    ``prefix_embeds`` (B, P, D), the modality stub (precomputed patch
+    embeddings), is prepended to the token embeddings.  ``span``: the S
+    tokens append at each slot's own fill level (see
     ``layers.gqa_attention``)."""
-    x = M.embed(model.embedding, tokens)
+    parts = []
+    if prefix_embeds is not None:
+        parts.append(prefix_embeds.to(torch_dtype(cfg)))
+    if tokens is not None:
+        parts.append(M.embed(model.embedding, tokens))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_caches = None if caches is None else []
     for i, blk in enumerate(model.blocks):
-        x, c = block_apply(blk, x, cfg, None if caches is None else caches[i],
-                           span=span)
+        if remat:
+            x, c = checkpoint(block_apply, blk, x, cfg, use_reentrant=False)
+        else:
+            x, c = block_apply(blk, x, cfg,
+                               None if caches is None else caches[i],
+                               span=span)
         if caches is not None:
             new_caches.append(c)
     x = M.rms_norm(model.final_norm, x, cfg.norm_eps)
@@ -111,6 +128,24 @@ def forward(model: Transformer, cfg, tokens: torch.Tensor,
     else:
         logits = M.dense(model.lm_head, x)
     return logits, new_caches, torch.zeros((), device=x.device)
+
+
+def lm_loss(model: Transformer, cfg, batch: Dict[str, torch.Tensor]):
+    """Next-token loss.  batch: tokens (B, S) [+ prefix_embeds (B, P, D)]
+    [+ loss_mask (B, S)].  Returns (nll + 0.01 * aux, {"nll", "aux"})."""
+    tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
+    logits, _, aux = forward(model, cfg, tokens, prefix_embeds=prefix)
+    P = 0 if prefix is None else prefix.shape[1]
+    logp = F.log_softmax(logits[:, P:-1].float(), dim=-1)  # predicts [1:]
+    nll = -torch.gather(logp, -1, tokens[:, 1:].long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        loss = nll.mean()
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 def validate_paged_support(cfg) -> None:
@@ -154,11 +189,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device, *,
         table=table) for _ in range(cfg.n_layers)]
 
 
-def prefill(model, cfg, tokens, caches, logits_at=None):
-    """Prefill the cache with a full prompt; returns (logits (B, V), cache).
-    ``logits_at`` selects the position read per row (the true last token
-    when prompts are right-padded to a length bucket)."""
-    logits, caches, _ = forward(model, cfg, tokens, caches)
+def prefill(model, cfg, tokens, caches, logits_at=None, prefix_embeds=None):
+    """Prefill the cache with a full prompt (after ``prefix_embeds``, when
+    given); returns (logits (B, V), cache).  ``logits_at`` selects the
+    position read per row (the true last token when prompts are
+    right-padded to a length bucket)."""
+    logits, caches, _ = forward(model, cfg, tokens, caches,
+                                prefix_embeds=prefix_embeds)
     return L.select_logits(logits, logits_at), caches
 
 

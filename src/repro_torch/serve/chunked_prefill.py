@@ -26,11 +26,11 @@ the effective mask (causal and fill) is ``kv_pos <= i`` in both the
 chunked and the monolithic call, and rows are batch-independent.  Chunk
 garbage past a row's true length n (zero-padding tokens) writes K/V only
 at positions >= n, which are causally invisible to the row's logits at
-n-1 and zeroed by the completion masked insert.  The reference is bitwise
-monolithic prefill; the port's CPU matmuls and attention einsums may sum
-in another order at the chunk's shape, so the port holds chunked tokens to
-monolithic ones (tests/test_torch_chunked_prefill.py states the logit gap
-it measured).
+n-1 and zeroed by the completion masked insert.  Chunked prefill is
+bitwise monolithic prefill, in the reference and in the port on the CPU:
+tests/test_torch_chunked_prefill.py asserts the chunk's logits at each
+row's last token and every K/V row written equal (``torch.equal``), and
+chunked tokens equal monolithic tokens exactly.
 
 Every chunk call has the fixed operand shape ``(batch_bucket,
 chunk_tokens)``, so chunking runs at most one shape per batch bucket
