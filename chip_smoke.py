@@ -9,8 +9,13 @@ Phases (any failure raises and ends the run with a non-zero exit):
   2. build: K1 (``csrc/dequant_matmul.cu`` and its per-bit-width sources,
      one nvcc each, in parallel) from the checkout's sources;
   3. reference check on a small input: the same synthetic CLAQ model
-     served on the card (kernel) and on the CPU (plain version);
-  4. serve llama1_7b at full width (32 layers, d 4096, bf16) with
+     served on the card (kernel) and on the CPU (plain version), for the
+     smoke llama1_7b, qwen3_moe_30b_a3b (moe), deepseek_v2_236b (moe +
+     MLA) and a dense use_mla model; on the last, chunked prefill
+     (exactly the monolithic tokens) and speculation with a synthetic
+     2-bit draft (vanilla's tokens except after a near tie);
+  4. serve llama1_7b at full width (d 4096, bf16; cut to ``SERVE_DEPTH``
+     = 16 of its 32 layers to keep the script's time) with
      synthetic CLAQ AP+OR weights through ``ServingEngine``: 8 requests,
      4 slots, 16 new tokens each, with the kernel's launch counts and a
      ``torch.profiler`` reading of two decode steps (device-busy share,
@@ -54,6 +59,22 @@ Phases (any failure raises and ends the run with a non-zero exit):
      ``ref_act_int8_bound`` of the f32-activation kernel (after phase 8,
      the same at the M values only its speculation gave K1e: the
      verify's n_slots * (gamma+1), new prefill shapes);
+  11. qwen3_moe_30b_a3b at full width (d 2048, 32 heads, 128 experts
+     top-8, d_ff_expert 768, vocab 151936, bf16), cut to ``MOE_DEPTH``
+     layers, synthetic CLAQ AP+OR weights on every matmul and expert
+     stack, phase 4's prompts through ``ServingEngine`` (4 slots): batch-1
+     unpadded prefills only, launch counts, the (shape, M) pairs K1 ran,
+     capacity drops, a profile of two decode steps, the experts'
+     dequantize against their einsums (CUDA events), peak memory, and an
+     untimed second serve with equal tokens;
+  11b. deepseek_v2_236b at full width (d 5120, 128 heads, MLA q_lora
+     1536 / kv_lora 512 / rope 64, 160 experts top-6 + 2 shared), 1 layer,
+     served contiguous, paged fp (exactly the contiguous tokens) and paged
+     int8 (budgets, bytes a page), the same readings; chunked prefill
+     refused (moe); latent cache bytes a token against a full K/V's.
+     Then K1 and K1e against their plain versions at each of the 10 new
+     (out, in) shapes and every M 11/11b gave it (device ms beside
+     ``torch.matmul`` and the bound);
   10. train, then checkpoint: llama1_7b at full width (cut in depth to
      ``QUANT_DEPTH``), bf16 params and f32 AdamW moments, 20 steps of
      ``train.make_train_step`` on ``data.SyntheticCorpus`` (B 4, S 512,
@@ -128,6 +149,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL, RTOL = 1e-3, 1e-4
 LLAMA_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))   # (out, in)
 BIT_MIX = (0.05, 0.05)             # shares of 3- and 4-bit columns
+SERVE_DEPTH = 16                   # layers of phases 4-7 and 9's llama1_7b
 QUANT_DEPTH = 1                    # layers of the phase-8 model
 GAMMA = 4                          # speculation window of the new phases
 PAGE_SIZE = 16
@@ -154,6 +176,9 @@ CKPT_STEP = 10                     # the async save, and the resume point
 MICRO_STEP = 15                    # the one step at n_microbatches=2
 PROFILE_TRAIN_STEP = 3             # two train steps from the 4th profiled
 EVAL_BATCHES = 2                   # phase 8's perplexity batches
+MOE_DEPTH = 4                      # layers of phase 11's qwen3_moe_30b_a3b
+MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
+                 v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
 
 def log(msg: str) -> None:
@@ -214,10 +239,15 @@ def quantized_modules(model):
 
 
 def synthetic_model(cfg, gen, host_gen, device, make_qt=synthetic_qt):
-    """Dense-family Transformer whose block matmuls are synthetic CLAQ
-    tensors; embedding, norms and lm_head stay dense."""
+    """Transformer (dense or moe family, GQA or MLA attention) whose block
+    matmuls are synthetic CLAQ tensors, MoE experts stacked per layer
+    (``BIT_MIX`` gives every expert the same stripe widths, so they
+    stack); embedding, norms, the router and lm_head stay dense."""
+    from repro_torch.core.quantized import stack_quantized
     from repro_torch.models import layers as L
+    from repro_torch.models import mla as mla_lib
     from repro_torch.models import modules as M
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
     D, H, KH, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                        cfg.d_ff)
@@ -226,14 +256,37 @@ def synthetic_model(cfg, gen, host_gen, device, make_qt=synthetic_qt):
     def q(out_dim, in_dim):
         return M.Dense(make_qt(out_dim, in_dim, gen, host_gen, device))
 
+    def norm(n):
+        return M.norm_scale_init(n, device=device)
+
+    def experts(out_dim, in_dim):
+        return M.Dense(stack_quantized([make_qt(out_dim, in_dim, gen,
+                                                host_gen, device)
+                                        for _ in range(cfg.n_experts)]))
+
     blocks = []
     for _ in range(cfg.n_layers):
-        attn = L.Attention(q(H * hd, D), q(KH * hd, D), q(KH * hd, D),
-                           q(D, H * hd))
-        mlp = L.SwiGLU(q(F, D), q(F, D), q(D, F))
-        blocks.append(tf.Block(M.norm_scale_init(D, device=device),
-                               M.norm_scale_init(D, device=device), attn,
-                               mlp))
+        if cfg.use_mla:
+            dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+            attn = mla_lib.MLA(q(cfg.q_lora, D), norm(cfg.q_lora),
+                               q(H * (dn + dr), cfg.q_lora),
+                               q(cfg.kv_lora + dr, D), norm(cfg.kv_lora),
+                               q(H * (dn + dv), cfg.kv_lora), q(D, H * dv))
+        else:
+            attn = L.Attention(q(H * hd, D), q(KH * hd, D), q(KH * hd, D),
+                               q(D, H * hd),
+                               norm(hd) if cfg.qk_norm else None,
+                               norm(hd) if cfg.qk_norm else None)
+        if cfg.family == "moe":
+            Fe = cfg.d_ff_expert
+            Fs = Fe * cfg.n_shared_experts
+            mlp = moe_lib.MoE(
+                M.dense_init(gen, D, cfg.n_experts, device=device),
+                experts(Fe, D), experts(Fe, D), experts(D, Fe),
+                L.SwiGLU(q(Fs, D), q(Fs, D), q(D, Fs)) if Fs else None)
+        else:
+            mlp = L.SwiGLU(q(F, D), q(F, D), q(D, F))
+        blocks.append(tf.Block(norm(D), norm(D), attn, mlp))
     emb = M.embed_init(gen, cfg.vocab, D, dt, device)
     head = M.dense_init(gen, D, cfg.vocab, dtype=dt, device=device)
     return tf.Transformer(emb, blocks, M.norm_scale_init(D, device=device),
@@ -435,7 +488,8 @@ def phase_kernels(dm, ops, plan, ref, served, main_ms, gen, host_gen,
     return cases, max_err
 
 
-def phase_small_reference(api, ServingEngine, cfg, gen, host_gen):
+def phase_small_reference(api, ServingEngine, cfg, gen, host_gen,
+                          tag="dense"):
     """The same small synthetic CLAQ model on the card (kernel path) and on
     the CPU (the kernel's plain version): prefill logits within tolerance,
     greedy tokens equal except after a near tie."""
@@ -488,15 +542,74 @@ def phase_small_reference(api, ServingEngine, cfg, gen, host_gen):
             lgt, _, _ = api.tf.forward(cpu, cfg, torch.tensor([p + a[:j]]))
             top2 = torch.topk(lgt[0, -1], 2).values
             assert float(top2[0] - top2[1]) < ATOL, (p, a, b)
-    log(f"small-model reference: prefill + 3 decode steps, logits max "
-        f"|gpu - cpu| = {err:.3e}"
+    log(f"small-model reference ({tag}): prefill + 3 decode steps, logits "
+        f"max |gpu - cpu| = {err:.3e}"
         f"; greedy tokens gpu {out['gpu']} cpu {out['cpu']}")
+    return gpu
 
 
-def plan_launches(model):
+def small_serve(eng, prompts, max_new=8):
+    """Tokens of ``prompts`` (admitted as slots free up) in prompt order."""
+    order, pending = [], list(prompts)
+    while pending or eng.active or eng.pending_prefills:
+        if pending and eng.free:
+            n = min(len(pending), len(eng.free))
+            order += eng.add_requests(pending[:n], max_new_tokens=max_new)
+            del pending[:n]
+        eng.step()
+    fin = eng.take_finished()
+    assert all(fin[u].state.value == "finished" for u in order)
+    return [fin[u].tokens for u in order]
+
+
+def phase_small_mla(api, ServingEngine, SpecConfig, cfg, model):
+    """A dense ``use_mla`` smoke model on the card (K1; the latent cache):
+    chunked prefill (8-token chunks) gives exactly the monolithic tokens,
+    and speculation (a synthetic flat 2-bit draft, gamma 2) vanilla's
+    except after a near tie (top-2 gap of vanilla's logits there below
+    ATOL)."""
+    prompts = [[1 + i, 5, 9, 2 + i, 7, 3, 8, 6, 4, 11][: 3 + 2 * i]
+               for i in range(4)]
+    kw = dict(n_slots=2, max_len=64, min_bucket=8, device="cuda")
+    base = small_serve(ServingEngine(model, cfg, **kw), prompts)
+    chunked = small_serve(ServingEngine(model, cfg, chunked_prefill=8, **kw),
+                          prompts)
+    assert chunked == base, (chunked, base)
+    draft = synthetic_model(cfg, torch.Generator().manual_seed(SEED + 7),
+                            torch.Generator().manual_seed(SEED + 7), "cpu",
+                            make_qt=functools.partial(synthetic_qt, bits=2))
+    draft = copy.deepcopy(draft).to("cuda")
+    for m in quantized_modules(draft):
+        m.kernel = qt_to(m.kernel, "cuda")
+    eng = ServingEngine(model, cfg, draft_params=draft,
+                        spec=SpecConfig(gamma=2), **kw)
+    spec = small_serve(eng, prompts)
+    ties = 0
+    for p, a, b in zip(prompts, base, spec):
+        if a != b:
+            j = next(i for i, (u, v) in enumerate(zip(a, b)) if u != v)
+            lg, _, _ = api.tf.forward(model, cfg,
+                                      torch.tensor([p + a[:j]], device="cuda"))
+            top2 = torch.topk(lg[0, -1].float(), 2).values
+            assert float(top2[0] - top2[1]) < ATOL, (p, a, b)
+            ties += 1
+    st = eng.stats()
+    log("small MLA (dense use_mla): chunked == monolithic tokens; "
+        f"speculative windows {st['engine_steps']}, acceptance "
+        f"{st['acceptance_rate']:.3f}, near-tie divergences {ties}; tokens "
+        f"{base}")
+
+
+def plan_launches(model, decode=False):
     """(launches, aligned launches) of one forward call of ``model``: one
-    per distinct bit-width of each prepared matmul."""
-    groups = [g for m in quantized_modules(model) for g in m.kernel.groups]
+    per distinct bit-width of each prepared matmul.  Stacked MoE experts
+    are dequantized whole (no launch), and with ``decode`` MLA's kv_up is
+    too (the absorbed decode and span materialize it)."""
+    skip = {id(b.attn.kv_up) for b in model.blocks
+            if decode and hasattr(b.attn, "kv_up")}
+    groups = [g for m in quantized_modules(model)
+              if id(m) not in skip and not m.kernel.stack
+              for g in m.kernel.groups]
     return len(groups), sum(g.x_start is not None for g in groups)
 
 
@@ -514,10 +627,13 @@ def drive(eng, prompts, dm, api, cfg, tag, one_by_one=False,
     logits row that decode step emitted it from; with ``prefill_rows``,
     each prompt's batch-1 prefill row under "prefill_logits")."""
     t_lpm, t_al = plan_launches(eng.params)
+    t_dec, t_dal = plan_launches(eng.params, decode=True)
     d_lpm, d_al = (plan_launches(eng.draft_params) if eng.spec is not None
                    else (0, 0))
+    d_dec, d_dal = (plan_launches(eng.draft_params, decode=True)
+                    if eng.spec is not None else (0, 0))
     draft_calls = eng.spec.gamma + 1 if eng.spec is not None else 0
-    per_step = t_lpm + draft_calls * d_lpm
+    per_step = t_dec + draft_calls * d_dec
     per_prefill = t_lpm + d_lpm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -586,7 +702,7 @@ def drive(eng, prompts, dm, api, cfg, tag, one_by_one=False,
     assert launches == per_prefill * prefill_calls + per_step * len(
         decode_launches)
     assert aligned == (prefill_calls * (t_al + d_al) + len(decode_launches)
-                       * (t_al + draft_calls * d_al)), aligned
+                       * (t_dal + draft_calls * d_dal)), aligned
     assert int8_launches == (launches if eng.act_dtype == "int8" else 0)
     # logits of the served model: finite, of the expected shape
     from repro_torch.models.modules import activation_quant
@@ -722,11 +838,12 @@ def phase_serve(api, dm, ServingEngine, module_tensors, cfg, gen, host_gen):
     model = synthetic_model(cfg, gen, host_gen, "cuda")
     torch.cuda.synchronize()
     qmods = quantized_modules(model)
-    assert len(qmods) == 7 * cfg.n_layers == 224, len(qmods)
+    assert len(qmods) == 7 * cfg.n_layers == 7 * SERVE_DEPTH, len(qmods)
     packed = sum(s.packed.numel() * 4 for m in qmods
                  for s in m.kernel.stripes)
     eff = np.mean([m.kernel.effective_bits() for m in qmods])
-    log(f"built 224 CLAQ matrices in {time.perf_counter() - t0:.1f} s: "
+    log(f"built {len(qmods)} CLAQ matrices in "
+        f"{time.perf_counter() - t0:.1f} s: "
         f"packed codes {packed / 1e9:.3f} GB, mean effective bits "
         f"{eff:.3f}")
 
@@ -734,7 +851,7 @@ def phase_serve(api, dm, ServingEngine, module_tensors, cfg, gen, host_gen):
     eng = ServingEngine(model, cfg, n_slots=4, max_len=256,
                         dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    log(f"engine init (plans for 224 matrices): "
+    log(f"engine init (plans for {len(qmods)} matrices): "
         f"{time.perf_counter() - t0:.1f} s")
     assert all(t.is_cuda for t in module_tensors(model))
     prompts = [torch.randint(1, cfg.vocab, (n,), generator=host_gen).tolist()
@@ -774,8 +891,7 @@ class SpanNoise:
 
 
 def clone_cache(cache):
-    from repro_torch.models.layers import KVCache
-    return [KVCache(c.k.clone(), c.v.clone(), c.length.clone())
+    return [type(c)(*(None if t is None else t.clone() for t in c))
             for c in cache]
 
 
@@ -1501,6 +1617,241 @@ def phase_substrate(api, dm, ops, ServingEngine, SpecConfig, gen):
     return res
 
 
+# ------------------------------------------------------------ phase 11
+
+class KernelShapes:
+    """While open, record the M of every prepared matmul by its (out, in)
+    shape: the (shape, M) pairs a run gave K1."""
+
+    def __init__(self, ops):
+        self.ops, self.inner, self.seen = ops, ops.prepared_qmatmul, {}
+
+    def __enter__(self):
+        def recorded(x, pqt, **kw):
+            self.seen.setdefault(tuple(pqt.shape), set()).add(
+                int(np.prod(x.shape[:-1])))
+            return self.inner(x, pqt, **kw)
+        self.ops.prepared_qmatmul = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.prepared_qmatmul = self.inner
+
+
+class MoeDrops:
+    """While open, keep every ``moe_mlp`` call's token count and capacity
+    drops (device counts, read once at the end)."""
+
+    def __init__(self, moe_lib):
+        self.lib, self.inner, self.calls = moe_lib, moe_lib.moe_mlp, []
+
+    def __enter__(self):
+        def counted(p, x, cfg, stats=None):
+            st = {}
+            out = self.inner(p, x, cfg, st)
+            self.calls.append((x.shape[1] == 1, x.shape[0] * x.shape[1],
+                               st["dropped"]))
+            return out
+        self.lib.moe_mlp = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.moe_mlp = self.inner
+
+    def summary(self, cfg):
+        out = {}
+        for kind, decode in (("decode", True), ("prefill", False)):
+            calls = [(t, int(d)) for dec, t, d in self.calls if dec == decode]
+            layers = max(cfg.n_layers, 1)
+            out[kind] = dict(
+                calls=len(calls), steps=len(calls) // layers,
+                assignments=sum(t for t, _ in calls) * cfg.top_k,
+                dropped=sum(d for _, d in calls),
+                dropped_per_step=(sum(d for _, d in calls)
+                                  / max(len(calls) // layers, 1)))
+        return out
+
+
+def expert_split_ms(moe_lib, model, cfg, flush, reps=5):
+    """Device ms of one decode step's expert work (4 slots: cap 1), per
+    layer and over every layer: the three stacks' dequantize against the
+    three expert einsums (CUDA events, after an L2 flush)."""
+    mlp = model.blocks[0].mlp
+    E, D = cfg.n_experts, cfg.d_model
+    cap = moe_lib.capacity(4, cfg)
+    xd = torch.randn((1, E, cap, D), device="cuda").to(torch.bfloat16)
+    ws = [moe_lib.expert_weight(getattr(mlp, n), torch.bfloat16)
+          for n in ("w_gate", "w_up", "w_down")]
+
+    def deq():
+        for n in ("w_gate", "w_up", "w_down"):
+            moe_lib.expert_weight(getattr(mlp, n), torch.bfloat16)
+
+    def ein():
+        h = torch.einsum("gecd,edf->gecf", xd, ws[0])
+        h = torch.nn.functional.silu(h) * torch.einsum("gecd,edf->gecf", xd,
+                                                       ws[1])
+        torch.einsum("gecf,efd->gecd", h, ws[2])
+    torch.cuda.synchronize()
+    d, e = time_ms(deq, reps, flush), time_ms(ein, reps, flush)
+    return dict(cap=cap, dequantize_ms_per_layer=d, einsum_ms_per_layer=e,
+                dequantize_ms_per_step=d * cfg.n_layers,
+                einsum_ms_per_step=e * cfg.n_layers)
+
+
+def phase_family(api, dm, ops, ServingEngine, cfg, prompts, gen, host_gen,
+                 tag, ways):
+    """Phases 11/11b: a moe config at full width with synthetic CLAQ AP+OR
+    weights (the expert stacks included) through ``ServingEngine`` with 4
+    slots, one ``drive`` per cache layout in ``ways``: batch-1, unpadded
+    prefills only; the (shape, M) pairs K1 ran; capacity drops; the
+    expert dequantize against the expert einsums; an untimed second serve
+    of the first layout gives its tokens again.  Returns (records by
+    layout, one served plan per K1 shape, the (shape, M) pairs)."""
+    from repro_torch.models import moe as moe_lib
+    t0 = time.perf_counter()
+    model = synthetic_model(cfg, gen, host_gen, "cuda")
+    torch.cuda.synchronize()
+    qmods = quantized_modules(model)
+    stacks = [m for m in qmods if m.kernel.stack]
+    assert len(stacks) == 3 * cfg.n_layers, len(stacks)
+    packed = sum(s.packed.numel() * 4 for m in qmods for s in m.kernel.stripes)
+    log(f"{tag}: built {len(qmods) - len(stacks)} CLAQ matrices and "
+        f"{len(stacks)} stacks of {cfg.n_experts} experts in "
+        f"{time.perf_counter() - t0:.1f} s: packed codes {packed / 1e9:.3f} "
+        f"GB, mean effective bits "
+        f"{np.mean([m.kernel.effective_bits() for m in qmods]):.3f}")
+    out, shapes = {}, {}
+    for way, kw in ways:
+        eng = ServingEngine(model, cfg, n_slots=4, max_len=256,
+                            dtype=torch.bfloat16, device="cuda", **kw)
+        assert not eng.bucketing.enabled and not eng._preemptible
+        with KernelShapes(ops) as seen, MoeDrops(moe_lib) as drops:
+            res = drive(eng, prompts, dm, api, cfg, f"{tag}_{way}")
+        per_shape = eng.bucketing.stats.per_shape
+        assert all(b == 1 for b, _ in per_shape), per_shape
+        assert sorted(n for _, n in per_shape) == sorted(
+            set(len(p) for p in prompts)), per_shape
+        for k, v in seen.seen.items():
+            shapes.setdefault(k, set()).update(v)
+        res.update(capacity_drops=drops.summary(cfg),
+                   k1_shapes={f"{r}x{c}": sorted(v)
+                              for (r, c), v in sorted(seen.seen.items())})
+        log(f"{tag}_{way} extra " + json.dumps({k: res[k] for k in (
+            "capacity_drops", "k1_shapes")}))
+        out[way] = res
+        del eng
+    first = ways[0][0]
+    again = small_serve(ServingEngine(model, cfg, n_slots=4, max_len=256,
+                                      dtype=torch.bfloat16, device="cuda",
+                                      **ways[0][1]), prompts, MAX_NEW)
+    assert again == out[first]["tokens"], "a second serve left the first"
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    split = expert_split_ms(moe_lib, model, cfg, flush)
+    log(f"{tag} expert work per decode step " + json.dumps(split))
+    out[first]["expert_split"] = split
+    served = {}
+    for m in quantized_modules(model):
+        if not m.kernel.stack:
+            served.setdefault(tuple(m.kernel.shape), m.kernel)
+    assert set(shapes) <= set(served), (sorted(shapes), sorted(served))
+    del model
+    torch.cuda.empty_cache()
+    return out, served, shapes
+
+
+def phase_deepseek(api, dm, ops, ServingEngine, cfg, prompts, gen, host_gen):
+    """11b: deepseek_v2_236b at full width, 1 layer, served contiguous,
+    paged fp (exactly the contiguous tokens) and paged int8 (budgets,
+    bytes a page); chunked prefill refused (family moe); the latent cache
+    bytes a token against a full K/V cache's."""
+    ways = (("contiguous", {}),
+            ("paged", dict(kv_layout="paged", page_size=PAGE_SIZE)),
+            ("paged_int8", dict(kv_layout="paged", page_size=PAGE_SIZE,
+                                kv_dtype="int8")))
+    out, served, shapes = phase_family(api, dm, ops, ServingEngine, cfg,
+                                       prompts, gen, host_gen, "deepseek",
+                                       ways)
+    assert out["paged"]["tokens"] == out["contiguous"]["tokens"]
+    pg8 = out["paged_int8"]["paged"]
+    assert pg8["peak_pages_in_use"] <= pg8["n_pages"]
+    assert pg8["bytes_per_page"] < out["paged"]["paged"]["bytes_per_page"]
+    try:          # refused before the engine touches any weight
+        ServingEngine(None, cfg, chunked_prefill=CHUNK_TOKENS, n_slots=4,
+                      max_len=256, device="cuda")
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("chunked prefill was not refused for moe")
+    lat = cfg.n_layers * (cfg.kv_lora + cfg.rope_head_dim) * 2
+    full = cfg.n_layers * cfg.n_heads * (
+        cfg.head_dim + cfg.rope_head_dim + cfg.v_head_dim) * 2
+    cache = dict(latent_bytes_per_token=lat, full_kv_bytes_per_token=full,
+                 ratio=full / lat, chunked_refused=refused,
+                 int8_bytes_per_page=pg8["bytes_per_page"],
+                 fp_bytes_per_page=out["paged"]["paged"]["bytes_per_page"])
+    log("deepseek cache " + json.dumps(cache))
+    out["contiguous"]["cache"] = cache
+    return out, served, shapes
+
+
+def phase_new_shapes(dm, ops, served, shapes, gen, act):
+    """K1 (act "f32") or K1e ("int8") against its plain version on each
+    served bf16 plan of the moe/MLA configs at every M the serves gave
+    that shape (gathered: AP columns are permuted), each launch on the
+    same inputs; device ms from a CUDA graph beside ``torch.matmul`` on
+    the dequantized weight and the bound.  Returns the records and the
+    largest error."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    cases, max_err = [], 0.0
+    for (rows, cols) in sorted(shapes):
+        pqt = served[(rows, cols)]
+        w = pqt.dequantize(torch.bfloat16)
+        for m in sorted(shapes[(rows, cols)]):
+            x = torch.randn((m, cols), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            xk, scale = (ops.quantize_activations(x) if act == "int8"
+                         else (x, None))
+            calls = list(ops.group_calls(xk, pqt, "kernel", x_scale=scale))
+            acc, err = None, 0.0
+            for xg, kw in calls:
+                yk = dm.dequant_matmul(xg, acc=acc,
+                                       compute_dtype=torch.bfloat16, **kw)
+                yp = dm.dequant_matmul_plain(xg, acc=acc,
+                                             compute_dtype=torch.bfloat16,
+                                             **kw)
+                torch.cuda.synchronize()
+                diff = (yk - yp).abs()
+                assert torch.isfinite(yk).all()
+                assert not (diff > ATOL + RTOL * yp.abs()).any(), (
+                    rows, cols, m, act, float(diff.max()))
+                err = max(err, float(diff.max()))
+                acc = yk
+
+            def run(calls=calls):
+                y = None
+                for xg, kw in calls:
+                    y = dm.dequant_matmul(xg, acc=y,
+                                          compute_dtype=torch.bfloat16, **kw)
+                return y
+            nb, fl = chain_bytes_flops(pqt, m, xk.element_size())
+            if scale is not None:
+                nb += scale.numel() * scale.element_size()
+            bound_ms, by = bound_of(nb, fl, torch.bfloat16)
+            rec = dict(shape=f"{rows}x{cols}", m=m, act=act,
+                       launches=len(calls), max_abs_err=err,
+                       device_ms=graph_ms(run, 5, flush),
+                       library_device_ms=graph_ms(
+                           lambda x=x: torch.matmul(x, w.T), 5, flush),
+                       bound_ms=bound_ms, bound_by=by)
+            max_err = max(max_err, err)
+            cases.append(rec)
+            log("kernel_new_shape " + json.dumps(rec))
+        del w
+    torch.cuda.empty_cache()
+    return cases, max_err
+
+
 # ------------------------------------------------------------ phase 9
 
 def reset_counts(dm):
@@ -1896,6 +2247,7 @@ def main() -> int:
     from repro_torch.serve import ServingEngine, SpecConfig
 
     # 1. device
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1914,14 +2266,23 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
 
-    # 3. small-input reference (card vs CPU)
+    # 3. small-input reference (card vs CPU): dense, moe, moe + MLA, and
+    # a dense use_mla model (its chunked prefill and speculation too)
     small = dataclasses.replace(get_smoke_config("llama1_7b"), vocab=128)
     phase_small_reference(api, ServingEngine, small, gen, host_gen)
+    for arch in ("qwen3_moe_30b_a3b", "deepseek_v2_236b"):
+        phase_small_reference(api, ServingEngine, dataclasses.replace(
+            get_smoke_config(arch), vocab=128), gen, host_gen, tag=arch)
+    small_mla = dataclasses.replace(small, **MLA_SMALL)
+    phase_small_mla(api, ServingEngine, SpecConfig, small_mla,
+                    phase_small_reference(api, ServingEngine, small_mla, gen,
+                                          host_gen, tag="dense use_mla"))
 
     # 4. full-width serving
-    cfg = get_config("llama1_7b")
-    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.dtype) == (
+    full = get_config("llama1_7b")
+    assert (full.n_layers, full.d_model, full.d_ff, full.dtype) == (
         32, 4096, 11008, "bfloat16")
+    cfg = dataclasses.replace(full, n_layers=SERVE_DEPTH)
     serve, model, prompts = phase_serve(api, dm, ServingEngine,
                                         module_tensors, cfg, gen, host_gen)
 
@@ -1987,6 +2348,38 @@ def main() -> int:
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
                                      serve8["kernel_m"], gen, host_gen,
                                      act="int8")
+    torch.cuda.empty_cache()
+
+    # 11. qwen3_moe_30b_a3b at full width (MOE_DEPTH layers): routed
+    # experts dequantized + einsum, every other quantized matmul on K1
+    mcfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b"),
+                               n_layers=MOE_DEPTH)
+    assert (mcfg.d_model, mcfg.n_heads, mcfg.n_kv_heads, mcfg.n_experts,
+            mcfg.top_k, mcfg.d_ff_expert, mcfg.vocab, mcfg.dtype) == (
+        2048, 32, 4, 128, 8, 768, 151936, "bfloat16")
+    moe_runs, served_new, shapes_new = phase_family(
+        api, dm, ops, ServingEngine, mcfg, prompts, gen, host_gen, "qwen3_moe",
+        (("contiguous", {}),))
+    # 11b. deepseek_v2_236b at full width, 1 layer: MLA + moe + shared
+    dcfg = dataclasses.replace(get_config("deepseek_v2_236b"), n_layers=1)
+    assert (dcfg.d_model, dcfg.n_heads, dcfg.q_lora, dcfg.kv_lora,
+            dcfg.rope_head_dim, dcfg.v_head_dim, dcfg.n_experts,
+            dcfg.n_shared_experts, dcfg.top_k, dcfg.d_ff_expert,
+            dcfg.vocab) == (5120, 128, 1536, 512, 64, 128, 160, 2, 6, 1536,
+                            102400)
+    ds_runs, served_d, shapes_d = phase_deepseek(api, dm, ops, ServingEngine,
+                                                 dcfg, prompts, gen, host_gen)
+    served_new.update(served_d)
+    for k, v in shapes_d.items():
+        shapes_new.setdefault(k, set()).update(v)
+    assert len(shapes_new) == 10, sorted(shapes_new)
+    # 5/7 at the new shapes: K1 and K1e at every (shape, M) of 11/11b
+    cases_ns, max_err_ns = phase_new_shapes(dm, ops, served_new, shapes_new,
+                                            gen, "f32")
+    cases8_ns, max_err8_ns = phase_new_shapes(dm, ops, served_new, shapes_new,
+                                              gen, "int8")
+    max_err, max_err8 = max(max_err, max_err_ns), max(max_err8, max_err8_ns)
+    del served_new, served_d
     torch.cuda.empty_cache()
 
     # 10. train llama1_7b at full width (QUANT_DEPTH layers), checkpoint
@@ -2099,6 +2492,18 @@ def main() -> int:
         for c in cases_10]
     kernels[0]["substrate_plan_launches_checked"] = substrate[
         "plan_launches_checked"]
+    new_paths = dict(qwen3_moe=split(moe_runs["contiguous"]),
+                     **{f"deepseek_{w}": split(r) for w, r in ds_runs.items()})
+    kernels[0]["launches_by_path"].update(new_paths)
+    checked_new = {f"{r}x{c}": sorted(v) for (r, c), v in
+                   sorted(shapes_new.items())}
+    for k, cs in ((kernels[0], cases_ns), (kernels[1], cases8_ns)):
+        k["checked_cases"] += len(cs)
+        k["new_shapes_checked_m"] = checked_new
+        k["new_shape_decode_cases"] = [
+            {f: c[f] for f in ("shape", "m", "device_ms", "library_device_ms",
+                               "bound_ms", "bound_by", "max_abs_err")}
+            for c in cs if c["m"] == 4]
     kernels[1]["launches_quantize_serve"] = qserve["main_path_int8_launches"]
     kernels[1]["launches_by_path"] = dict(
         quantize_serve=split(qserve), quantize_spec_serve=split(qserve["spec"]))
@@ -2111,6 +2516,7 @@ def main() -> int:
     assert spec["main_path_aligned_launches"] > 0
     assert spec["main_path_gathered_launches"] > 0
     assert qserve["spec"]["main_path_int8_launches"] > 0
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

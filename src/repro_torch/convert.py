@@ -5,15 +5,17 @@ bitwise ``m``).
 
 The tree has the reference's layout — ``embed.embedding``, layer-stacked
 ``blocks`` leaves with a leading ``(L, ...)`` axis, ``final_norm.scale``,
-``lm_head.kernel`` — and is unstacked here into one module per layer.  A
+``lm_head.kernel`` — and is unstacked here into one module per layer
+(MoE expert leaves ``mlp.w_gate`` etc. keep their ``(E, ...)`` axis).  A
 CLAQ ``QuantizedTensor`` crosses as a plain dict::
 
     {"stripes": [{"packed": u32, "codebook": f32, "bits": int}, ...],
      "col_perm": i32, "out_idx": i32, "out_val": f32, "out_count": i32,
      "shape": (rows, cols)}
 
-with the same optional leading layer axis on every array.  Packed words
-keep their bits as int32 (see core/packing.py) and leave as uint32.
+with the same optional leading layer (and expert) axes on every array.
+Packed words keep their bits as int32 (see core/packing.py) and leave as
+uint32.
 ``param_tree`` is the same layout over the model's own tensors, block
 leaves as ``tree.LayerStack``s: the tree the optimizer and the
 checkpoint walk.
@@ -29,8 +31,15 @@ from repro_torch import device as dev_lib
 from repro_torch import tree as tree_lib
 from repro_torch.core.quantized import QuantStripe, QuantizedTensor
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import modules as M
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
+
+# MLA's leaves in ``mla.MLA``'s argument order; the MoE expert stacks
+_MLA_LEAVES = ("q_down", "q_norm", "q_up", "kv_down", "kv_norm", "kv_up",
+               "o")
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -122,7 +131,8 @@ def _dense(leaf: Dict[str, Any], layer: Optional[int], dev) -> M.Dense:
 
 def from_numpy_tree(tree: Dict[str, Any], cfg,
                     device="cuda") -> tf.Transformer:
-    """The reference's dense-family parameter tree -> ``Transformer``."""
+    """The reference's parameter tree (dense or moe family, GQA or MLA
+    attention) -> ``Transformer``."""
     tf.validate_family(cfg)
     dev = dev_lib.resolve(device)
     blk = tree["blocks"]
@@ -130,20 +140,38 @@ def from_numpy_tree(tree: Dict[str, Any], cfg,
     def arr(a, i):
         return tensor_from_numpy(np.asarray(a)[i], dev)
 
+    def swiglu(ml, i):
+        return L.SwiGLU(*(_dense(ml[n], i, dev)
+                          for n in ("gate", "up", "down")))
+
+    def experts(leaf, i):       # a layer's (E, ...) stack, fp or quantized
+        if isinstance(leaf, dict):
+            return M.Dense(quantized_from_numpy(leaf, dev, i))
+        return M.Dense(arr(leaf, i))
+
     blocks = []
     for i in range(cfg.n_layers):
         at = blk["attn"]
-        attn = L.Attention(
-            *(_dense(at[n], i, dev) for n in ("q", "k", "v", "o")),
-            q_norm=arr(at["q_norm"]["scale"], i) if cfg.qk_norm else None,
-            k_norm=arr(at["k_norm"]["scale"], i) if cfg.qk_norm else None)
+        if cfg.use_mla:
+            attn = mla_lib.MLA(
+                *(arr(at[n]["scale"], i) if n.endswith("norm")
+                  else _dense(at[n], i, dev) for n in _MLA_LEAVES))
+        else:
+            attn = L.Attention(
+                *(_dense(at[n], i, dev) for n in ("q", "k", "v", "o")),
+                q_norm=arr(at["q_norm"]["scale"], i) if cfg.qk_norm else None,
+                k_norm=arr(at["k_norm"]["scale"], i) if cfg.qk_norm else None)
         ml = blk["mlp"]
-        if cfg.mlp_type == "gelu":
+        if cfg.family == "moe":
+            mlp = moe_lib.MoE(
+                _dense(ml["router"], i, dev),
+                *(experts(ml[n], i) for n in _EXPERT_LEAVES),
+                shared=swiglu(ml["shared"], i) if "shared" in ml else None)
+        elif cfg.mlp_type == "gelu":
             mlp = L.GeluMLP(_dense(ml["up"], i, dev),
                             _dense(ml["down"], i, dev))
         else:
-            mlp = L.SwiGLU(*(_dense(ml[n], i, dev)
-                             for n in ("gate", "up", "down")))
+            mlp = swiglu(ml, i)
         blocks.append(tf.Block(arr(blk["ln1"]["scale"], i),
                                arr(blk["ln2"]["scale"], i), attn, mlp))
     head = (None if cfg.tie_embeddings
@@ -155,10 +183,11 @@ def from_numpy_tree(tree: Dict[str, Any], cfg,
 
 
 def param_tree(model: tf.Transformer, cfg) -> Dict[str, Any]:
-    """The model's tensors in the reference's dense-family layout (no
-    copies): ``blocks`` leaves are ``LayerStack``s of the per-layer
-    tensors (a kernel may be a QuantizedTensor), then ``embed``,
-    ``final_norm`` and, unless embeddings are tied, ``lm_head``."""
+    """The model's tensors in the reference's layout (no copies):
+    ``blocks`` leaves are ``LayerStack``s of the per-layer tensors (a
+    kernel may be a QuantizedTensor, an expert leaf a stacked one), then
+    ``embed``, ``final_norm`` and, unless embeddings are tied,
+    ``lm_head``."""
     tf.validate_family(cfg)
     blocks = list(model.blocks)
 
@@ -171,13 +200,29 @@ def param_tree(model: tf.Transformer, cfg) -> Dict[str, Any]:
             out["bias"] = stack(lambda b: get(b).bias)
         return out
 
-    attn = {n: dense(lambda b, n=n: getattr(b.attn, n)) for n in "qkvo"}
-    if cfg.qk_norm:
-        attn["q_norm"] = {"scale": stack(lambda b: b.attn.q_norm)}
-        attn["k_norm"] = {"scale": stack(lambda b: b.attn.k_norm)}
-    names = ("up", "down") if cfg.mlp_type == "gelu" else ("gate", "up",
-                                                            "down")
-    mlp = {n: dense(lambda b, n=n: getattr(b.mlp, n)) for n in names}
+    def denses(get, names):
+        return {n: dense(lambda b, n=n: getattr(get(b), n)) for n in names}
+
+    if cfg.use_mla:
+        attn = denses(lambda b: b.attn, [n for n in _MLA_LEAVES
+                                         if not n.endswith("norm")])
+        for n in ("q_norm", "kv_norm"):
+            attn[n] = {"scale": stack(lambda b, n=n: getattr(b.attn, n))}
+    else:
+        attn = denses(lambda b: b.attn, "qkvo")
+        if cfg.qk_norm:
+            attn["q_norm"] = {"scale": stack(lambda b: b.attn.q_norm)}
+            attn["k_norm"] = {"scale": stack(lambda b: b.attn.k_norm)}
+    if cfg.family == "moe":
+        mlp = denses(lambda b: b.mlp, ("router",))
+        for n in _EXPERT_LEAVES:
+            mlp[n] = stack(lambda b, n=n: getattr(b.mlp, n).kernel)
+        if blocks[0].mlp.shared is not None:
+            mlp["shared"] = denses(lambda b: b.mlp.shared,
+                                   ("gate", "up", "down"))
+    else:
+        mlp = denses(lambda b: b.mlp, ("up", "down") if cfg.mlp_type == "gelu"
+                     else ("gate", "up", "down"))
     out = {"blocks": {"attn": attn, "ln1": {"scale": stack(lambda b: b.ln1)},
                       "ln2": {"scale": stack(lambda b: b.ln2)}, "mlp": mlp},
            "embed": {"embedding": model.embedding},

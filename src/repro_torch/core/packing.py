@@ -58,10 +58,11 @@ def _unpack_plane(words: torch.Tensor, width: int, rows: int) -> torch.Tensor:
     cpw = 32 // width
     mask = (1 << width) - 1
     shifts = (torch.arange(cpw, dtype=torch.int32, device=words.device)
-              * width)[None, :, None]
-    v = (words[:, None, :] >> shifts) & mask     # mask after the shift
-    v = v.reshape(words.shape[0] * cpw, words.shape[1])
-    return v[:rows].to(torch.int32)
+              * width)[:, None]
+    v = (words[..., :, None, :] >> shifts).bitwise_and_(mask)  # after shift
+    v = v.reshape(words.shape[:-2] + (words.shape[-2] * cpw,
+                                      words.shape[-1]))
+    return v[..., :rows, :].to(torch.int32)
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -77,13 +78,14 @@ def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def unpack_codes(words: torch.Tensor, bits: int, rows: int) -> torch.Tensor:
-    """(packed_rows, cols) int32 words -> (rows, cols) int32 codes."""
+    """(..., packed_rows, cols) int32 words -> (..., rows, cols) int32 codes
+    (leading axes: a stack of matrices, e.g. MoE experts)."""
     return unpack_planes(split_planes(words, bits, rows), bits, rows)
 
 
 def unpack_planes(planes, bits: int, rows: int) -> torch.Tensor:
     """Per-plane word arrays (low-order plane first, as ``split_planes``
-    gives them; extra padded rows are ignored) -> (rows, cols) int32
+    gives them; extra padded rows are ignored) -> (..., rows, cols) int32
     codes."""
     out = None
     shift = 0
@@ -100,7 +102,7 @@ def split_planes(words: torch.Tensor, bits: int, rows: int):
     r0 = 0
     for w in plane_widths(bits):
         pr = plane_rows(rows, w)
-        parts.append(words[r0:r0 + pr])
+        parts.append(words[..., r0:r0 + pr, :])
         r0 += pr
     return tuple(parts)
 

@@ -57,39 +57,99 @@ class QuantizedTensor:
             yield s.codebook
         yield from (self.col_perm, self.out_idx, self.out_val, self.out_count)
 
+    @property
+    def stack(self) -> Tuple[int, ...]:
+        """Leading stack axes of the data leaves: () for one matrix, (E,)
+        for MoE experts stacked as the reference's ``jnp.stack`` stacks
+        them (``shape`` stays the per-matrix (rows, cols))."""
+        return tuple(self.col_perm.shape[:-1])
+
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
-        """Reference dequantization (the oracle the kernels test against)."""
+        """Reference dequantization (the oracle the kernels test against):
+        (*stack, rows, cols) in ``dtype``, one batched pass over a stack.
+        Codebook and outlier values are cast to ``dtype`` before they are
+        placed, elementwise the reference's f32 result cast afterwards."""
         rows, cols = self.shape
-        parts = []
-        for s in self.stripes:
-            codes = packing.unpack_codes(s.packed, s.bits, rows).long()
-            parts.append(torch.gather(s.codebook.float().T, 0, codes))
-        Wp = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        parts = [lookup_codes(s.codebook, packing.unpack_codes(
+            s.packed, s.bits, rows), dtype) for s in self.stripes]
+        Wp = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         # un-permute columns: position p holds original column col_perm[p]
-        W = torch.zeros((rows, cols), dtype=torch.float32,
+        W = torch.zeros(self.stack + (rows, cols), dtype=dtype,
                         device=Wp.device)
-        W[:, self.col_perm.long()] = Wp
-        k = self.out_idx.shape[0]
-        if k > 0:
-            valid = (torch.arange(k, device=W.device)[:, None]
-                     < self.out_count[None, :])
-            colj = torch.arange(cols, device=W.device).expand(k, cols)
-            # slot order: a later valid slot overwrites an earlier one
-            for r in range(k):
-                v = valid[r]
-                W[self.out_idx[r][v].long(), colj[r][v]] = self.out_val[r][v]
-        return W.to(dtype)
+        W.scatter_(-1, self.col_perm.long().unsqueeze(-2).expand(W.shape),
+                   Wp)
+        k = self.out_idx.shape[-2]
+        valid = (torch.arange(k, device=W.device)[:, None]
+                 < self.out_count.unsqueeze(-2))
+        return place_outliers(W, torch.where(valid, self.out_idx, -1),
+                              self.out_val)
 
     def effective_bits(self, include_codebooks: bool = False) -> float:
+        """Storage bits per weight (per matrix of a stack, on average)."""
         rows, cols = self.shape
+        n = int(np.prod(self.stack))
         code_bits = sum(packing.storage_bits_per_element(s.bits) * rows
                         * s.n_cols for s in self.stripes)
-        outlier_bits = float(self.out_count.sum().item()) * 32.0
+        outlier_bits = float(self.out_count.sum().item()) * 32.0 / n
         total = code_bits + outlier_bits
         if include_codebooks:
-            total += sum(s.codebook.shape[0] * s.codebook.shape[1] * 16.0
+            total += sum(s.codebook.shape[-2] * s.codebook.shape[-1] * 16.0
                          for s in self.stripes)
         return total / (rows * cols)
+
+
+def lookup_codes(codebook: torch.Tensor, codes: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """``codebook[..., k, codes[..., r, k]]`` in ``dtype``: codebook
+    (*stack, K, levels), codes (*stack, n, K) int32 (consumed) -> (*stack,
+    n, K).  One ``index_select`` with an int32 flat index, so a stack of
+    experts takes one pass and no int64 index as large as the weights."""
+    K, levels = codebook.shape[-2:]
+    base = torch.arange(codebook.numel() // levels, dtype=torch.int32,
+                        device=codes.device) * levels
+    idx = codes.add_(base.view(codebook.shape[:-2] + (1, K)))
+    flat = codebook.to(dtype).reshape(-1)
+    return flat.index_select(0, idx.reshape(-1)).view(codes.shape)
+
+
+def place_outliers(W: torch.Tensor, idx: torch.Tensor,
+                   val: torch.Tensor) -> torch.Tensor:
+    """``W[..., idx[..., r, c], c] = val[..., r, c]`` where idx >= 0, in
+    place, slot by slot (a later slot wins): W (*stack, rows, cols), idx /
+    val (*stack, k, cols).  Each slot is one scatter along the row axis
+    with one entry per column (an empty entry writes its own value back),
+    so no host sync and no duplicate index."""
+    for r in range(idx.shape[-2]):
+        ok = (idx[..., r, :] >= 0).unsqueeze(-2)
+        ri = torch.where(ok, idx[..., r:r + 1, :], 0).long()
+        v = torch.where(ok, val[..., r:r + 1, :].to(W.dtype), W.gather(-2, ri))
+        W.scatter_(-2, ri, v)
+    return W
+
+
+def stack_quantized(qts) -> QuantizedTensor:
+    """Stack per-expert QuantizedTensors on a new leading axis (the
+    reference's ``jnp.stack`` over the expert pytrees).  Refused, as
+    ``jnp.stack`` refuses it, unless every member has the same stripe
+    layout (bits and column count of each stripe) and outlier slots."""
+    first = qts[0]
+
+    def layout(q):
+        return (tuple((s.bits, s.n_cols) for s in q.stripes),
+                tuple(q.out_idx.shape), q.shape)
+    if any(layout(q) != layout(first) for q in qts):
+        raise ValueError(
+            "cannot stack quantized experts whose stripe layouts differ: "
+            f"{sorted({layout(q) for q in qts})}")
+    stripes = tuple(QuantStripe(
+        packed=torch.stack([q.stripes[i].packed for q in qts]),
+        codebook=torch.stack([q.stripes[i].codebook for q in qts]),
+        bits=s.bits) for i, s in enumerate(first.stripes))
+    return QuantizedTensor(
+        stripes=stripes,
+        **{f: torch.stack([getattr(q, f) for q in qts])
+           for f in ("col_perm", "out_idx", "out_val", "out_count")},
+        shape=first.shape)
 
 
 def build_quantized_tensor(

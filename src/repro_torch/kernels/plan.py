@@ -21,7 +21,9 @@ CUDA kernel picks its own tile (n_padded is a multiple of 32 and every
 k_padded a multiple of 128, so any tile dividing those fits).
 
 The reference prepares a layer-stacked tensor under ``vmap``; the port
-keeps one tensor per layer, so every plan here is a per-matrix plan.
+keeps one tensor per layer, so a plan is a per-matrix plan, or, for MoE
+experts, one plan stacked on a leading E axis (dequantized whole, never
+run through the kernel).
 """
 from __future__ import annotations
 
@@ -33,9 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import packing
-from repro_torch.core.quantized import QuantizedTensor
-
-from . import ref
+from repro_torch.core.quantized import (QuantizedTensor, lookup_codes,
+                                        place_outliers)
 
 DEFAULT_BN = 128
 DEFAULT_BK = 512
@@ -61,7 +62,7 @@ class PlanGroup:
 
     @property
     def k_padded(self) -> int:
-        return self.codebook.shape[0]
+        return self.codebook.shape[-2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,32 +95,47 @@ class PreparedQuantizedTensor:
                 if t is not None:
                     yield t
 
+    @property
+    def stack(self) -> Tuple[int, ...]:
+        """Leading stack axes (() for one matrix, (E,) for stacked MoE
+        experts, which are dequantized whole and never reach the
+        kernel)."""
+        return tuple(self.gather_idx.shape[:-1])
+
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
-        """Dequantization from the prepared layout (plan-vs-tensor oracle)."""
+        """Dequantization from the prepared layout (plan-vs-tensor oracle;
+        the MoE experts' weights): (*stack, rows, cols) in ``dtype``, one
+        batched pass over a stack, values cast before they are placed."""
         rows, cols = self.shape
         dev = self.gather_idx.device
-        W = torch.zeros((rows, cols + 1), dtype=torch.float32, device=dev)
+        W = torch.zeros(self.stack + (rows, cols), dtype=dtype, device=dev)
         off = 0
         for g in self.groups:
-            Wg = ref.ref_apply_outliers(
-                ref.ref_dequant_planes(g.planes, g.codebook, g.bits, rows),
-                g.out_idx, g.out_val)
-            idx = self.gather_idx[off:off + g.k_padded].long()
-            W[:, idx] = Wg
+            Wg = lookup_codes(g.codebook, packing.unpack_planes(
+                g.planes, g.bits, rows), dtype)
+            if g.out_idx is not None:
+                place_outliers(Wg, g.out_idx, g.out_val)
+            # the group's padding columns (gather index == cols) are its
+            # tail: only its first k_cols columns are placed
+            idx = self.gather_idx[..., off:off + g.k_cols].long()
+            W.scatter_(-1, idx.unsqueeze(-2).expand(
+                self.stack + (rows, g.k_cols)), Wg[..., :g.k_cols])
             off += g.k_padded
-        return W[:, :cols].to(dtype)
+        return W
 
 
 def validated_outliers(qt: QuantizedTensor):
-    """Outlier planes in stripe-permuted column order, invalid slots -1."""
-    if qt.out_idx.shape[0] == 0:
+    """Outlier planes in stripe-permuted column order, invalid slots -1
+    (per member of a stack)."""
+    if qt.out_idx.shape[-2] == 0:
         return None, None
-    k = qt.out_idx.shape[0]
-    perm = qt.col_perm.long()
-    idx_p = qt.out_idx[:, perm]
-    val_p = qt.out_val[:, perm]
-    cnt_p = qt.out_count[perm]
-    valid = torch.arange(k, device=cnt_p.device)[:, None] < cnt_p[None, :]
+    k = qt.out_idx.shape[-2]
+    perm = qt.col_perm.long().unsqueeze(-2)
+    idx_p = torch.gather(qt.out_idx, -1, perm.expand(qt.out_idx.shape))
+    val_p = torch.gather(qt.out_val, -1, perm.expand(qt.out_val.shape))
+    cnt_p = torch.gather(qt.out_count.long(), -1, qt.col_perm.long())
+    valid = (torch.arange(k, device=cnt_p.device)[:, None]
+             < cnt_p.unsqueeze(-2))
     return (torch.where(valid, idx_p, -1).to(torch.int32),
             torch.where(valid, val_p, 0.0).float())
 
@@ -145,14 +161,18 @@ def _static_group_layout(stripes, bk: int):
 def _aligned_x_starts(qt: QuantizedTensor, layout):
     """Per-group x_start, or None where the group needs index tables.  A
     group is aligned when its fused K order is exactly the original columns
-    [s0, s0 + k_cols) with s0 a multiple of the group's bk."""
+    [s0, s0 + k_cols) with s0 a multiple of the group's bk (for a stack:
+    in every member, as the reference decides it before its vmap)."""
     perm = qt.col_perm.cpu().numpy()
+    flat = perm.reshape(-1, perm.shape[-1])
     starts = []
     for bits, members, k_cols, g_bk, _k_padded in layout:
         idx = np.concatenate(
-            [perm[o:o + qt.stripes[si].n_cols] for o, si in members])
-        s0 = int(idx[0])
-        ok = s0 % g_bk == 0 and np.array_equal(idx, np.arange(k_cols) + s0)
+            [flat[:, o:o + qt.stripes[si].n_cols] for o, si in members],
+            axis=1)
+        s0 = int(idx[0, 0])
+        ok = s0 % g_bk == 0 and np.array_equal(
+            idx, np.broadcast_to(np.arange(k_cols) + s0, idx.shape))
         starts.append(s0 if ok else None)
     return starts
 
@@ -161,10 +181,9 @@ def prepare_for_inference(qt: QuantizedTensor, *, bn: int = DEFAULT_BN,
                           bk: int = DEFAULT_BK) -> PreparedQuantizedTensor:
     """Compile ``qt`` into the fused deployment layout.  bn/bk are upper
     bounds, shrunk to the tensor (bn to N rounded to the 32-row packing
-    word, bk per group to its fused K rounded to 128)."""
-    if qt.stripes[0].packed.ndim != 2:
-        raise ValueError("prepare_for_inference takes one (unstacked) "
-                         "matrix; convert layer stacks per layer first")
+    word, bk per group to its fused K rounded to 128).  A stack (MoE
+    experts, leading E axis) gives a stacked plan with one layout shared by
+    every member, as the reference's vmap over the stack gives it."""
     layout = _static_group_layout(qt.stripes, bk)
     return _build_plan(qt, bn=bn, layout=layout,
                        x_starts=_aligned_x_starts(qt, layout))
@@ -173,9 +192,13 @@ def prepare_for_inference(qt: QuantizedTensor, *, bn: int = DEFAULT_BN,
 def _build_plan(qt: QuantizedTensor, *, bn: int, layout,
                 x_starts) -> PreparedQuantizedTensor:
     rows = qt.rows
+    stack = qt.stack
     bn = min(bn, round_up(rows, 32))
     n_padded = round_up(rows, bn)
     oi, ov = validated_outliers(qt)
+
+    def cols(t, o, si):            # a stripe's columns of a (..., K) leaf
+        return t[..., o:o + qt.stripes[si].n_cols]
 
     groups = []
     idx_parts = []
@@ -186,36 +209,37 @@ def _build_plan(qt: QuantizedTensor, *, bn: int, layout,
             cpw = 32 // w
             p = torch.cat([packing.split_planes(qt.stripes[si].packed, bits,
                                                 rows)[wi]
-                           for _, si in members], dim=1)
+                           for _, si in members], dim=-1)
             p = F.pad(p, (0, k_padded - k_cols, 0, n_padded // cpw
-                          - p.shape[0]))
+                          - p.shape[-2]))
             planes.append(p.contiguous())
 
-        cb = torch.cat([qt.stripes[si].codebook for _, si in members], dim=0)
+        cb = torch.cat([qt.stripes[si].codebook for _, si in members],
+                       dim=-2)
         cb = F.pad(cb.float(), (0, 0, 0, k_padded - k_cols)).contiguous()
 
         g_oi = g_ov = None
         if oi is not None:
-            g_oi = torch.cat([oi[:, o:o + qt.stripes[si].n_cols]
-                              for o, si in members], dim=1)
-            g_ov = torch.cat([ov[:, o:o + qt.stripes[si].n_cols]
-                              for o, si in members], dim=1)
+            g_oi = torch.cat([cols(oi, o, si) for o, si in members], dim=-1)
+            g_ov = torch.cat([cols(ov, o, si) for o, si in members], dim=-1)
             g_oi = F.pad(g_oi, (0, k_padded - k_cols), value=-1).contiguous()
             g_ov = F.pad(g_ov, (0, k_padded - k_cols)).contiguous()
 
-        idx = torch.cat([qt.col_perm[o:o + qt.stripes[si].n_cols]
-                         for o, si in members]).to(torch.int32)
+        idx = torch.cat([cols(qt.col_perm, o, si) for o, si in members],
+                        dim=-1).to(torch.int32)
         idx = F.pad(idx, (0, k_padded - k_cols), value=qt.cols)
         idx_parts.append(idx)
 
         groups.append(PlanGroup(
             planes=tuple(planes), codebook=cb, out_idx=g_oi, out_val=g_ov,
             x_idx=(None if x_start is not None
-                   else idx.reshape(k_padded // g_bk, g_bk).contiguous()),
+                   else idx.reshape(stack + (k_padded // g_bk, g_bk))
+                   .contiguous()),
             bits=bits, bk=g_bk, k_cols=k_cols, x_start=x_start))
 
     return PreparedQuantizedTensor(
-        groups=tuple(groups), gather_idx=torch.cat(idx_parts).contiguous(),
+        groups=tuple(groups),
+        gather_idx=torch.cat(idx_parts, dim=-1).contiguous(),
         shape=qt.shape, n_padded=n_padded, bn=bn)
 
 

@@ -6,16 +6,17 @@ from typing import Optional
 import torch
 
 from repro_torch.core import packing
-from repro_torch.core.quantized import QuantizedTensor
+from repro_torch.core.quantized import (QuantizedTensor, lookup_codes,
+                                        place_outliers)
 
 
 def ref_dequant_planes(planes, codebook: torch.Tensor, bits: int,
                        n: int) -> torch.Tensor:
     """Per-plane words (as ``packing.split_planes`` gives them) + codebook
-    (K, 2**bits) -> W (n, K) f32.  The one codebook lookup that the plain
-    kernel, the eager prepared path and the plan oracle share."""
-    codes = packing.unpack_planes(planes, bits, n).long()
-    return torch.gather(codebook.float().T, 0, codes)
+    (K, 2**bits) -> W (n, K) f32: the codebook lookup of every dequantize
+    (``core.quantized.lookup_codes``)."""
+    return lookup_codes(codebook, packing.unpack_planes(planes, bits, n),
+                        torch.float32)
 
 
 def ref_dequant(packed: torch.Tensor, codebook: torch.Tensor, bits: int,
@@ -31,12 +32,7 @@ def ref_apply_outliers(W: torch.Tensor, out_idx: Optional[torch.Tensor],
     a later slot wins)."""
     if out_idx is None or out_idx.shape[0] == 0:
         return W
-    W = W.clone()
-    for r in range(out_idx.shape[0]):
-        hit = out_idx[r] >= 0
-        W[out_idx[r][hit].long(), torch.nonzero(hit)[:, 0]] = \
-            out_val[r][hit].to(W.dtype)
-    return W
+    return place_outliers(W.clone(), out_idx, out_val)
 
 
 def ref_dequant_matmul(x: torch.Tensor, packed: torch.Tensor,

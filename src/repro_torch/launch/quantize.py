@@ -1,11 +1,14 @@
 """The CLAQ PTQ pipeline: calibrate -> plan -> quantize -> package (port
-of ``repro.launch.quantize``, dense family).
+of ``repro.launch.quantize``; dense and moe families, GQA or MLA).
 
 Calibration runs the model forward under ``modules.collecting``: every
 dense matmul streams its input into an (in, in) Hessian keyed by the
 reference's tap name (``layers.{i}.attn.q``).  Quantization then replaces,
 IN PLACE, each block ``Dense.kernel`` with its CLAQ ``QuantizedTensor``
-(embedding, norms and ``lm_head`` stay fp, the paper's weight-only scope):
+(embedding, norms, the MoE router and ``lm_head`` stay fp, the paper's
+weight-only scope; each MoE expert is quantized with its own Hessian
+from the ``expert_in_{e}`` / ``expert_mid_{e}`` taps and the experts are
+stacked again on their E axis):
 at full width a second copy of the model would not fit beside the first.
 Everything runs on the model's device.  ``claq_quantize_with_draft``
 calibrates once and quantizes the same fp weights twice, into the serving
@@ -22,7 +25,9 @@ import torch
 
 from repro_torch.core import claq as claq_lib
 from repro_torch.core.policy import CLAQConfig, draft_config
+from repro_torch.core.quantized import stack_quantized
 from repro_torch.models import modules as M
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 
 # parameter names never quantized (as in the reference)
@@ -87,7 +92,31 @@ def quantize_model_params(model: tf.Transformer, cfg,
                                                  hessians.get(tap), qcfg)
             stats[tap] = st
             m.set_kernel(qt)
+        if isinstance(block.mlp, moe_lib.MoE):
+            _quantize_experts(block.mlp, f"layers.{i}.mlp", hessians, qcfg,
+                              stats)
     return model, QuantizeReport(stats)
+
+
+def _quantize_experts(mlp, prefix: str, hessians, qcfg: CLAQConfig,
+                      stats) -> None:
+    """Quantize each expert of ``mlp``'s (E, in, out) stacks with its own
+    Hessian (``expert_in_{e}`` for gate/up, ``expert_mid_{e}`` for down)
+    and stack the results on E, in place; the stack's stat is its last
+    expert's, keyed as the reference keys it (``{prefix}.w_gate.w_gate``)."""
+    for name in ("w_gate", "w_up", "w_down"):
+        dm = getattr(mlp, name)
+        k = dm.kernel
+        if not (isinstance(k, torch.Tensor) and min(k.shape[1:]) >= 16):
+            continue
+        tap = "expert_mid" if name == "w_down" else "expert_in"
+        qts = []
+        for e in range(k.shape[0]):
+            qt, _, st = claq_lib.quantize_matrix(
+                k[e].float().T, hessians.get(f"{prefix}.{tap}_{e}"), qcfg)
+            qts.append(qt)
+        stats[f"{prefix}.{name}.{name}"] = st
+        dm.set_kernel(stack_quantized(qts))
 
 
 def claq_quantize(model: tf.Transformer, cfg, calib_tokens: torch.Tensor,

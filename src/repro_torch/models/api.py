@@ -1,5 +1,6 @@
-"""Family-agnostic model API (port of ``repro.models.api``), dense family
-only: the other families raise ``NotImplementedError``."""
+"""Family-agnostic model API (port of ``repro.models.api``): the dense and
+moe families, with GQA or MLA attention; rwkv, hybrid, encdec and
+sliding-window attention raise ``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Dict, Optional

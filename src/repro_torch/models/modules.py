@@ -12,7 +12,8 @@ context, as in the reference:
   * **Taps**: under ``collecting(collector, model)`` a dense ``Dense``
     streams its input into a per-matrix Hessian accumulator (H += 2 x^T x),
     keyed by the reference's tap names (``layers.{i}.attn.q``,
-    ``lm_head``), so Hessian dicts of both packages compare key for key.
+    ``lm_head``; a MoE layer's experts ``layers.{i}.mlp.expert_in_{e}``),
+    so Hessian dicts of both packages compare key for key.
   * **Activation quantization**: ``activation_quant("int8")`` opts every
     quantized matmul into per-token int8 activations (``QuantMode``).
 """
@@ -52,7 +53,7 @@ class TapCollector:
 
     def __init__(self):
         self.hessians: Dict[str, gptq.HessianState] = {}
-        self.names: Dict[int, str] = {}     # id(Dense) -> tap name
+        self.names: Dict[int, str] = {}     # id(module) -> tap name
 
     def record(self, name: str, x: torch.Tensor) -> None:
         st = self.hessians.get(name)
@@ -68,8 +69,7 @@ class TapCollector:
 def collecting(collector: TapCollector, model: nn.Module):
     """Tap every ``Dense`` of ``model`` into ``collector`` while the
     context is open."""
-    collector.names = {id(m): tap_name(n) for n, m in model.named_modules()
-                       if isinstance(m, Dense)}
+    collector.names = {id(m): tap_name(n) for n, m in model.named_modules()}
     prev = getattr(_STATE, "collector", None)
     _STATE.collector = collector
     try:
@@ -87,6 +87,19 @@ def _maybe_record(p, x: torch.Tensor) -> None:
     name = p if isinstance(p, str) else col.names.get(id(p))
     if name is not None:
         col.record(name, x)
+
+
+def record_expert_inputs(p: nn.Module, name: str, x_e: torch.Tensor) -> None:
+    """MoE calibration taps: x_e (G, E, cap, D) dispatched activations of
+    the MoE module ``p``.  One Hessian per expert (the tokens routed to
+    it), named ``{p's tap name}.{name}_{e}`` (``layers.{i}.mlp.
+    expert_in_{e}``) as in the reference."""
+    col: Optional[TapCollector] = getattr(_STATE, "collector", None)
+    base = None if col is None else col.names.get(id(p))
+    if base is None:
+        return
+    for e in range(x_e.shape[1]):
+        col.record(f"{base}.{name}_{e}", x_e[:, e].reshape(-1, x_e.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +165,16 @@ def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)
     return y
+
+
+def materialize_kernel(p: Dense) -> torch.Tensor:
+    """The kernel as a dense (in, out) tensor, dequantized (to bf16, as in
+    the reference) if quantized: for paths that need the weight itself
+    (MLA's absorbed decode)."""
+    kernel = p.kernel
+    if isinstance(kernel, _QUANTIZED):
+        return kernel.dequantize(torch.bfloat16).T
+    return kernel
 
 
 def module_tensors(module: nn.Module) -> Iterator[torch.Tensor]:

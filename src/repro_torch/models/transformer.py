@@ -1,13 +1,15 @@
-"""Decoder LM, dense family (port of the dense path of
-``repro.models.transformer``).
+"""Decoder LM for the dense and moe families, with GQA or MLA attention
+(port of ``repro.models.transformer``; rwkv, hybrid, encdec and
+sliding-window attention are later slices).
 
 Blocks live in an ``nn.ModuleList`` and run in a Python loop (the
 reference scans a layer-stacked tree); the serving cache is a list with
-one ``KVCache`` (or, paged, one ``PagedKVCache``) per layer.  With
-``cfg.remat`` and grad enabled each block is recomputed in the backward
-pass (``torch.utils.checkpoint``), as the reference remats its scan body.
-Entry points: init_params, forward, lm_loss, init_cache, prefill,
-decode_step, decode_span.
+one cache per layer: ``KVCache`` / ``PagedKVCache``, or with MLA
+``MLACache`` / ``PagedMLACache``.  ``forward`` returns the MoE aux loss
+summed over layers.  With ``cfg.remat`` and grad enabled each block is
+recomputed in the backward pass (``torch.utils.checkpoint``), as the
+reference remats its scan body.  Entry points: init_params, forward,
+lm_loss, init_cache, prefill, decode_step, decode_span.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import mla as mla_lib
 from . import modules as M
+from . import moe as moe_lib
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -27,20 +31,23 @@ def torch_dtype(cfg) -> torch.dtype:
 
 
 def validate_family(cfg) -> None:
-    """The port serves the dense family; the others are later slices."""
-    if cfg.family != "dense":
+    """The port serves the dense and moe families, with GQA or MLA
+    attention; the others are later slices."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (dense only)")
-    if cfg.use_mla:
-        raise NotImplementedError("MLA attention is not ported yet")
+            f"the {cfg.family} family is not ported yet (dense and moe "
+            f"only)")
     if cfg.attn_window is not None:
         raise NotImplementedError("sliding-window attention is not ported "
                                   "yet")
 
 
 class Block(nn.Module):
+    """``attn``: ``layers.Attention`` or ``mla.MLA``; ``mlp``: a SwiGLU, a
+    GELU MLP or ``moe.MoE``."""
+
     def __init__(self, ln1: torch.Tensor, ln2: torch.Tensor,
-                 attn: L.Attention, mlp: nn.Module):
+                 attn: nn.Module, mlp: nn.Module):
         super().__init__()
         self.register_buffer("ln1", ln1)
         self.register_buffer("ln2", ln2)
@@ -59,8 +66,13 @@ class Transformer(nn.Module):
 
 
 def _block_init(gen, cfg, dtype, device) -> Block:
-    attn = L.attention_init(gen, cfg, dtype, device)
-    if cfg.mlp_type == "gelu":
+    if cfg.use_mla:
+        attn = mla_lib.mla_init(gen, cfg, dtype, device)
+    else:
+        attn = L.attention_init(gen, cfg, dtype, device)
+    if cfg.family == "moe":
+        mlp = moe_lib.moe_init(gen, cfg, dtype, device)
+    elif cfg.mlp_type == "gelu":
         mlp = L.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
     else:
         mlp = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
@@ -86,23 +98,32 @@ def init_params(gen: torch.Generator, cfg, device) -> Transformer:
 
 def block_apply(p: Block, x: torch.Tensor, cfg, cache=None,
                 span: bool = False):
+    """One block: (x, new cache, aux loss)."""
     h = M.rms_norm(p.ln1, x, cfg.norm_eps)
-    a, new_cache = L.gqa_attention(p.attn, h, cfg, cache, span=span)
+    if cfg.use_mla:
+        a, new_cache = mla_lib.mla_attention(p.attn, h, cfg, cache, span=span)
+    else:
+        a, new_cache = L.gqa_attention(p.attn, h, cfg, cache, span=span)
     x = x + a
     h = M.rms_norm(p.ln2, x, cfg.norm_eps)
-    m = (L.gelu_mlp(p.mlp, h) if cfg.mlp_type == "gelu"
-         else L.swiglu_mlp(p.mlp, h))
-    return x + m, new_cache
+    aux = torch.zeros((), device=x.device)
+    if cfg.family == "moe":
+        m, aux = moe_lib.moe_mlp(p.mlp, h, cfg)
+    elif cfg.mlp_type == "gelu":
+        m = L.gelu_mlp(p.mlp, h)
+    else:
+        m = L.swiglu_mlp(p.mlp, h)
+    return x + m, new_cache, aux
 
 
 def forward(model: Transformer, cfg, tokens: Optional[torch.Tensor],
             caches: Optional[List] = None, span: bool = False,
             prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
-    """tokens (B, S) -> (logits (B, P + S, V), new caches, aux loss (0)).
-    ``prefix_embeds`` (B, P, D), the modality stub (precomputed patch
-    embeddings), is prepended to the token embeddings.  ``span``: the S
-    tokens append at each slot's own fill level (see
+    """tokens (B, S) -> (logits (B, P + S, V), new caches, aux loss summed
+    over layers).  ``prefix_embeds`` (B, P, D), the modality stub
+    (precomputed patch embeddings), is prepended to the token embeddings.
+    ``span``: the S tokens append at each slot's own fill level (see
     ``layers.gqa_attention``)."""
     parts = []
     if prefix_embeds is not None:
@@ -112,13 +133,16 @@ def forward(model: Transformer, cfg, tokens: Optional[torch.Tensor],
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_caches = None if caches is None else []
+    aux_sum = torch.zeros((), device=x.device)
     for i, blk in enumerate(model.blocks):
         if remat:
-            x, c = checkpoint(block_apply, blk, x, cfg, use_reentrant=False)
+            x, c, aux = checkpoint(block_apply, blk, x, cfg,
+                                   use_reentrant=False)
         else:
-            x, c = block_apply(blk, x, cfg,
-                               None if caches is None else caches[i],
-                               span=span)
+            x, c, aux = block_apply(blk, x, cfg,
+                                    None if caches is None else caches[i],
+                                    span=span)
+        aux_sum = aux_sum + aux
         if caches is not None:
             new_caches.append(c)
     x = M.rms_norm(model.final_norm, x, cfg.norm_eps)
@@ -127,7 +151,7 @@ def forward(model: Transformer, cfg, tokens: Optional[torch.Tensor],
         logits = x @ model.embedding.to(x.dtype).T
     else:
         logits = M.dense(model.lm_head, x)
-    return logits, new_caches, torch.zeros((), device=x.device)
+    return logits, new_caches, aux_sum
 
 
 def lm_loss(model: Transformer, cfg, batch: Dict[str, torch.Tensor]):
@@ -169,24 +193,32 @@ def validate_paged_support(cfg) -> None:
 def init_cache(cfg, batch: int, max_len: int, dtype, device, *,
                page_size: Optional[int] = None,
                n_pages: Optional[int] = None, kv_dtype=None) -> List:
-    """One cache per layer.  With ``page_size`` set, each layer gets a
-    paged pool instead of contiguous strips, all layers sharing one page
-    table (``n_pages`` defaults to contiguous capacity, batch * max_len
-    tokens; ``kv_dtype='int8'`` stores resident pages quantized)."""
+    """One cache per layer (MLA: the latent c_kv/k_pe strips).  With
+    ``page_size`` set, each layer gets a paged pool instead of contiguous
+    strips, all layers sharing one page table (``n_pages`` defaults to
+    contiguous capacity, batch * max_len tokens; ``kv_dtype='int8'``
+    stores resident pages quantized)."""
     if page_size is not None:
         validate_paged_support(cfg)
     validate_family(cfg)
     if page_size is None:
+        if cfg.use_mla:
+            return [mla_lib.init_mla_cache(batch, max_len, cfg, dtype, device)
+                    for _ in range(cfg.n_layers)]
         return [L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
                                 dtype, device) for _ in range(cfg.n_layers)]
     if n_pages is None:
         n_pages = batch * (max_len // page_size)
     table = torch.full((batch, max_len // page_size), n_pages,
                        dtype=torch.long, device=device)
-    return [L.init_paged_kv_cache(
-        batch, max_len, cfg.n_kv_heads, cfg.head_dim, page_size=page_size,
-        n_pages=n_pages, dtype=dtype, kv_dtype=kv_dtype, device=device,
-        table=table) for _ in range(cfg.n_layers)]
+    kw = dict(page_size=page_size, n_pages=n_pages, dtype=dtype,
+              kv_dtype=kv_dtype, device=device, table=table)
+    if cfg.use_mla:
+        return [mla_lib.init_paged_mla_cache(batch, max_len, cfg, **kw)
+                for _ in range(cfg.n_layers)]
+    return [L.init_paged_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                  cfg.head_dim, **kw)
+            for _ in range(cfg.n_layers)]
 
 
 def prefill(model, cfg, tokens, caches, logits_at=None, prefix_embeds=None):

@@ -113,10 +113,17 @@ is the number of distinct (batch, bucket) prefill shapes run, and the
 other ``*_traces`` counters of ``stats()`` the distinct shapes of their
 calls — the quantities the reference bounds by its trace counts.
 
+Families: dense and moe, with GQA or MLA attention (rwkv, hybrid, encdec
+and sliding-window attention raise ``NotImplementedError``).  moe, as in
+the reference, admits unpadded and one request per prefill, cannot
+preempt (pressure truncates) and refuses chunked prefill and
+speculation.  The cache helpers work by leaf name (``_SEQ_LEAVES``,
+``_POOL_SRC``), so GQA's k/v and MLA's latent c_kv/k_pe ride the same
+insert, rollback and page scatter.
+
 Port note — not accepted yet (each queued in ROADMAP.md): a device mesh
 (``mesh``) and the contract checker (``verify_contracts``); passing either
-raises ``TypeError``.  A family other than dense raises
-``NotImplementedError`` (so MLA chunked prefill is refused with MLA).
+raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -132,7 +139,6 @@ from repro_torch import device as dev_lib
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.plan import prepare_tree
 from repro_torch.models import api
-from repro_torch.models import layers as L
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tf
 
@@ -151,8 +157,38 @@ from .telemetry import MetricsRegistry, Telemetry, registry_from_stats
 
 # Families whose caches are position-indexed and masked by a fill counter,
 # making right-padding invisible to valid tokens (the reference's gate for
-# bucketing and chunked prefill; the port serves dense only).
+# bucketing and chunked prefill).  moe is excluded although its cache is
+# attention-shaped: capacity-bounded routing sees the padded suffix (cap
+# and the group-local cumsum depend on the token count), and its prefill
+# rows are batch-dependent, so moe admits unpadded, one request a prefill.
 _PADDED_FAMILIES = ("dense",)
+
+# Cache leaf names with a sequence axis to zero-mask past the true length
+# (KVCache.k/v, MLACache.c_kv/k_pe), and the paged pools and their int8
+# scales, each mapped to the contiguous-fragment leaf that feeds it at
+# admission (PagedKVCache kp/vp, PagedMLACache cp/pp).  The table is
+# the engine's (see _sync_tables) and the fill counter hides a
+# rolled-back tail in pages, as in the contiguous layout.
+_SEQ_LEAVES = ("k", "v", "c_kv", "k_pe")
+_POOL_SRC = {"kp": "k", "vp": "v", "cp": "c_kv", "pp": "k_pe"}
+_SCALE_OF = {"kp": "k_scale", "vp": "v_scale", "cp": "c_scale",
+             "pp": "p_scale"}
+
+
+def _seq_leaves(c) -> List[str]:
+    return [f for f in c._fields if f in _SEQ_LEAVES]
+
+
+def _pool_leaves(c) -> List[str]:
+    return [f for f in c._fields if f in _POOL_SRC]
+
+
+def _keep(pos_len: int, lens: torch.Tensor, t: torch.Tensor):
+    """(B, pos_len, 1, ...) mask of positions < lens, broadcast to ``t``'s
+    rank."""
+    keep = (torch.arange(pos_len, device=lens.device)[None, :]
+            < lens[:, None])
+    return keep.view(keep.shape + (1,) * (t.dim() - 2))
 
 
 @dataclasses.dataclass
@@ -191,66 +227,59 @@ class Request:
         lc.transition(self, new_state)
 
 
-def _masked_group_insert(full: List[L.KVCache], frag: List[L.KVCache],
-                         slots: Sequence[int], lens: Sequence[int],
-                         masked: bool) -> List[L.KVCache]:
+def _masked_group_insert(full: List, frag: List, slots: Sequence[int],
+                         lens: Sequence[int], masked: bool) -> List:
     """Copy the first ``len(slots)`` rows of a prefill fragment into the
     batched cache at ``slots`` (in place), keeping only each row's first
     ``lens[r]`` positions when ``masked`` (padded admission): the padded
-    K/V tail is zeroed and the fill counter pinned to the true length, so
-    the batched cache is what an unpadded prefill would have left."""
+    tail of every sequence leaf is zeroed and the fill counter pinned to
+    the true length, so the batched cache is what an unpadded prefill
+    would have left."""
     B = len(slots)
-    dev = full[0].k.device
+    dev = full[0].length.device
     slots_t = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
     lens_t = torch.as_tensor(list(lens), dtype=torch.int32, device=dev)
     out = []
     for fl, fr in zip(full, frag):
-        k, v = fr.k[:B], fr.v[:B]
-        if masked:
-            keep = (torch.arange(k.shape[1], device=dev)[None, :]
-                    < lens_t[:, None])[:, :, None, None]
-            k = torch.where(keep, k, torch.zeros((), dtype=k.dtype,
-                                                 device=dev))
-            v = torch.where(keep, v, torch.zeros((), dtype=v.dtype,
-                                                 device=dev))
-            new_len = lens_t
-        else:
-            new_len = fr.length[:B]
-        fl.k[slots_t] = k
-        fl.v[slots_t] = v
+        for f in _seq_leaves(fl):
+            t = getattr(fr, f)[:B]
+            if masked:
+                t = torch.where(_keep(t.shape[1], lens_t, t), t,
+                                torch.zeros((), dtype=t.dtype, device=dev))
+            getattr(fl, f)[slots_t] = t
         length = fl.length.clone()
-        length[slots_t] = new_len.to(length.dtype)
-        out.append(L.KVCache(fl.k, fl.v, length))
+        length[slots_t] = (lens_t if masked else fr.length[:B]).to(
+            length.dtype)
+        out.append(fl._replace(length=length))
     return out
 
 
 def _rollback_tail(cache: List, new_lens) -> List:
     """Rewind every slot's fill counter to ``new_lens`` ((B,) ints) and,
-    in a contiguous cache, zero the K/V positions at or past it, in place
-    — the per-slot rollback a rejected speculation window needs, and (with
-    a victim's length set to 0) the slot clear preemption needs.  The
-    rolled-back cache is bit-identical to one that never saw the tail (the
-    tail past a slot's fill is zero from init and the masked insert).  A
-    paged cache rewinds by its fill counter alone: the tail's rows stay in
-    their pages, hidden by the mask and overwritten by the next write."""
+    in a contiguous cache, zero the sequence positions at or past it, in
+    place — the per-slot rollback a rejected speculation window needs,
+    and (with a victim's length set to 0) the slot clear preemption needs.
+    The rolled-back cache is bit-identical to one that never saw the tail
+    (the tail past a slot's fill is zero from init and the masked insert).
+    A paged cache rewinds by its fill counter alone: the tail's rows stay
+    in their pages, hidden by the mask and overwritten by the next
+    write."""
     dev = cache[0].length.device
     n = torch.as_tensor(np.asarray(new_lens), dtype=torch.int32, device=dev)
     out = []
     for c in cache:
-        if isinstance(c, L.KVCache):
-            drop = ~(torch.arange(c.k.shape[1], device=dev)[None, :]
-                     < n[:, None])[:, :, None, None]
-            c.k.masked_fill_(drop, 0)
-            c.v.masked_fill_(drop, 0)
+        for f in _seq_leaves(c):
+            t = getattr(c, f)
+            t.masked_fill_(~_keep(t.shape[1], n, t), 0)
         out.append(c._replace(length=n))
     return out
 
 
-def _take_rows(frag: List[L.KVCache], rows: Sequence[int]) -> List[L.KVCache]:
+def _take_rows(frag: List, rows: Sequence[int]) -> List:
     """The fragment rows ``rows`` of a contiguous prefill fragment."""
     idx = torch.as_tensor(list(rows), dtype=torch.long,
-                          device=frag[0].k.device)
-    return [L.KVCache(c.k[idx], c.v[idx], c.length[idx]) for c in frag]
+                          device=frag[0].length.device)
+    return [type(c)(*(t[idx] for t in c)) for c in frag]
 
 
 class ServingEngine:
@@ -402,14 +431,19 @@ class ServingEngine:
         if telemetry is not None:
             telemetry.attach(n_slots=n_slots, clock=self._clock)
         self._pressure_limit: Optional[int] = None
-        # int8 resident pages cannot preempt: resume replays history
-        # through fp decode, which cannot reproduce the quantized K/V the
-        # uninterrupted run accumulated — pressure truncates instead
-        self._preemptible = self.kv_dtype != "int8"
+        # moe decode rows are router-coupled: a batch-1 resume replay is
+        # not bitwise the batched decode, so moe cannot preempt.  int8
+        # resident pages cannot either: resume replays history through fp
+        # decode, which cannot reproduce the quantized K/V the
+        # uninterrupted run accumulated.  Pressure truncates instead.
+        self._preemptible = (cfg.family != "moe"
+                             and self.kv_dtype != "int8")
         self.queue = AdmissionQueue(
             queue_depth if queue_depth is not None else max(2 * n_slots, 1))
-        self.bucketing = BucketingPolicy(min_bucket=min_bucket,
-                                         max_len=max_len, enabled=bucketing)
+        # padding needs a family whose rows ignore a padded suffix
+        self.bucketing = BucketingPolicy(
+            min_bucket=min_bucket, max_len=max_len,
+            enabled=bucketing and cfg.family in _PADDED_FAMILIES)
         self._prefill_groups: List[PrefillGroup] = []
         self.chunks_processed = 0
         # ---- overload control plane (serve/admission.py) -----------------
@@ -536,9 +570,10 @@ class ServingEngine:
         target (and draft) cache: the plumbing of page zeroing and COW."""
         for cache in self._caches():
             for c in cache:
-                for t in (c.kp, c.vp, c.k_scale, c.v_scale):
-                    if t is not None:
-                        fn(t)
+                for f in _pool_leaves(c):
+                    for t in (getattr(c, f), getattr(c, _SCALE_OF[f])):
+                        if t is not None:
+                            fn(t)
 
     def _zero_pages(self, pages: Sequence[int]) -> None:
         """Zero freshly allocated pages in both caches: every unwritten
@@ -638,9 +673,8 @@ class ServingEngine:
             self._tables[req.slot, :] = self.allocator.scratch
             self._tables_dirty = True
 
-    def _paged_insert(self, cache: List, frag: List[L.KVCache],
-                      slots: Sequence[int], lens: Sequence[int],
-                      wrows) -> List:
+    def _paged_insert(self, cache: List, frag: List, slots: Sequence[int],
+                      lens: Sequence[int], wrows) -> List:
         """Scatter a prefilled CONTIGUOUS fragment into pool pages — the
         paged counterpart of ``_masked_group_insert``.  ``wrows`` ((B,
         max_pages)) names the page each max_len block of each fragment row
@@ -656,14 +690,13 @@ class ServingEngine:
         wt = torch.as_tensor(np.asarray(wrows).reshape(-1), dtype=torch.long,
                              device=dev)
         slots_t = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
-        keep = (torch.arange(self.max_len, device=dev)[None, :]
-                < lens_t[:, None])[:, :, None, None]
         out = []
         for pl, fr in zip(cache, frag):
-            for pool, scale, src in ((pl.kp, pl.k_scale, fr.k),
-                                     (pl.vp, pl.v_scale, fr.v)):
-                v = torch.where(keep, src[:B], torch.zeros((), dtype=src.dtype,
-                                                           device=dev))
+            for f in _pool_leaves(pl):
+                pool, scale = getattr(pl, f), getattr(pl, _SCALE_OF[f])
+                src = getattr(fr, _POOL_SRC[f])[:B]
+                v = torch.where(_keep(self.max_len, lens_t, src), src,
+                                torch.zeros((), dtype=src.dtype, device=dev))
                 v = v.reshape((B * mp, ps) + v.shape[2:])
                 if scale is None:
                     pool[wt] = v.to(pool.dtype)
@@ -677,7 +710,7 @@ class ServingEngine:
             out.append(pl._replace(length=length))
         return out
 
-    def _insert(self, frag: List[L.KVCache], dfrag, slots: Sequence[int],
+    def _insert(self, frag: List, dfrag, slots: Sequence[int],
                 lens: Sequence[int], wrows, masked: bool) -> None:
         """Write prefill fragment rows (and the draft's) into the slot
         caches: the masked insert, or the paged scatter with ``wrows``."""
@@ -817,15 +850,20 @@ class ServingEngine:
     @torch.no_grad()
     def _admit(self, reqs: List[Request]) -> None:
         """Prefill-admit fresh requests into free slots, grouped by length
-        bucket (one batched prefill per group).  Chunked engines route to
-        ``_admit_chunked``: slots are reserved now, prefill happens chunk
-        by chunk across subsequent steps."""
+        bucket (one batched prefill per group; moe one per prefill).
+        Chunked engines route to ``_admit_chunked``: slots are reserved
+        now, prefill happens chunk by chunk across subsequent steps."""
         if self.chunked is not None:
             self._admit_chunked(reqs)
             return
-        groups: Dict[int, List[int]] = {}
+        # moe prefill rows are coupled through router capacity (a row's
+        # tokens change which of another row's tokens are dropped), so moe
+        # admissions run one per prefill, as per-request admission would
+        batch_safe = self.cfg.family != "moe"
+        groups: Dict[Any, List[int]] = {}
         for i, req in enumerate(reqs):
-            groups.setdefault(self.bucketing.bucket_for(len(req.prompt)),
+            bucket = self.bucketing.bucket_for(len(req.prompt))
+            groups.setdefault(bucket if batch_safe else (bucket, i),
                               []).append(i)
         # Paged: reserve every request's pages up front, so a late
         # PoolExhausted cannot leave half the batch admitted
@@ -839,7 +877,8 @@ class ServingEngine:
                     self.allocator.free(pages)
                 raise
         tel = self.telemetry
-        for bucket, idxs in groups.items():
+        for key, idxs in groups.items():
+            bucket = key if batch_safe else key[0]
             t0 = tel.now() if tel is not None else 0.0
             B = len(idxs)
             # batch size bucketed too (next power of 2, capped at n_slots);
@@ -1071,16 +1110,17 @@ class ServingEngine:
             else:
                 self._append_token(req, g.firsts[i])
 
-    def _fake_quant_frag(self, frag: List[L.KVCache]) -> List[L.KVCache]:
-        """Round-trip a fragment's K/V through the int8 resident-page
-        numerics (per-token-row absmax/127, the quantizer the paged pool
-        applies on write) — the kv_int8 rung's operating point for fp
-        pools."""
+    def _fake_quant_frag(self, frag: List) -> List:
+        """Round-trip a fragment's sequence leaves through the int8
+        resident-page numerics (per-token-row absmax/127, the quantizer the
+        paged pool applies on write) — the kv_int8 rung's operating point
+        for fp pools."""
         def fq(t):
             xq, sc = kops.quantize_activations(
                 t.reshape(t.shape[0], t.shape[1], -1).float())
             return (xq.float() * sc).reshape(t.shape).to(t.dtype)
-        return [L.KVCache(fq(c.k), fq(c.v), c.length) for c in frag]
+        return [c._replace(**{f: fq(getattr(c, f)) for f in _seq_leaves(c)})
+                for c in frag]
 
     def _preempt_prefilling(self, req: Request, reason: str) -> None:
         """Preempt a mid-``PREFILLING`` request: drop its fragment
@@ -1778,11 +1818,11 @@ class ServingEngine:
             fp_size = torch.empty((), dtype=self._cache_dtype).element_size()
             per_page = per_tok_fp = 0
             for c in self.cache:
-                for pool in (c.kp, c.vp):
+                for f in _pool_leaves(c):
+                    pool, sc = getattr(c, f), getattr(c, _SCALE_OF[f])
                     feat = int(np.prod(pool.shape[2:]))
                     per_page += ps * feat * pool.element_size()
                     per_tok_fp += feat * fp_size
-                for sc in (c.k_scale, c.v_scale):
                     if sc is not None:
                         per_page += ps * sc.element_size()
             a = self.allocator

@@ -9,7 +9,10 @@ edge, K in one, many and a ragged last slice, outliers on tile edges in the
 last slice, more outlier slots than a stage holds, acc and x_scale with
 several slices, two calls bitwise equal, split-K launches on two streams at
 once, a chain replayed from a CUDA graph equal to the eager one, and the
-launch plan's shared memory and residency against the CUDA runtime's.  Sums
+launch plan's shared memory and residency against the CUDA runtime's;
+and, for the moe/MLA families, K1/K1e at their 10 full-width matrix
+shapes, stacked experts dequantized on the card as on the CPU, and a
+smoke deepseek_v2_236b serving with repeatable tokens.  Sums
 run in another order than the plain version's matmul, so f32 results agree
 to rtol 1e-4 / atol 1e-3 (the tolerance of tests/test_kernels.py), not
 bitwise.
@@ -19,6 +22,8 @@ Imports torch and the port only, so it also runs where JAX is absent:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test skips where ``torch.cuda.is_available()`` is false."""
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -45,19 +50,20 @@ def card():
     return torch.device("cuda")
 
 
-def random_qt(rng, column_bits, k_max, device):
-    """A CLAQ tensor through build_quantized_tensor from numpy-seeded parts."""
-    rows, cols = ROWS, len(column_bits)
+def random_qt(rng, column_bits, k_max, device, rows=ROWS, scale=1.0):
+    """A CLAQ tensor through build_quantized_tensor from numpy-seeded parts
+    (codebook and outlier values times ``scale``)."""
+    cols = len(column_bits)
     levels = 1 << np.asarray(column_bits)
     codes = rng.integers(0, 1 << 16, size=(rows, cols)) % levels[None, :]
-    cb = rng.normal(size=(cols, 256)).astype(np.float32)
+    cb = (rng.normal(size=(cols, 256)) * scale).astype(np.float32)
     cb[np.arange(256)[None, :] >= levels[:, None]] = np.inf
     cb = np.sort(cb, axis=1)                  # valid centroids first, sorted
     counts = rng.integers(0, k_max + 1, size=cols)
     mask = np.zeros((rows, cols), bool)
     for j, c in enumerate(counts):
         mask[rng.permutation(rows)[:c], j] = True
-    Q = rng.normal(size=(rows, cols)).astype(np.float32)
+    Q = (rng.normal(size=(rows, cols)) * scale).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
     return build_quantized_tensor(t(codes), t(cb), column_bits, counts,
                                   t(Q), t(mask))
@@ -661,3 +667,103 @@ def test_guarded_decode_quarantines_an_injected_row_on_the_card(card):
             assert fin[u].tokens == base[i][:step + 1]
         else:
             assert fin[u].state.value == "finished" and fin[u].tokens == base[i]
+
+
+# ------------------------------------------------- moe and MLA (slice 7)
+
+# (out, in) of every K1 matmul the full-width moe/MLA configs run:
+# qwen3_moe_30b_a3b's attention, deepseek_v2_236b's MLA projections and
+# its shared SwiGLU
+MOE_MLA_SHAPES = [(4096, 2048), (512, 2048), (2048, 4096), (1536, 5120),
+                  (24576, 1536), (576, 5120), (32768, 512), (5120, 16384),
+                  (3072, 5120), (5120, 3072)]
+
+
+def _ap_bits(rng, cols):
+    """~90 % 2-bit, 5 % 3-bit, 5 % 4-bit columns, permuted."""
+    return rng.choice([2, 3, 4], size=cols, p=[0.9, 0.05, 0.05])
+
+
+@functools.lru_cache(maxsize=None)
+def _ap_plan(rows, cols):
+    """One AP plan per shape, built on the card at first use, its values at
+    a layer's scale (cols^-0.5, as a trained layer's and chip_smoke.py's
+    synthetic weights: outputs O(1), where rtol/atol apply as elsewhere in
+    this file; at unit scale, outputs near 100 make two f32 summation
+    orders of K >= 3072 terms differ by more than the 1e-3 atol)."""
+    rng = np.random.default_rng(rows + cols)
+    return plan.prepare_for_inference(
+        random_qt(rng, _ap_bits(rng, cols), 3, "cuda", rows=rows,
+                  scale=cols ** -0.5))
+
+
+@pytest.mark.parametrize("act", [None, "int8"])
+@pytest.mark.parametrize("m", [4, 100, 256])
+@pytest.mark.parametrize("shape", MOE_MLA_SHAPES,
+                         ids=[f"{r}x{c}" for r, c in MOE_MLA_SHAPES])
+def test_k1_at_moe_and_mla_shapes(card, shape, m, act):
+    """K1 (and K1e) against the plain version at the moe/MLA shapes: K 512
+    (one 512-wide block per group), 576 rows (N padded to 640), K 16384,
+    N 24576; decode M 4, a prefill M and MLA's expanded M = max_len."""
+    rows, cols = shape
+    pqt = _ap_plan(rows, cols)
+    assert not pqt.x_gather_free
+    rng = np.random.default_rng(m)
+    x = torch.as_tensor(rng.normal(size=(m, cols)).astype(np.float32),
+                        device=card).to(torch.bfloat16)
+    scale = None
+    if act == "int8":
+        x, scale = ops.quantize_activations(x)
+    acc = None
+    for xg, kw in ops.group_calls(x, pqt, "kernel", x_scale=scale):
+        got = dm.dequant_matmul(xg, acc=acc, compute_dtype=torch.bfloat16,
+                                **kw)
+        want = dm.dequant_matmul_plain(xg, acc=acc,
+                                       compute_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        acc = got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_experts_dequantize_on_the_card(card, dtype):
+    """A stack of CLAQ experts and its prepared plan dequantize on the card
+    in one batched pass, bitwise as on the CPU."""
+    from repro_torch.core.quantized import stack_quantized
+    out = {}
+    for dev in ("cpu", card):
+        rng = np.random.default_rng(7)
+        bits = _ap_bits(rng, 300)
+        st = stack_quantized([random_qt(rng, bits, 3, dev) for _ in range(5)])
+        out[str(dev)] = (st.dequantize(dtype),
+                         plan.prepare_for_inference(st).dequantize(dtype))
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(out["cpu"][0], out["cpu"][1])
+
+
+def test_moe_mla_model_serves_on_the_card(card):
+    """The smoke deepseek_v2_236b (moe + MLA, f32) quantized in weight
+    space serves on the card: a repeated serve gives equal tokens (the
+    expert combine is a gather, not atomics), paged fp tokens equal
+    contiguous ones, and K1 launched."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import CLAQConfig
+    from repro_torch.launch.quantize import quantize_model_params
+    from repro_torch.models import api
+    from repro_torch.serve import ServingEngine
+    cfg = dataclasses.replace(get_smoke_config("deepseek_v2_236b"),
+                              vocab=128, n_layers=1)
+    model = api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+    model, _ = quantize_model_params(model, cfg, {}, CLAQConfig(
+        bits=2, method="kmeans", kmeans_iters=2))
+    launches = dm.launch_count
+    kw = dict(n_slots=4, max_len=64, device="cuda")
+    runs = [_serve_waves(ServingEngine(model, cfg, **kw)) for _ in range(2)]
+    runs.append(_serve_waves(ServingEngine(model, cfg, kv_layout="paged",
+                                           page_size=8, **kw)))
+    assert runs[0] == runs[1] == runs[2]
+    assert dm.launch_count > launches
