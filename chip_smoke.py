@@ -75,6 +75,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
      Then K1 and K1e against their plain versions at each of the 10 new
      (out, in) shapes and every M 11/11b gave it (device ms beside
      ``torch.matmul`` and the bound);
+  12. rwkv6_7b at full width (d 4096, 64 heads of 64, d_ff 14336, vocab
+     65536, bf16), ``RWKV_DEPTH`` of its 32 layers, synthetic AP+OR
+     weights, phase 4's prompts through ``ServingEngine`` (4 slots,
+     unpadded prefills), then at batch 1 (tokens held to the batched ones
+     under the near-tie rule, its limit twice the largest |batched -
+     batch-1| decode logit gap) and with one priority preemption and
+     resume (held the same way); then, in f32 activations, the chunked
+     prefill of a 100-token prompt against 100 recurrent decode steps
+     (last logits within 1e-3 of their scale);
+  12b. zamba2_1p2b at full width and depth (38 Mamba2 layers, 7 shared
+     attention sites, d 2048, state 64, window 4096): (a) as phase 12;
+     (b) one 4200-token prompt at ``max_len`` 4608 (the prefill rolls the
+     4096-row ring caches, 64 decode steps wrap them), in f32
+     activations, its decode logits against a cacheless windowed forward
+     (1e-3 of their scale; greedy tokens under the near-tie rule);
+  12c. seamless_m4t_medium at full width and depth (12 + 12 layers, d
+     1024, vocab 256224) through ``models.api`` (the engine refuses
+     encdec): prefill over seeded 4 x 200 frames and 16 decode steps,
+     launch counts; then in f32 activations the decode logits against a
+     teacher-forced ``decode_blocks`` forward.  K1 and K1e are then held
+     to their plain versions at the 11 (out, in) shapes of 12-12c and
+     every M they gave K1;
   10. train, then checkpoint: llama1_7b at full width (cut in depth to
      ``QUANT_DEPTH``), bf16 params and f32 AdamW moments, 20 steps of
      ``train.make_train_step`` on ``data.SyntheticCorpus`` (B 4, S 512,
@@ -177,6 +199,13 @@ MICRO_STEP = 15                    # the one step at n_microbatches=2
 PROFILE_TRAIN_STEP = 3             # two train steps from the 4th profiled
 EVAL_BATCHES = 2                   # phase 8's perplexity batches
 MOE_DEPTH = 4                      # layers of phase 11's qwen3_moe_30b_a3b
+RWKV_DEPTH = 8                     # layers of phase 12's rwkv6_7b
+RWKV_CHECK_LEN = 100               # 12's chunked prefill vs recurrent decode
+RING_PROMPT = 4200                 # 12b's long prompt (> attn_window 4096)
+RING_MAX_LEN = 4608
+RING_DECODE = 64                   # decode steps after it (each wraps)
+ENCDEC_FRAMES = (4, 200)           # 12c's seeded frames: batch, S_src
+ENCDEC_PROMPT = 8                  # its decoder prompt tokens
 MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
                  v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
@@ -239,10 +268,11 @@ def quantized_modules(model):
 
 
 def synthetic_model(cfg, gen, host_gen, device, make_qt=synthetic_qt):
-    """Transformer (dense or moe family, GQA or MLA attention) whose block
-    matmuls are synthetic CLAQ tensors, MoE experts stacked per layer
-    (``BIT_MIX`` gives every expert the same stripe widths, so they
-    stack); embedding, norms, the router and lm_head stay dense."""
+    """A model of any family whose block matmuls are synthetic CLAQ
+    tensors, MoE experts stacked per layer (``BIT_MIX`` gives every expert
+    the same stripe widths, so they stack); embedding, norms, the router,
+    rwkv's decay LoRA, the hybrid's site LoRAs and lm_head stay dense, and
+    the other leaves take the reference's init values."""
     from repro_torch.core.quantized import stack_quantized
     from repro_torch.models import layers as L
     from repro_torch.models import mla as mla_lib
@@ -258,6 +288,9 @@ def synthetic_model(cfg, gen, host_gen, device, make_qt=synthetic_qt):
 
     def norm(n):
         return M.norm_scale_init(n, device=device)
+
+    if cfg.family in ("rwkv", "hybrid", "encdec"):
+        return _synthetic_family(cfg, gen, device, q, norm, dt)
 
     def experts(out_dim, in_dim):
         return M.Dense(stack_quantized([make_qt(out_dim, in_dim, gen,
@@ -291,6 +324,79 @@ def synthetic_model(cfg, gen, host_gen, device, make_qt=synthetic_qt):
     head = M.dense_init(gen, D, cfg.vocab, dtype=dt, device=device)
     return tf.Transformer(emb, blocks, M.norm_scale_init(D, device=device),
                           head)
+
+
+def _synthetic_family(cfg, gen, device, q, norm, dt):
+    """``synthetic_model`` for rwkv, the hybrid and encdec (``q(out, in)``
+    a synthetic CLAQ ``Dense``, ``norm(n)`` a unit scale)."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import modules as M
+    from repro_torch.models import rwkv6
+    from repro_torch.models import transformer as tf
+    D, H, KH, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                       cfg.d_ff)
+    f32 = dict(dtype=torch.float32, device=device)
+    emb = M.embed_init(gen, cfg.vocab, D, dt, device)
+    head = M.dense_init(gen, D, cfg.vocab, dtype=dt, device=device)
+
+    def zeros(n):
+        return torch.zeros((n,), **f32)
+
+    def attn():
+        return L.Attention(q(H * hd, D), q(KH * hd, D), q(KH * hd, D),
+                           q(D, H * hd))
+
+    if cfg.family == "encdec":
+        enc = [ed.EncBlock(norm(D), attn(), norm(D),
+                           L.GeluMLP(q(F, D), q(D, F)))
+               for _ in range(cfg.enc_layers)]
+        dec = [ed.DecBlock(norm(D), attn(), norm(D),
+                           ed.CrossAttention(q(H * hd, D), q(KH * hd, D),
+                                             q(KH * hd, D), q(D, H * hd)),
+                           norm(D), L.GeluMLP(q(F, D), q(D, F)))
+               for _ in range(cfg.dec_layers)]
+        return ed.EncDec(emb, enc, dec, norm(D), norm(D), head)
+    blocks = []
+    for _ in range(cfg.n_layers):
+        if cfg.family == "rwkv":
+            Hr, N = rwkv6.rwkv_dims(cfg)
+            tm = rwkv6.TimeMix(
+                0.5 * torch.ones((5, D), **f32), q(D, D), q(D, D), q(D, D),
+                q(D, D), M.dense_init(gen, D, cfg.decay_lora, dtype=dt,
+                                      device=device),
+                M.dense_init(gen, cfg.decay_lora, D, dtype=dt, device=device,
+                             scale=0.01),
+                torch.full((D,), -1.0, **f32), torch.zeros((Hr, N), **f32),
+                norm(D), zeros(D), q(D, D))
+            cm = rwkv6.ChannelMix(0.5 * torch.ones((2, D), **f32), q(F, D),
+                                  q(D, F), q(D, D))
+            blocks.append(tf.RWKVBlock(norm(D), zeros(D), norm(D), zeros(D),
+                                       tm, cm))
+        else:
+            d_inner, Hm, conv_dim = m2.mamba_dims(cfg)
+            blocks.append(tf.HybridLayer(norm(D), m2.Mamba(
+                q(2 * d_inner + 2 * cfg.ssm_state + Hm, D),
+                (torch.randn((cfg.ssm_conv, conv_dim), generator=gen, **f32)
+                 * 0.2).to(dt),
+                torch.zeros((conv_dim,), dtype=dt, device=device),
+                torch.log(torch.linspace(1.0, 16.0, Hm, **f32)), zeros(Hm),
+                torch.ones((Hm,), **f32),
+                M.norm_scale_init(d_inner, dt, device), q(D, d_inner))))
+    if cfg.family == "rwkv":
+        return tf.Transformer(emb, blocks, norm(D), head,
+                              final_norm_bias=zeros(D))
+    shared = tf.SharedAttention(q(H * hd, D), q(KH * hd, D), q(KH * hd, D),
+                                q(D, H * hd), norm(D), norm(D),
+                                L.SwiGLU(q(F, D), q(F, D), q(D, F)))
+    sites = [tf.SiteLora(
+        (torch.randn((D, tf.LORA_RANK), generator=gen, **f32)
+         * D ** -0.5).to(dt),
+        (torch.randn((tf.LORA_RANK, H * hd), generator=gen, **f32)
+         * 0.01).to(dt)) for _ in range(cfg.n_sites)]
+    return tf.Transformer(emb, blocks, norm(D), head, shared_attn=shared,
+                          site_lora=sites)
 
 
 # ----------------------------------------------------------------- timing
@@ -604,12 +710,19 @@ def plan_launches(model, decode=False):
     """(launches, aligned launches) of one forward call of ``model``: one
     per distinct bit-width of each prepared matmul.  Stacked MoE experts
     are dequantized whole (no launch), and with ``decode`` MLA's kv_up is
-    too (the absorbed decode and span materialize it)."""
-    skip = {id(b.attn.kv_up) for b in model.blocks
-            if decode and hasattr(b.attn, "kv_up")}
+    too (the absorbed decode and span materialize it).  The hybrid's
+    shared block runs once a site, its ``o`` twice (the LoRA delta)."""
+    skip = {id(b.attn.kv_up) for b in getattr(model, "blocks", ())
+            if decode and hasattr(getattr(b, "attn", None), "kv_up")}
+    calls = {}
+    shared = getattr(model, "shared_attn", None)
+    if shared is not None:
+        calls = {id(m): len(model.site_lora)
+                 for m in quantized_modules(shared)}
+        calls[id(shared.o)] = 2 * len(model.site_lora)
     groups = [g for m in quantized_modules(model)
               if id(m) not in skip and not m.kernel.stack
-              for g in m.kernel.groups]
+              for g in m.kernel.groups * calls.get(id(m), 1)]
     return len(groups), sum(g.x_start is not None for g in groups)
 
 
@@ -1751,9 +1864,7 @@ def phase_family(api, dm, ops, ServingEngine, cfg, prompts, gen, host_gen,
     log(f"{tag} expert work per decode step " + json.dumps(split))
     out[first]["expert_split"] = split
     served = {}
-    for m in quantized_modules(model):
-        if not m.kernel.stack:
-            served.setdefault(tuple(m.kernel.shape), m.kernel)
+    served_plans(model, served)
     assert set(shapes) <= set(served), (sorted(shapes), sorted(served))
     del model
     torch.cuda.empty_cache()
@@ -1850,6 +1961,379 @@ def phase_new_shapes(dm, ops, served, shapes, gen, act):
         del w
     torch.cuda.empty_cache()
     return cases, max_err
+
+
+# ------------------------------------------------------- phases 12-12c
+
+def batch_noise(a, b):
+    """Largest |a - b| over the decode logits rows two ``drive`` records
+    share (same request, same position, same tokens before it): the
+    batched serve against its batch-1 runs."""
+    gap = 0.0
+    for ta, tb, ra, rb in zip(a["tokens"], b["tokens"], a["decode_logits"],
+                              b["decode_logits"]):
+        for j in sorted(set(ra) & set(rb)):
+            if ta[:j] != tb[:j]:
+                break
+            gap = max(gap, float((ra[j] - rb[j]).abs().max()))
+    return gap
+
+
+def sub_record(rec, idx):
+    """The tokens and logits rows of ``rec`` (a ``drive`` record) for the
+    requests ``idx``, as ``near_ties`` reads them."""
+    return {k: [rec[k][i] for i in idx]
+            for k in ("tokens", "decode_logits", "prefill_logits")
+            if k in rec}
+
+
+def served_plans(model, into):
+    """One served plan per (out, in) shape of ``model`` into ``into``."""
+    for m in quantized_modules(model):
+        if not m.kernel.stack:
+            into.setdefault(tuple(m.kernel.shape), m.kernel)
+
+
+def phase_recurrent(api, dm, ops, ServingEngine, cfg, prompts, gen,
+                    host_gen, tag):
+    """Phases 12 and 12b(a): a recurrent config at full width with
+    synthetic CLAQ AP+OR weights through ``ServingEngine`` (4 slots,
+    ``max_len`` 256): unpadded prefills (equal lengths only batch), the
+    launch counts, a profile of two decode steps; the same prompts at
+    batch 1 (``n_slots`` 1), whose tokens are held to the batched ones
+    under the near-tie rule with a limit of twice the largest |batched -
+    batch-1| decode logit difference; then one preemption (a
+    higher-priority fifth request into 4 busy slots) and its resume, the
+    resumed tokens held the same way.  Returns (record, model, the
+    (shape, M) pairs K1 ran)."""
+    t0 = time.perf_counter()
+    model = synthetic_model(cfg, gen, host_gen, "cuda")
+    torch.cuda.synchronize()
+    qmods = quantized_modules(model)
+    packed = sum(s.packed.numel() * 4 for m in qmods for s in m.kernel.stripes)
+    build_s = time.perf_counter() - t0
+    log(f"{tag}: built {len(qmods)} CLAQ matrices in {build_s:.1f} s: packed "
+        f"codes {packed / 1e9:.3f} GB, mean effective bits "
+        f"{np.mean([m.kernel.effective_bits() for m in qmods]):.3f}")
+    kw = dict(max_len=256, dtype=torch.bfloat16, device="cuda")
+    shapes = {}
+    eng = ServingEngine(model, cfg, n_slots=4, **kw)
+    assert not eng.bucketing.enabled and eng._preemptible
+    with KernelShapes(ops) as seen:
+        res = drive(eng, prompts, dm, api, cfg, tag, prefill_rows=True)
+        one = drive(ServingEngine(model, cfg, n_slots=1, **kw), prompts, dm,
+                    api, cfg, f"{tag}_batch1", one_by_one=True)
+    noise = batch_noise(res, one)
+    limit = 2 * noise
+    div = near_ties(one["tokens"], res, limit, f"{tag}_batch1")
+    # preemption: 4 requests fill the slots, a higher-priority fifth
+    # preempts the youngest, which resumes when a slot frees
+    eng = ServingEngine(model, cfg, n_slots=4, **kw)
+    reset_counts(dm)
+    t0 = time.perf_counter()
+    with KernelShapes(ops) as seen_p:
+        uids = eng.add_requests(prompts[:4], max_new_tokens=MAX_NEW)
+        eng.step()
+        eng.step()
+        uids.append(eng.submit(prompts[4], max_new_tokens=MAX_NEW,
+                               priority=5))
+        eng.run_to_completion()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    counts = read_counts(dm)
+    fin = eng.take_finished()
+    st = eng.stats()
+    assert st["preemptions"] == 1 and st["resumes"] == 1, st
+    assert all(fin[u].state.value == "finished"
+               and len(fin[u].tokens) == MAX_NEW for u in uids)
+    div_p = near_ties([fin[u].tokens for u in uids],
+                      sub_record(res, range(5)), limit, f"{tag}_preempt")
+    for rec in (seen.seen, seen_p.seen):
+        for k, v in rec.items():
+            shapes.setdefault(k, set()).update(v)
+    res.update(
+        build_s=build_s, packed_gb=packed / 1e9,
+        batch1_launches=one["main_path_launches"],
+        batch1=dict(decode_ms_per_step=one["decode_ms_per_step"],
+                    noise=noise, limit=limit, divergences=len(div),
+                    divergence_records=div),
+        preempt_resume=dict(preemptions=st["preemptions"],
+                            resumes=st["resumes"], run_s=pre_s,
+                            divergences=len(div_p),
+                            kernel_m=sorted(engine_kernel_m(eng)), **counts),
+        k1_shapes={f"{r}x{c}": sorted(v) for (r, c), v in
+                   sorted(shapes.items())})
+    log(f"{tag} extra " + json.dumps({k: res[k] for k in (
+        "batch1", "preempt_resume", "k1_shapes")}, default=str))
+    return res, model, shapes
+
+
+class Widened:
+    """While open, ``model``'s embedding and dense ``lm_head`` are f32, so
+    the model runs f32 activations (K1 computing in f32): the setting of
+    the tight chunked-vs-recurrent and cache-vs-forward checks, where
+    bf16 rounding (the SSD rounds its operands to the activation dtype,
+    as the reference does) would hide a fault."""
+
+    def __init__(self, model):
+        self.model = model
+        self.emb, self.head = model.embedding, model.lm_head.kernel
+
+    def __enter__(self):
+        self.model.embedding = self.emb.float()
+        self.model.lm_head.set_kernel(self.head.float())
+        return self.model
+
+    def __exit__(self, *exc):
+        self.model.embedding = self.emb
+        self.model.lm_head.set_kernel(self.head)
+
+
+def f32_tol(scale):
+    """The f32 checks' tolerance: 1e-3 of the logits' scale (at least 1),
+    the reference's own chunked-vs-recurrent tolerance."""
+    return 1e-3 * max(1.0, scale)
+
+
+def phase_rwkv(api, dm, ops, ServingEngine, cfg, prompts, gen, host_gen):
+    """12: rwkv6_7b at full width, ``RWKV_DEPTH`` layers (see
+    ``phase_recurrent``); then, in f32 activations (the embedding and
+    lm_head widened for the check, K1 computing in f32), the chunked
+    prefill of a ``RWKV_CHECK_LEN``-token prompt against as many
+    recurrent decode steps: last-position logits within 1e-3 of the
+    logits' scale (the reference's own chunked-vs-recurrent WKV
+    tolerance)."""
+    res, model, shapes = phase_recurrent(api, dm, ops, ServingEngine, cfg,
+                                         prompts, gen, host_gen, "rwkv")
+    toks = torch.randint(1, cfg.vocab, (1, RWKV_CHECK_LEN),
+                         generator=host_gen).cuda()
+    with Widened(model), torch.no_grad():
+        lp, _ = api.prefill_step(model, cfg, {"tokens": toks},
+                                 api.make_cache(cfg, 1, 128, torch.float32,
+                                                "cuda"))
+        c = api.make_cache(cfg, 1, 128, torch.float32, "cuda")
+        for t in range(RWKV_CHECK_LEN):
+            ld, c = api.decode_step(model, cfg, toks[:, t], c)
+    scale = float(lp.abs().max())
+    gap = float((lp - ld).abs().max())
+    assert torch.isfinite(lp).all() and gap <= f32_tol(scale), (gap, scale)
+    res["chunked_vs_recurrent"] = dict(tokens=RWKV_CHECK_LEN, max_abs=gap,
+                                       logit_scale=scale,
+                                       same_argmax=bool(lp.argmax()
+                                                        == ld.argmax()))
+    log("rwkv chunked_vs_recurrent " + json.dumps(
+        res["chunked_vs_recurrent"]))
+    served = {}
+    served_plans(model, served)
+    del model
+    torch.cuda.empty_cache()
+    return res, served, shapes
+
+
+def logits_vs_forward(rows, fwd, tokens, tag):
+    """Decode logits ``rows`` (position -> the row a token was emitted
+    from; f32 activations) against a cacheless forward's rows ``fwd`` at
+    the same positions: max |diff| within ``f32_tol`` of the forward's
+    largest logit, and greedy tokens equal except at a near tie (the
+    forward's top-2 gap, and the emitted token's deficit, below twice
+    that max |diff|)."""
+    diff = max(float((rows[j] - fwd[j]).abs().max()) for j in rows)
+    scale = max(float(fwd[j].abs().max()) for j in rows)
+    assert diff <= f32_tol(scale), (tag, diff, scale)
+    ties = []
+    for j in sorted(rows):
+        if int(fwd[j].argmax()) != tokens[j]:
+            top2 = torch.topk(fwd[j], 2).values
+            ties.append(dict(position=j, gap=float(top2[0] - top2[1]),
+                             deficit=float(top2[0] - fwd[j][tokens[j]])))
+    assert all(t["gap"] < 2 * diff and t["deficit"] < 2 * diff
+               for t in ties), (tag, ties, diff)
+    return dict(max_abs=diff, logit_scale=scale, rel=diff / scale,
+                near_ties=ties)
+
+
+def phase_ring(api, dm, ops, ServingEngine, cfg, model, host_gen):
+    """12b(b): one ``RING_PROMPT``-token request at ``max_len``
+    ``RING_MAX_LEN`` (ring caches of ``attn_window`` rows): the prefill
+    rolls the last W keys into the ring, and ``RING_DECODE`` decode steps
+    each overwrite its oldest slot.  The emitted tokens' logits against a
+    cacheless windowed forward over the whole sequence
+    (``logits_vs_forward``); the model ``Widened`` to f32 activations and
+    an f32 cache, where a wrong ring slot would show."""
+    with Widened(model):
+        return _ring(api, dm, ops, ServingEngine, cfg, model, host_gen)
+
+
+def _ring(api, dm, ops, ServingEngine, cfg, model, host_gen):
+    eng = ServingEngine(model, cfg, n_slots=1, max_len=RING_MAX_LEN,
+                        dtype=torch.float32, device="cuda")
+    W = eng.cache[-1].k.shape[1]
+    assert W == cfg.attn_window < RING_PROMPT, W
+    prompt = torch.randint(1, cfg.vocab, (RING_PROMPT,),
+                           generator=host_gen).tolist()
+    rec = DecodeLogits(api, True)
+    rows = {}
+    reset_counts(dm)
+    with KernelShapes(ops) as seen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        uid = eng.add_requests([prompt], max_new_tokens=RING_DECODE + 1)[0]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        decode_s = []
+        while eng.active:
+            at = {u: (r.slot, len(r.tokens)) for u, r in eng.active.items()}
+            t0 = time.perf_counter()
+            with rec:
+                emitted = eng.step()
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+            rec.file(rows, at, emitted)
+    counts = read_counts(dm)
+    req = eng.take_finished()[uid]
+    assert req.state.value == "finished" and len(rows[uid]) == RING_DECODE
+    length = int(eng.cache[-1].length[0])
+    assert length == RING_PROMPT + RING_DECODE, length
+    seq = torch.tensor([prompt + req.tokens[:-1]], device="cuda")
+    with torch.no_grad():
+        fwd, _, _ = api.tf.forward(model, cfg, seq)
+    fwd = {j: fwd[0, RING_PROMPT - 1 + j].float() for j in rows[uid]}
+    check = logits_vs_forward(rows[uid], fwd, req.tokens, "ring")
+    res = dict(prompt=RING_PROMPT, window=W, decode_steps=len(decode_s),
+               prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=float(np.mean(decode_s)) * 1e3,
+               vs_forward=check, **counts)
+    log("zamba2_ring " + json.dumps(res))
+    return res, seen.seen
+
+
+def phase_zamba2(api, dm, ops, ServingEngine, cfg, prompts, gen, host_gen):
+    """12b: zamba2_1p2b at full width and depth: (a) ``phase_recurrent``;
+    (b) ``phase_ring``."""
+    res, model, shapes = phase_recurrent(api, dm, ops, ServingEngine, cfg,
+                                         prompts, gen, host_gen, "zamba2")
+    ring, seen = phase_ring(api, dm, ops, ServingEngine, cfg, model,
+                            host_gen)
+    for k, v in seen.items():
+        shapes.setdefault(k, set()).update(v)
+    res["ring"] = ring
+    served = {}
+    served_plans(model, served)
+    del model
+    torch.cuda.empty_cache()
+    return res, served, shapes
+
+
+def _encdec_run(api, model, cfg, frames, toks):
+    """``api.prefill_step`` over ``frames`` then ``MAX_NEW`` greedy
+    ``api.decode_step``s: (rows: token j -> the logits it was emitted from
+    (0: the prefill's), tokens (B, MAX_NEW + 1), prefill s, decode s a
+    step)."""
+    B, Ss = frames.shape[:2]
+    cache = api.make_cache(cfg, B, toks.shape[1] + MAX_NEW,
+                           model.embedding.dtype, "cuda", src_len=Ss)
+    rows, out, decode_s = {}, [], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = api.prefill_step(model, cfg, {"frames": frames,
+                                                  "tokens": toks}, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for j in range(MAX_NEW + 1):
+            rows[j] = lg.float()
+            out.append(lg.argmax(dim=-1))
+            if j == MAX_NEW:
+                break
+            t0 = time.perf_counter()
+            lg, cache = api.decode_step(model, cfg, out[-1], cache)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+    return rows, torch.stack(out, dim=1), prefill_s, decode_s
+
+
+def phase_encdec(api, dm, ops, ServingEngine, cfg, gen, host_gen):
+    """12c: seamless_m4t_medium at full width and depth with synthetic
+    CLAQ AP+OR weights, prepared into plans, through ``api.prefill_step``
+    over seeded frames and ``MAX_NEW`` ``api.decode_step``s (the engine
+    refuses encdec, as the reference's does): launch counts, the (shape,
+    M) pairs, prefill and decode ms, peak memory.  Then the same run
+    ``Widened`` to f32 activations, its decode logits against a
+    teacher-forced ``decode_blocks`` forward (``logits_vs_forward``)."""
+    from repro_torch.kernels.plan import prepare_tree
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import modules as M
+    t0 = time.perf_counter()
+    model = synthetic_model(cfg, gen, host_gen, "cuda")
+    torch.cuda.synchronize()
+    qmods = quantized_modules(model)
+    log(f"encdec: built {len(qmods)} CLAQ matrices in "
+        f"{time.perf_counter() - t0:.1f} s, mean effective bits "
+        f"{np.mean([m.kernel.effective_bits() for m in qmods]):.3f}")
+    model = prepare_tree(model)
+    try:
+        ServingEngine(model, cfg, n_slots=4, max_len=64, device="cuda")
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the engine served encdec")
+    B, Ss = ENCDEC_FRAMES
+    frames = torch.randn((B, Ss, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    toks = torch.randint(1, cfg.vocab, (B, ENCDEC_PROMPT),
+                         generator=host_gen).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(dm)
+    with KernelShapes(ops) as seen:
+        launches0 = dm.launch_count
+        rows, gen_toks, prefill_s, decode_s = _encdec_run(api, model, cfg,
+                                                          frames, toks)
+    counts = read_counts(dm)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(torch.isfinite(r).all() for r in rows.values())
+    assert gen_toks.shape == (B, MAX_NEW + 1)
+    # the check, in f32 activations
+    with Widened(model), torch.no_grad():
+        f = frames.float()
+        rows32, toks32, _, _ = _encdec_run(api, model, cfg, f, toks)
+        x, _, _ = ed.decode_blocks(
+            model, cfg, M.embed(model.embedding, torch.cat(
+                [toks, toks32[:, :-1]], dim=1)),
+            enc_out=ed.encode(model, cfg, f))
+        fwd = M.dense(model.lm_head, M.rms_norm(model.final_norm, x,
+                                                cfg.norm_eps))
+    checks = [logits_vs_forward(
+        {j: rows32[j][b] for j in rows32},
+        {j: fwd[b, ENCDEC_PROMPT - 1 + j].float() for j in rows32},
+        toks32[b].tolist(), f"encdec row {b}") for b in range(B)]
+    plan_all, _ = plan_launches(model)
+    dec_skip = sum(len(b.cross.k.kernel.groups) + len(b.cross.v.kernel.groups)
+                   for b in model.dec_blocks)
+    enc_groups = sum(len(m.kernel.groups) for m in
+                     quantized_modules(model.enc_blocks))
+    per_step = plan_all - enc_groups - dec_skip
+    assert counts["launches"] - launches0 == plan_all + MAX_NEW * per_step, (
+        counts, plan_all, per_step)
+    served, shapes = {}, dict(seen.seen)
+    served_plans(model, served)
+    res = dict(frames=[B, Ss], prompt=ENCDEC_PROMPT, decode_steps=MAX_NEW,
+               prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=float(np.mean(decode_s)) * 1e3,
+               launches_per_prefill=plan_all,
+               launches_per_decode_step=per_step,
+               max_memory_allocated_gb=peak / 1e9,
+               f32_vs_forward=dict(
+                   max_abs=max(c["max_abs"] for c in checks),
+                   rel=max(c["rel"] for c in checks),
+                   near_ties=sum(len(c["near_ties"]) for c in checks)),
+               engine_refused=refused,
+               k1_shapes={f"{r}x{c}": sorted(v) for (r, c), v in
+                          sorted(shapes.items())}, **counts)
+    log("encdec " + json.dumps(res))
+    del model
+    torch.cuda.empty_cache()
+    return res, served, shapes
 
 
 # ------------------------------------------------------------ phase 9
@@ -2382,6 +2866,46 @@ def main() -> int:
     del served_new, served_d
     torch.cuda.empty_cache()
 
+    # 12. rwkv6_7b at full width (RWKV_DEPTH layers); 12b. zamba2_1p2b at
+    # full width and depth, its ring cache wrapped by a 4200-token prompt;
+    # 12c. seamless_m4t_medium at full width and depth through models.api
+    t12 = time.perf_counter()
+    rcfg = dataclasses.replace(get_config("rwkv6_7b"), n_layers=RWKV_DEPTH)
+    assert (rcfg.d_model, rcfg.n_heads, rcfg.rwkv_head_dim, rcfg.d_ff,
+            rcfg.vocab, rcfg.dtype) == (4096, 64, 64, 14336, 65536,
+                                        "bfloat16")
+    rwkv_run, served_f, shapes_f = phase_rwkv(api, dm, ops, ServingEngine,
+                                              rcfg, prompts, gen, host_gen)
+    zcfg = get_config("zamba2_1p2b")
+    assert (zcfg.n_layers, zcfg.n_sites, zcfg.d_model, zcfg.ssm_state,
+            zcfg.attn_window, zcfg.d_ff, zcfg.dtype) == (
+        38, 7, 2048, 64, 4096, 8192, "bfloat16")
+    zamba_run, served_z, shapes_z = phase_zamba2(
+        api, dm, ops, ServingEngine, zcfg, prompts, gen, host_gen)
+    ecfg = get_config("seamless_m4t_medium")
+    assert (ecfg.enc_layers, ecfg.dec_layers, ecfg.d_model, ecfg.d_ff,
+            ecfg.vocab, ecfg.dtype) == (12, 12, 1024, 4096, 256224,
+                                        "bfloat16")
+    encdec_run, served_e, shapes_e = phase_encdec(api, dm, ops, ServingEngine,
+                                                  ecfg, gen, host_gen)
+    for served_x, shapes_x in ((served_z, shapes_z), (served_e, shapes_e)):
+        served_f.update(served_x)
+        for k, v in shapes_x.items():
+            shapes_f.setdefault(k, set()).update(v)
+    assert len(shapes_f) == 11, sorted(shapes_f)
+    # 5/7 at the families' shapes: K1 and K1e at every (shape, M) 12-12c
+    # gave K1
+    cases_fam, max_err_fam = phase_new_shapes(dm, ops, served_f, shapes_f,
+                                              gen, "f32")
+    cases8_fam, max_err8_fam = phase_new_shapes(dm, ops, served_f, shapes_f,
+                                                gen, "int8")
+    max_err, max_err8 = max(max_err, max_err_fam), max(max_err8,
+                                                       max_err8_fam)
+    del served_f, served_z, served_e
+    torch.cuda.empty_cache()
+    log(f"phases 12-12c and their kernel checks took "
+        f"{time.perf_counter() - t12:.1f} s")
+
     # 10. train llama1_7b at full width (QUANT_DEPTH layers), checkpoint
     # asynchronously mid-run, restore into a fresh state, resume
     train, trained = phase_train(api, cfg)
@@ -2495,11 +3019,27 @@ def main() -> int:
     new_paths = dict(qwen3_moe=split(moe_runs["contiguous"]),
                      **{f"deepseek_{w}": split(r) for w, r in ds_runs.items()})
     kernels[0]["launches_by_path"].update(new_paths)
+    kernels[0]["launches_by_path"].update(
+        rwkv=split(rwkv_run), rwkv_batch1=dict(
+            launches=rwkv_run["batch1_launches"]),
+        rwkv_preempt_resume={k: rwkv_run["preempt_resume"][k] for k in (
+            "launches", "aligned", "gathered")},
+        zamba2=split(zamba_run), zamba2_batch1=dict(
+            launches=zamba_run["batch1_launches"]),
+        zamba2_preempt_resume={k: zamba_run["preempt_resume"][k] for k in (
+            "launches", "aligned", "gathered")},
+        zamba2_ring={k: zamba_run["ring"][k] for k in (
+            "launches", "aligned", "gathered")},
+        seamless={k: encdec_run[k] for k in ("launches", "aligned",
+                                             "gathered")})
     checked_new = {f"{r}x{c}": sorted(v) for (r, c), v in
                    sorted(shapes_new.items())}
-    for k, cs in ((kernels[0], cases_ns), (kernels[1], cases8_ns)):
+    checked_fam = {f"{r}x{c}": sorted(v) for (r, c), v in
+                   sorted(shapes_f.items())}
+    for k, cs in ((kernels[0], cases_ns + cases_fam),
+                  (kernels[1], cases8_ns + cases8_fam)):
         k["checked_cases"] += len(cs)
-        k["new_shapes_checked_m"] = checked_new
+        k["new_shapes_checked_m"] = {**checked_new, **checked_fam}
         k["new_shape_decode_cases"] = [
             {f: c[f] for f in ("shape", "m", "device_ms", "library_device_ms",
                                "bound_ms", "bound_by", "max_abs_err")}

@@ -1,5 +1,5 @@
 """The CLAQ PTQ pipeline: calibrate -> plan -> quantize -> package (port
-of ``repro.launch.quantize``; dense and moe families, GQA or MLA).
+of ``repro.launch.quantize``; every family).
 
 Calibration runs the model forward under ``modules.collecting``: every
 dense matmul streams its input into an (in, in) Hessian keyed by the
@@ -10,6 +10,13 @@ weight-only scope; each MoE expert is quantized with its own Hessian
 from the ``expert_in_{e}`` / ``expert_mid_{e}`` taps and the experts are
 stacked again on their E axis):
 at full width a second copy of the model would not fit beside the first.
+encdec quantizes its ``enc.{i}`` / ``dec.{i}`` blocks, the hybrid its
+Mamba2 layers and the shared block, each matrix of which is looked up as
+the reference looks it up, by its parameter path: the shared q/k/v/o take
+the sum of their per-site Hessians, while the Mamba2 matrices (taps
+``layers.{i}.mamba.*``, path ``layers.{i}.in_proj``) and the shared MLP
+(taps ``shared_attn.site{s}.gate``, path ``mlp.gate``) find none and are
+quantized in weight space, exactly as the reference quantizes them.
 Everything runs on the model's device.  ``claq_quantize_with_draft``
 calibrates once and quantizes the same fp weights twice, into the serving
 target and a low-bit speculative draft.
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import re
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -26,6 +34,7 @@ import torch
 from repro_torch.core import claq as claq_lib
 from repro_torch.core.policy import CLAQConfig, draft_config
 from repro_torch.core.quantized import stack_quantized
+from repro_torch.models import api
 from repro_torch.models import modules as M
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
@@ -37,16 +46,22 @@ _SKIP_KEYS = ("embedding", "scale", "bias", "a_log", "dt_bias", "d_skip",
 
 
 @torch.no_grad()
-def calibrate(model: tf.Transformer, cfg, calib_tokens: torch.Tensor,
+def calibrate(model, cfg, calib_tokens: torch.Tensor,
               batch_size: int = 4) -> Dict[str, torch.Tensor]:
     """Run calibration batches through the model; returns
-    {tap_name: (in, in) Hessian} on the model's device."""
+    {tap_name: (in, in) Hessian} on the model's device.  encdec batches
+    get zero frames of the tokens' shape, as in the reference."""
     tf.validate_family(cfg)
     dev = model.embedding.device
     collector = M.TapCollector()
     with M.collecting(collector, model):
         for i in range(0, calib_tokens.shape[0], batch_size):
-            tf.forward(model, cfg, calib_tokens[i:i + batch_size].to(dev))
+            chunk = calib_tokens[i:i + batch_size].to(dev)
+            if cfg.family == "encdec":
+                frames = torch.zeros(chunk.shape + (cfg.d_model,), device=dev)
+                api.loss_fn(model, cfg, {"tokens": chunk, "frames": frames})
+            else:
+                tf.forward(model, cfg, chunk)
     return collector.finalized()
 
 
@@ -75,26 +90,54 @@ def block_matrices(block: torch.nn.Module):
             yield name, m
 
 
-@torch.no_grad()
-def quantize_model_params(model: tf.Transformer, cfg,
-                          hessians: Dict[str, torch.Tensor],
-                          qcfg: CLAQConfig
-                          ) -> Tuple[tf.Transformer, QuantizeReport]:
-    """Quantize every block matrix of ``model`` in place (kernel (in, out)
-    -> QuantizedTensor in paper layout (out, in)); stats are keyed
-    ``layers.{i}.attn.q`` as in the reference.  Returns (model, report)."""
-    tf.validate_family(cfg)
-    stats: Dict[str, claq_lib.QuantStats] = {}
-    for i, block in enumerate(model.blocks):
+def _param_path(cfg, name: str) -> str:
+    """A block matrix's path in the reference's parameter tree: the
+    hybrid keeps its Mamba2 leaves flat in the block (no ``mamba.``)."""
+    if cfg.family == "hybrid":
+        return name.removeprefix("mamba.")
+    return name
+
+
+def _quantize_blocks(blocks, prefix: str, cfg, hessians, qcfg, stats):
+    for i, block in enumerate(blocks):
         for name, m in list(block_matrices(block)):
-            tap = f"layers.{i}.{name}"
+            tap = f"{prefix}.{i}.{_param_path(cfg, name)}"
             qt, _, st = claq_lib.quantize_matrix(m.kernel.float().T,
                                                  hessians.get(tap), qcfg)
             stats[tap] = st
             m.set_kernel(qt)
-        if isinstance(block.mlp, moe_lib.MoE):
-            _quantize_experts(block.mlp, f"layers.{i}.mlp", hessians, qcfg,
+        if isinstance(getattr(block, "mlp", None), moe_lib.MoE):
+            _quantize_experts(block.mlp, f"{prefix}.{i}.mlp", hessians, qcfg,
                               stats)
+
+
+@torch.no_grad()
+def quantize_model_params(model, cfg, hessians: Dict[str, torch.Tensor],
+                          qcfg: CLAQConfig) -> Tuple[torch.nn.Module,
+                                                     QuantizeReport]:
+    """Quantize every block matrix of ``model`` in place (kernel (in, out)
+    -> QuantizedTensor in paper layout (out, in)); stats are keyed
+    ``layers.{i}.attn.q`` (``enc.{i}`` / ``dec.{i}``,
+    ``shared_attn.q``) as in the reference.  Returns (model, report)."""
+    tf.validate_family(cfg)
+    stats: Dict[str, claq_lib.QuantStats] = {}
+    if cfg.family == "encdec":
+        _quantize_blocks(model.enc_blocks, "enc", cfg, hessians, qcfg, stats)
+        _quantize_blocks(model.dec_blocks, "dec", cfg, hessians, qcfg, stats)
+        return model, QuantizeReport(stats)
+    _quantize_blocks(model.blocks, "layers", cfg, hessians, qcfg, stats)
+    if model.shared_attn is not None:
+        # shared across sites: the sum of the per-site Hessians whose tap
+        # is the site prefix + the parameter path
+        for name, m in list(block_matrices(model.shared_attn)):
+            rx = re.compile(r"shared_attn\.site\d+\." + re.escape(name))
+            H = None
+            for tap, Hs in hessians.items():
+                if rx.fullmatch(tap):
+                    H = Hs if H is None else H + Hs
+            qt, _, st = claq_lib.quantize_matrix(m.kernel.float().T, H, qcfg)
+            stats[f"shared_attn.{name}"] = st
+            m.set_kernel(qt)
     return model, QuantizeReport(stats)
 
 
@@ -119,15 +162,15 @@ def _quantize_experts(mlp, prefix: str, hessians, qcfg: CLAQConfig,
         dm.set_kernel(stack_quantized(qts))
 
 
-def claq_quantize(model: tf.Transformer, cfg, calib_tokens: torch.Tensor,
+def claq_quantize(model, cfg, calib_tokens: torch.Tensor,
                   qcfg: CLAQConfig, batch_size: int = 4
-                  ) -> Tuple[tf.Transformer, QuantizeReport]:
+                  ) -> Tuple[torch.nn.Module, QuantizeReport]:
     """End to end: calibrate + quantize (in place), the paper's pipeline."""
     hessians = calibrate(model, cfg, calib_tokens, batch_size)
     return quantize_model_params(model, cfg, hessians, qcfg)
 
 
-def claq_quantize_with_draft(model: tf.Transformer, cfg,
+def claq_quantize_with_draft(model, cfg,
                              calib_tokens: torch.Tensor, qcfg: CLAQConfig,
                              draft_qcfg: Optional[CLAQConfig] = None,
                              draft_bits: int = 2, batch_size: int = 4):

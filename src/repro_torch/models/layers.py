@@ -1,6 +1,6 @@
-"""Dense transformer layers (port of the dense parts of
-``repro.models.layers``): RoPE, blocked online-softmax attention, GQA
-attention with a contiguous or a paged KV cache, SwiGLU / GELU MLPs.
+"""Dense transformer layers (port of ``repro.models.layers``): RoPE,
+blocked online-softmax attention, GQA attention with a contiguous, a
+paged or (sliding window) a ring KV cache, SwiGLU / GELU MLPs.
 
 Attention is plain torch, as it is plain XLA in the reference: prefill
 runs the blocked online-softmax formulation, single-token decode the
@@ -298,9 +298,6 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
     inserts the fragments)."""
     B, S, _ = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if getattr(cfg, "attn_window", None) is not None:
-        raise NotImplementedError("sliding-window (ring cache) attention "
-                                  "is not ported yet")
 
     q = M.dense(p.q, x).reshape(B, S, H, hd)
     k = M.dense(p.k, x).reshape(B, S, KH, hd)
@@ -318,11 +315,15 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    window = getattr(cfg, "attn_window", None)
     if cache is None:
-        out = blocked_attention(q, k, v, causal=True, q_block=cfg.q_block,
-                                kv_block=cfg.kv_block)
+        out = blocked_attention(q, k, v, causal=True, window=window,
+                                q_block=cfg.q_block, kv_block=cfg.kv_block)
         new_cache = None
     elif isinstance(cache, PagedKVCache):
+        if window is not None:
+            raise NotImplementedError(
+                "paged KV cache does not support attn_window configs")
         if S > 1 and not span:
             raise NotImplementedError(
                 "paged caches take no chunked prefill: the engine prefills "
@@ -339,6 +340,32 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
         else:
             out = _span_decode_attention(q, k_all, v_all, cache.length)
         new_cache = cache._replace(length=new_len)
+    elif window is not None and cache.k.shape[1] <= window:
+        # ring cache for sliding-window attention: the cache holds exactly
+        # the window, slot = absolute position % W.  Keys are stored
+        # post-RoPE, so slot order does not matter to the masked softmax.
+        W = cache.k.shape[1]
+        if S == 1:
+            brange = torch.arange(B, device=dev)
+            slot = torch.remainder(cache.length.long(), W)
+            cache.k[brange, slot] = k[:, 0].to(cache.k.dtype)
+            cache.v[brange, slot] = v[:, 0].to(cache.v.dtype)
+            new_len = cache.length + 1
+            out = _decode_attention(q, cache.k, cache.v,
+                                    torch.clamp(new_len, max=W))
+            new_cache = KVCache(cache.k, cache.v, new_len)
+        else:
+            # single-shot prefill into an empty ring: the last W keys,
+            # rolled so that position p sits in slot p % W
+            out = blocked_attention(q, k, v, causal=True, window=window,
+                                    q_block=cfg.q_block, kv_block=cfg.kv_block)
+            if S >= W:
+                cache.k.copy_(torch.roll(k[:, S - W:], S % W, dims=1))
+                cache.v.copy_(torch.roll(v[:, S - W:], S % W, dims=1))
+            else:
+                cache.k[:, :S] = k.to(cache.k.dtype)
+                cache.v[:, :S] = v.to(cache.v.dtype)
+            new_cache = KVCache(cache.k, cache.v, cache.length + S)
     elif S == 1:
         # decode: write at each slot's own fill level.  A free slot's
         # counter keeps growing with the batch; clamping keeps its write in
@@ -348,12 +375,13 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
         cache.k[brange, idx] = k[:, 0].to(cache.k.dtype)
         cache.v[brange, idx] = v[:, 0].to(cache.v.dtype)
         new_len = cache.length + 1
-        out = _decode_attention(q, cache.k, cache.v, new_len)
+        out = _decode_attention(q, cache.k, cache.v, new_len, window)
         new_cache = KVCache(cache.k, cache.v, new_len)
     elif span:
         _span_write(cache.k, k, cache.length)
         _span_write(cache.v, v, cache.length)
-        out = _span_decode_attention(q, cache.k, cache.v, cache.length)
+        out = _span_decode_attention(q, cache.k, cache.v, cache.length,
+                                     window)
         new_cache = KVCache(cache.k, cache.v, cache.length + S)
     else:
         # prefill at the uniform fill level of the batch
@@ -364,23 +392,25 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
         new_len = cache.length + S
         out = blocked_attention(q, cache.k, cache.v, causal=True,
                                 q_offset=start, kv_len=new_len,
-                                q_block=cfg.q_block, kv_block=cfg.kv_block)
+                                window=window, q_block=cfg.q_block,
+                                kv_block=cfg.kv_block)
         new_cache = KVCache(cache.k, cache.v, new_len)
 
     out = out.reshape(B, S, H * hd)
     return M.dense(p.o, out), new_cache
 
 
-def _decode_attention(q, k_cache, v_cache, kv_len):
+def _decode_attention(q, k_cache, v_cache, kv_len, window=None):
     """Single-token decode: q (B,1,H,D) against the whole cache, direct
-    masked softmax; kv_len (B,) valid entries per slot.  Operands are taken
-    in the cache's dtype and multiplied in f32, as the reference's
+    masked softmax; kv_len (B,) valid entries per slot, and with
+    ``window`` only the last ``window`` of them.  Operands are taken in
+    the cache's dtype and multiplied in f32, as the reference's
     f32-accumulating einsum does."""
     return _decode_rows(q, k_cache.float(), v_cache.float(), kv_len,
-                        k_cache.dtype, v_cache.dtype)
+                        k_cache.dtype, v_cache.dtype, window)
 
 
-def _decode_rows(q, kf, vf, kv_len, k_dtype, v_dtype):
+def _decode_rows(q, kf, vf, kv_len, k_dtype, v_dtype, window=None):
     """``_decode_attention`` on the cache already widened to f32 (``kf``,
     ``vf``; ``k_dtype``/``v_dtype`` the cache's own dtypes)."""
     B, _, H, D = q.shape
@@ -389,14 +419,17 @@ def _decode_rows(q, kf, vf, kv_len, k_dtype, v_dtype):
     qh = (q.reshape(B, KH, G, D) * (D ** -0.5)).to(k_dtype)
     s = torch.einsum("bkgd,bskd->bkgs", qh.float(), kf)
     pos = torch.arange(S, device=q.device)
-    mask = pos[None, None, None, :] < kv_len.long()[:, None, None, None]
+    lim = kv_len.long()[:, None, None, None]
+    mask = pos[None, None, None, :] < lim
+    if window is not None:
+        mask = mask & (pos[None, None, None, :] > lim - 1 - window)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskv->bkgv", p.to(v_dtype).float(), vf)
     return out.reshape(B, 1, H, Dv).to(q.dtype)
 
 
-def _span_decode_attention(q, k_cache, v_cache, base_len):
+def _span_decode_attention(q, k_cache, v_cache, base_len, window=None):
     """Multi-token decode (speculative verify): q (B,S,H,D) against the
     whole cache; row s of slot b attends positions < base_len[b] + s + 1
     (its own K/V included, as in decode).  The reference batches the S
@@ -406,7 +439,7 @@ def _span_decode_attention(q, k_cache, v_cache, base_len):
     the verify's attention is bitwise S successive decode steps'."""
     kf, vf = k_cache.float(), v_cache.float()
     return torch.cat([_decode_rows(q[:, j:j + 1], kf, vf, base_len + j + 1,
-                                   k_cache.dtype, v_cache.dtype)
+                                   k_cache.dtype, v_cache.dtype, window)
                       for j in range(q.shape[1])], dim=1)
 
 

@@ -12,8 +12,10 @@ context, as in the reference:
   * **Taps**: under ``collecting(collector, model)`` a dense ``Dense``
     streams its input into a per-matrix Hessian accumulator (H += 2 x^T x),
     keyed by the reference's tap names (``layers.{i}.attn.q``,
-    ``lm_head``; a MoE layer's experts ``layers.{i}.mlp.expert_in_{e}``),
-    so Hessian dicts of both packages compare key for key.
+    ``enc.{i}.attn.q``, ``lm_head``; a MoE layer's experts
+    ``layers.{i}.mlp.expert_in_{e}``; a shared block under ``tap_scope``
+    once a site, ``shared_attn.site{s}.q``), so Hessian dicts of both
+    packages compare key for key.
   * **Activation quantization**: ``activation_quant("int8")`` opts every
     quantized matmul into per-token int8 activations (``QuantMode``).
 """
@@ -40,12 +42,18 @@ _STATE = threading.local()
 # Calibration taps
 # ---------------------------------------------------------------------------
 
+_TAP_HEADS = {"blocks": "layers", "enc_blocks": "enc", "dec_blocks": "dec"}
+
+
 def tap_name(module_name: str) -> str:
     """The reference's tap name of a module path: the port's
-    ``blocks.{i}.attn.q`` is the reference's scope ``layers.{i}.attn.q``;
-    ``lm_head`` stays."""
+    ``blocks.{i}.attn.q`` is the reference's scope ``layers.{i}.attn.q``
+    (``enc_blocks.{i}`` / ``dec_blocks.{i}`` are ``enc.{i}`` /
+    ``dec.{i}``); ``lm_head`` stays."""
     head, _, rest = module_name.partition(".")
-    return f"layers.{rest}" if head == "blocks" and rest else module_name
+    if head in _TAP_HEADS and rest:
+        return f"{_TAP_HEADS[head]}.{rest}"
+    return module_name
 
 
 class TapCollector:
@@ -78,6 +86,31 @@ def collecting(collector: TapCollector, model: nn.Module):
         _STATE.collector = prev
 
 
+@contextlib.contextmanager
+def tap_scope(prefix: str):
+    """Name the taps recorded inside ``{prefix}.{leaf}``, ``leaf`` the
+    last part of the module's own tap name: one block called at several
+    sites (the hybrid's shared attention) taps once a site, as the
+    reference's per-site scope names it."""
+    prev = getattr(_STATE, "prefix", None)
+    _STATE.prefix = prefix
+    try:
+        yield
+    finally:
+        _STATE.prefix = prev
+
+
+@contextlib.contextmanager
+def no_taps():
+    """Record no taps inside (matmuls the reference's taps never see)."""
+    prev = getattr(_STATE, "collector", None)
+    _STATE.collector = None
+    try:
+        yield
+    finally:
+        _STATE.collector = prev
+
+
 def _maybe_record(p, x: torch.Tensor) -> None:
     """Record ``x`` under ``p``'s tap name (``p`` a tapped ``Dense``, or a
     tap name) when a collector is open."""
@@ -85,8 +118,12 @@ def _maybe_record(p, x: torch.Tensor) -> None:
     if col is None:
         return
     name = p if isinstance(p, str) else col.names.get(id(p))
-    if name is not None:
-        col.record(name, x)
+    if name is None:
+        return
+    prefix = getattr(_STATE, "prefix", None)
+    if prefix is not None:
+        name = f"{prefix}.{name.rsplit('.', 1)[-1]}"
+    col.record(name, x)
 
 
 def record_expert_inputs(p: nn.Module, name: str, x_e: torch.Tensor) -> None:
@@ -151,16 +188,18 @@ class Dense(nn.Module):
         return dense(self, x)
 
 
-def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+def dense(p: Dense, x: torch.Tensor, tap: Optional[str] = None
+          ) -> torch.Tensor:
     """y = x @ kernel (+ bias).  Quantized kernels take the fused
     one-launch-per-bit-width path with ``QuantMode.act_dtype``; dense ones
-    feed the calibration taps."""
+    feed the calibration taps, under ``tap`` when given (a second use of
+    one matrix the reference taps under its own name) or ``p``'s name."""
     kernel = p.kernel
     if isinstance(kernel, _QUANTIZED):
         y = kops.qmatmul(x, kernel, use_kernel=True,
                          act_dtype=QuantMode.act_dtype)
     else:
-        _maybe_record(p, x)
+        _maybe_record(p if tap is None else tap, x)
         y = x @ kernel.to(x.dtype)
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)

@@ -113,13 +113,17 @@ is the number of distinct (batch, bucket) prefill shapes run, and the
 other ``*_traces`` counters of ``stats()`` the distinct shapes of their
 calls — the quantities the reference bounds by its trace counts.
 
-Families: dense and moe, with GQA or MLA attention (rwkv, hybrid, encdec
-and sliding-window attention raise ``NotImplementedError``).  moe, as in
+Families: dense and moe, with GQA or MLA attention, rwkv and the hybrid
+(encdec is refused at construction, as in the reference).  moe, as in
 the reference, admits unpadded and one request per prefill, cannot
 preempt (pressure truncates) and refuses chunked prefill and
-speculation.  The cache helpers work by leaf name (``_SEQ_LEAVES``,
-``_POOL_SRC``), so GQA's k/v and MLA's latent c_kv/k_pe ride the same
-insert, rollback and page scatter.
+speculation.  rwkv, the hybrid and windowed configs admit unpadded
+(prompts of one length share a prefill), preempt and resume, and refuse
+chunked prefill, speculation and paging.  The cache helpers work by leaf
+name (``_SEQ_LEAVES``, ``_POOL_SRC``), so GQA's k/v and MLA's latent
+c_kv/k_pe ride the same insert, rollback and page scatter; the insert
+copies every other leaf whole (the recurrent ``state``/``conv``/``ssm``
+and token-shift rows), and the rollback leaves those alone.
 
 Port note — not accepted yet (each queued in ROADMAP.md): a device mesh
 (``mesh``) and the contract checker (``verify_contracts``); passing either
@@ -157,7 +161,8 @@ from .telemetry import MetricsRegistry, Telemetry, registry_from_stats
 
 # Families whose caches are position-indexed and masked by a fill counter,
 # making right-padding invisible to valid tokens (the reference's gate for
-# bucketing and chunked prefill).  moe is excluded although its cache is
+# bucketing and chunked prefill, with no attention window: a ring cache
+# keeps the padded suffix's keys).  moe is excluded although its cache is
 # attention-shaped: capacity-bounded routing sees the padded suffix (cap
 # and the group-local cumsum depend on the token count), and its prefill
 # rows are batch-dependent, so moe admits unpadded, one request a prefill.
@@ -230,20 +235,25 @@ class Request:
 def _masked_group_insert(full: List, frag: List, slots: Sequence[int],
                          lens: Sequence[int], masked: bool) -> List:
     """Copy the first ``len(slots)`` rows of a prefill fragment into the
-    batched cache at ``slots`` (in place), keeping only each row's first
-    ``lens[r]`` positions when ``masked`` (padded admission): the padded
-    tail of every sequence leaf is zeroed and the fill counter pinned to
-    the true length, so the batched cache is what an unpadded prefill
-    would have left."""
+    batched cache at ``slots`` (in place): every leaf row, so recurrent
+    leaves (rwkv ``state``/``prev_tm``/``prev_cm``, Mamba2 ``conv``/
+    ``ssm``) replace the slot's previous occupant's.  When ``masked``
+    (padded admission) only each row's first ``lens[r]`` positions are
+    kept: the padded tail of every sequence leaf is zeroed and the fill
+    counter pinned to the true length, so the batched cache is what an
+    unpadded prefill would have left."""
     B = len(slots)
     dev = full[0].length.device
     slots_t = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
     lens_t = torch.as_tensor(list(lens), dtype=torch.int32, device=dev)
     out = []
     for fl, fr in zip(full, frag):
-        for f in _seq_leaves(fl):
+        seq = _seq_leaves(fl)
+        for f in fl._fields:
+            if f == "length" or getattr(fl, f) is None:
+                continue
             t = getattr(fr, f)[:B]
-            if masked:
+            if masked and f in seq:
                 t = torch.where(_keep(t.shape[1], lens_t, t), t,
                                 torch.zeros((), dtype=t.dtype, device=dev))
             getattr(fl, f)[slots_t] = t
@@ -263,7 +273,9 @@ def _rollback_tail(cache: List, new_lens) -> List:
     (the tail past a slot's fill is zero from init and the masked insert).
     A paged cache rewinds by its fill counter alone: the tail's rows stay
     in their pages, hidden by the mask and overwritten by the next
-    write."""
+    write.  Recurrent leaves are left alone, as in the reference: only
+    preemption rolls back a recurrent family, and its slot is rewritten
+    whole at the next admission."""
     dev = cache[0].length.device
     n = torch.as_tensor(np.asarray(new_lens), dtype=torch.int32, device=dev)
     out = []
@@ -443,7 +455,8 @@ class ServingEngine:
         # padding needs a family whose rows ignore a padded suffix
         self.bucketing = BucketingPolicy(
             min_bucket=min_bucket, max_len=max_len,
-            enabled=bucketing and cfg.family in _PADDED_FAMILIES)
+            enabled=(bucketing and cfg.family in _PADDED_FAMILIES
+                     and cfg.attn_window is None))
         self._prefill_groups: List[PrefillGroup] = []
         self.chunks_processed = 0
         # ---- overload control plane (serve/admission.py) -----------------

@@ -161,8 +161,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_other_families_are_not_ported_yet():
-    """moe and MLA are ported (tests/test_torch_moe.py, test_torch_mla.py);
-    rwkv, the hybrid and encdec are not."""
+    """(Named when these families were refused.)  rwkv, the hybrid and
+    encdec are ported now (tests/test_torch_rwkv.py, test_torch_hybrid.py,
+    test_torch_encdec.py): each gets its cache and forwards to finite
+    logits; encdec's cache needs ``src_len``, as the reference's does."""
     for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium"):
-        with pytest.raises(NotImplementedError):
-            tapi.make_cache(t_smoke(arch), 1, 8, device="cpu")
+        cfg = t_smoke(arch)
+        model = tapi.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+        batch = {"tokens": torch.tensor([[1, 2, 3]])}
+        kw = {}
+        if cfg.family == "encdec":
+            with pytest.raises(ValueError, match="src_len"):
+                tapi.make_cache(cfg, 1, 8, device="cpu")
+            batch["frames"] = torch.zeros((1, 5, cfg.d_model))
+            kw = dict(src_len=5)
+        cache = tapi.make_cache(cfg, 1, 8, torch.float32, "cpu", **kw)
+        logits, _ = tapi.prefill_step(model, cfg, batch, cache)
+        assert logits.shape == (1, cfg.vocab)
+        assert torch.isfinite(logits).all()

@@ -347,9 +347,36 @@ def test_engine_refuses_chunking_and_speculation(qwen):
 @pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
                                   "seamless_m4t_medium"])
 def test_other_families_still_refused(arch):
+    """(Named when these families were refused.)  Each family initialises
+    and the refusals left are the reference's own: encdec by
+    ``ServingEngine`` and the paged cache, rwkv and the hybrid by
+    speculation and paging.  A windowed moe config (refused before) now
+    forwards with the window applied, to the reference's logits."""
     cfg = t_smoke(arch)
-    with pytest.raises(NotImplementedError):
-        tapi.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tapi.init_params(torch.Generator(), dataclasses.replace(
-            t_smoke("qwen3_moe_30b_a3b"), attn_window=16), device="cpu")
+    model = tapi.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    if cfg.family == "encdec":
+        with pytest.raises(NotImplementedError, match="decoder-only"):
+            ServingEngine(model, cfg, n_slots=2, max_len=32, device="cpu")
+        with pytest.raises(NotImplementedError, match="encdec serving"):
+            tapi.make_cache(cfg, 2, 32, device="cpu", src_len=4,
+                            page_size=8)
+    else:
+        with pytest.raises(NotImplementedError, match="recurrent state"):
+            ServingEngine(model, cfg, n_slots=2, max_len=32,
+                          draft_params=model, spec=SpecConfig(gamma=2),
+                          device="cpu")
+        with pytest.raises(NotImplementedError, match="nothing to page"):
+            tapi.make_cache(cfg, 2, 32, device="cpu", page_size=8)
+    jcfg, tcfg = cfgs("qwen3_moe_30b_a3b", attn_window=4)
+    jp = japi.init_params(jax.random.PRNGKey(2), jcfg)
+    tm = from_numpy_tree(jax_tree_to_numpy(jp), tcfg, device="cpu")
+    toks = np.arange(1, 13).reshape(1, 12)
+    jl, _, _ = japi.tf.forward(jp, jcfg, jnp.asarray(toks))
+    tl, _, _ = tapi.tf.forward(tm, tcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL,
+                               rtol=0)
+    unwindowed, _, _ = tapi.tf.forward(
+        tm, dataclasses.replace(tcfg, attn_window=None),
+        torch.from_numpy(toks))
+    assert not torch.allclose(unwindowed, tl)
