@@ -147,6 +147,13 @@ Phases (any failure raises and ends the run with a non-zero exit):
      Phase 5's and 7b's new-M passes then also hold K1 and K1e at the M
      values only phase 9 gave K1 (1, the resume buckets, Bb * 64, 12 for
      spec_half's verify; bf16, aligned and gathered plans).
+  13. the contract gate (``ServingEngine(verify_contracts=True)``, run
+     after phase 6 on phase 4's model, contiguous and on int8 pages, and
+     at the end of phases 11, 12 and 12b on their engines): each report
+     clean (an ERROR finding raises and ends the run), its rules, findings
+     and the transfers of the profiled decode step logged — exactly one
+     ``Memcpy DtoH`` (``_sample``'s) asserted; then a violating trace
+     (a second DtoH) must keep an engine from coming up.
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -1855,6 +1862,8 @@ def phase_family(api, dm, ops, ServingEngine, cfg, prompts, gen, host_gen,
         out[way] = res
         del eng
     first = ways[0][0]
+    out[first]["contracts"] = contract_gate(ServingEngine, cfg, model, tag,
+                                            **ways[0][1])
     again = small_serve(ServingEngine(model, cfg, n_slots=4, max_len=256,
                                       dtype=torch.bfloat16, device="cuda",
                                       **ways[0][1]), prompts, MAX_NEW)
@@ -2065,6 +2074,7 @@ def phase_recurrent(api, dm, ops, ServingEngine, cfg, prompts, gen,
                    sorted(shapes.items())})
     log(f"{tag} extra " + json.dumps({k: res[k] for k in (
         "batch1", "preempt_resume", "k1_shapes")}, default=str))
+    res["contracts"] = contract_gate(ServingEngine, cfg, model, tag)
     return res, model, shapes
 
 
@@ -2337,6 +2347,83 @@ def phase_encdec(api, dm, ops, ServingEngine, cfg, gen, host_gen):
 
 
 # ------------------------------------------------------------ phase 9
+
+def contract_gate(ServingEngine, cfg, model, tag, **kw):
+    """Phase 13 on one served model: ``ServingEngine(verify_contracts=True)``
+    (4 slots, ``max_len`` 256, bf16) on the card.  The gate profiles one
+    decode step of the engine and, when it holds plans, of its dense twin
+    (the model over its dequantized weights); an ERROR finding raises
+    ``ContractViolation`` here and ends the run.  Logs the report's rules
+    and findings and the quantized step's transfers: exactly one ``Memcpy
+    DtoH`` (``_sample``'s) is asserted.  Returns the record."""
+    from repro_torch.analysis import artifacts
+    from repro_torch.analysis import op_trace as OT
+    traces = []
+    real = artifacts.decode_ops
+
+    def keep(engine):
+        traces.append(real(engine))
+        return traces[-1]
+
+    artifacts.decode_ops = keep
+    t0 = time.perf_counter()
+    try:
+        eng = ServingEngine(model, cfg, n_slots=4, max_len=256,
+                            dtype=torch.bfloat16, device="cuda",
+                            verify_contracts=True, **kw)
+    finally:
+        artifacts.decode_ops = real
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    rep = eng.contract_report
+    step = traces[0]
+    counts = OT.transfer_counts(step)
+    rec = dict(rules_run=rep.rules_run, rules_skipped=rep.rules_skipped,
+               findings=[(f.rule_id, f.severity.name, f.message)
+                         for f in rep.findings],
+               transfers=counts, k1=OT.k1_modes(step),
+               moved_leaves=OT.moved_leaves(step),
+               dense_twin=len(traces) == 2, gate_s=gate_s)
+    log(f"contracts {tag}: " + json.dumps(rec))
+    for line in rep.render().splitlines():
+        log("  " + line)
+    assert rep.clean and counts["to_host"] == 1 and counts["dtoh"] == 1, rec
+    assert not OT.host_transfer_instructions(step), rec
+    assert rec["dense_twin"] and "HLO-GA1" in rep.rules_run, rec
+    # the trace holds every K1 launch of the step: none nested away
+    assert sum(rec["k1"].values()) == plan_launches(eng.params,
+                                                    decode=True)[0], rec
+    del eng, traces
+    torch.cuda.empty_cache()
+    return rec
+
+
+def contract_refusal(api, ServingEngine, cfg):
+    """Phase 13's mutation on the card: a decode step whose trace holds a
+    second ``Memcpy DtoH`` keeps ``ServingEngine(verify_contracts=True)``
+    from coming up (``ContractViolation`` naming HLO-HT1), on the smoke
+    ``cfg``."""
+    from repro_torch.analysis import ContractViolation, artifacts
+    from repro_torch.analysis import op_trace as OT
+    model = api.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                            cfg, "cuda")
+    dtoh = OT.OpRecord("Memcpy DtoH (Device -> Pageable)", "device")
+    bad = OT.OpTrace([OT.OpRecord(OT.TO_HOST), dtoh, dtoh])
+    real = artifacts.decode_ops
+    artifacts.decode_ops = lambda engine: bad
+    try:
+        ServingEngine(model, cfg, n_slots=4, max_len=64, prepare=False,
+                      device="cuda", verify_contracts=True)
+    except ContractViolation as e:
+        assert "HLO-HT1" in str(e), e
+        log("contracts refusal: a step with two DtoH copies raised "
+            "ContractViolation (HLO-HT1)")
+    else:
+        raise AssertionError("the engine came up over a violating step")
+    finally:
+        artifacts.decode_ops = real
+    return True
+
 
 def reset_counts(dm):
     dm.launch_count = dm.int8_launch_count = dm.plain_count = 0
@@ -2826,6 +2913,18 @@ def main() -> int:
 
     # 6. the same model and prompts with int8 activations (K1e)
     serve8 = phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts)
+
+    # 13. the contract gate on the card over phase 4's model, contiguous
+    # and on int8 pages (the moe, rwkv and hybrid engines get theirs in
+    # phases 11, 12 and 12b), and its refusal of a violating step
+    t13 = time.perf_counter()
+    contracts = {
+        "llama1_7b": contract_gate(ServingEngine, cfg, model, "llama1_7b"),
+        "llama1_7b_paged_int8": contract_gate(
+            ServingEngine, cfg, model, "llama1_7b_paged_int8",
+            kv_layout="paged", page_size=PAGE_SIZE, kv_dtype="int8"),
+        "refusal": contract_refusal(api, ServingEngine, small)}
+    gate_s = time.perf_counter() - t13
     del model
 
     # 7. K1e vs plain version at every M phase 6 gave it
@@ -2905,6 +3004,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phases 12-12c and their kernel checks took "
         f"{time.perf_counter() - t12:.1f} s")
+    contracts.update(qwen3_moe=moe_runs["contiguous"]["contracts"],
+                     rwkv6_7b=rwkv_run["contracts"],
+                     zamba2_1p2b=zamba_run["contracts"])
+    gate_s += sum(c["gate_s"] for k, c in contracts.items()
+                  if k.startswith(("qwen3", "rwkv", "zamba")))
+    log("contracts " + json.dumps({
+        "engines": {k: {f: c[f] for f in ("rules_run", "findings",
+                                          "transfers", "moved_leaves")}
+                    for k, c in contracts.items() if k != "refusal"},
+        "refusal": contracts["refusal"], "phase_s": gate_s}))
 
     # 10. train llama1_7b at full width (QUANT_DEPTH layers), checkpoint
     # asynchronously mid-run, restore into a fresh state, resume

@@ -19,6 +19,8 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import op_trace
+
 from . import packing
 
 
@@ -64,6 +66,7 @@ class QuantizedTensor:
         them (``shape`` stays the per-matrix (rows, cols))."""
         return tuple(self.col_perm.shape[:-1])
 
+    @op_trace.profiled(op_trace.DEQUANTIZE)
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         """Reference dequantization (the oracle the kernels test against):
         (*stack, rows, cols) in ``dtype``, one batched pass over a stack.

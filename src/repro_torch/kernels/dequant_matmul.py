@@ -29,6 +29,10 @@ workspace of partial sums and one int32 arrival counter per output tile
 (zeroed by the launch's own pre-pass), so launches on different streams
 or in a CUDA graph never share state.
 
+Each call is one ``repro_torch::dequant_matmul[<x_mode>]`` record of a
+profiled step (``analysis/op_trace.py`` folds the torch ops inside it, as
+the reference's HLO shows one custom call for the Pallas kernel).
+
 ``launch_count`` counts wrapper calls that launch the kernel (CUDA only),
 ``int8_launch_count`` those of them that read int8 x (K1e) and
 ``aligned_launch_count`` those that read x "aligned" (single-width plans,
@@ -46,6 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis import op_trace
 from repro_torch.core import packing
 
 from . import cuda_build, ref
@@ -283,6 +288,16 @@ def _check(x, planes, codebook, out_idx, out_val, bits, n, acc, x_mode,
                          "entries")
 
 
+def _profiled(fn):
+    """Run K1's wrapper in its op-trace scope, named by ``x_mode``."""
+    @functools.wraps(fn)
+    def wrapped(*args, x_mode: str = "blocked", **kw):
+        with op_trace.scope(op_trace.K1, x_mode):
+            return fn(*args, x_mode=x_mode, **kw)
+    return wrapped
+
+
+@_profiled
 def dequant_matmul(
     x: torch.Tensor,                  # (M, K) blocked or raw, f32/bf16/i8
     planes: Sequence[torch.Tensor],   # per plane (n // cpw, k_padded) int32
@@ -364,7 +379,8 @@ def dequant_matmul(
         acc.data_ptr() if acc is not None else None,
         x_idx.data_ptr() if x_mode == "gathered" else None,
         out.data_ptr(), n, k_padded, _X_MODES[x_mode], x_start, k_cols,
-        int(compute_dtype == torch.bfloat16), lp.block_m,
+        int(compute_dtype == torch.bfloat16),  # contract: ok — a dtype test
+        lp.block_m,
         lp.chunks_per_slice,
         work.data_ptr() if work is not None else None,
         counters.data_ptr() if counters is not None else None,

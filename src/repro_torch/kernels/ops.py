@@ -15,6 +15,7 @@ from typing import Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import op_trace
 from repro_torch.core import packing
 from repro_torch.core.quantized import QuantizedTensor
 
@@ -129,8 +130,12 @@ def prepared_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor, *,
     if act_dtype == "int8":
         x2, scale = quantize_activations(x2)
     y = None
-    for xg, kw in group_calls(x2, pqt, gather, x_scale=scale):
-        y = dm.dequant_matmul(xg, acc=y, compute_dtype=compute_dtype, **kw)
+    # one call site of the op trace, named by its plan's permuted groups
+    with op_trace.scope(op_trace.QMATMUL, lambda: "permuted=%d" % sum(
+            g.x_start is None for g in pqt.groups)):
+        for xg, kw in group_calls(x2, pqt, gather, x_scale=scale):
+            y = dm.dequant_matmul(xg, acc=y, compute_dtype=compute_dtype,
+                                  **kw)
     y = y[:, :pqt.rows]
     if scale is not None and gather == "xla":
         y = y * scale

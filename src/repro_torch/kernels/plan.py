@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import op_trace
 from repro_torch.core import packing
 from repro_torch.core.quantized import (QuantizedTensor, lookup_codes,
                                         place_outliers)
@@ -102,6 +103,7 @@ class PreparedQuantizedTensor:
         kernel)."""
         return tuple(self.gather_idx.shape[:-1])
 
+    @op_trace.profiled(op_trace.DEQUANTIZE)
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         """Dequantization from the prepared layout (plan-vs-tensor oracle;
         the MoE experts' weights): (*stack, rows, cols) in ``dtype``, one

@@ -1,5 +1,5 @@
 """Serving launcher: quantize (optional) + batched engine demo (port of
-``repro.launch.serve`` without its mesh and contract flags).
+``repro.launch.serve`` without its mesh flags).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1_7b \
       --smoke --bits 2.2 --act-dtype int8 --device cpu
@@ -23,7 +23,9 @@ has ``--chunk-tokens``, ``--slo-ttft-p99-ms`` / ``--controller-mode`` /
 ``--cost-model``, ``--guards``, ``--on-pressure``, ``--inject-faults`` /
 ``--fault-seed`` (a seeded fault plan under a virtual clock), and
 ``--telemetry`` / ``--replay-trace`` / ``--report-json`` /
-``--telemetry-trace`` / ``--stats``.  ``--device`` defaults to ``cuda``
+``--telemetry-trace`` / ``--stats``; ``--verify-contracts`` runs the
+contract gate (``repro_torch.analysis``) at engine init and prints its
+report line.  ``--device`` defaults to ``cuda``
 and raises without a card; pass ``cpu`` to run the kernels' plain
 versions.
 """
@@ -157,6 +159,10 @@ def main(argv=None):
     ap.add_argument("--stats", action="store_true",
                     help="print the uniform metrics report at exit (every "
                          "stats() counter through the metrics registry)")
+    ap.add_argument("--verify-contracts", action="store_true",
+                    help="run the hot-path contract checker over one "
+                         "profiled decode step at engine init (raises on "
+                         "a violated contract)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; no silent CPU "
                          "fallback)")
@@ -242,6 +248,7 @@ def main(argv=None):
                         telemetry=telemetry,
                         chunked_prefill=args.chunk_tokens or None,
                         controller=controller, cost_model=cost_model,
+                        verify_contracts=args.verify_contracts,
                         device=device)
     if controller is not None:
         print(f"[serve] SLO controller: p99 TTFT target "
@@ -250,6 +257,11 @@ def main(argv=None):
     if args.chunk_tokens:
         print(f"[serve] chunked prefill: {args.chunk_tokens}-token chunks "
               f"interleaved with decode")
+    if args.verify_contracts:
+        rep = eng.contract_report
+        print(f"[serve] contracts: {len(rep.rules_run)} rules clean "
+              f"({len(rep.findings)} warning(s)) over the profiled "
+              f"decode step")
     if paged:
         print(f"[serve] paged KV cache: page_size={eng.page_size}, "
               f"pool={eng.n_pages} pages, resident dtype "

@@ -83,8 +83,8 @@ def top_k(probs: torch.Tensor, k: int):
 def capacity(tg: int, cfg) -> int:
     """Slots per expert and group: ceil(Tg k / E) scaled by the capacity
     factor, at least 1."""
-    return max(int(-(-tg * cfg.top_k // cfg.n_experts)
-                   * cfg.capacity_factor), 1)
+    slots = -(-tg * cfg.top_k // cfg.n_experts) * cfg.capacity_factor
+    return max(int(slots), 1)  # contract: ok — host numbers, not a tensor
 
 
 def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
@@ -109,7 +109,10 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
 
     # ---- positions within each expert (group-local cumsum) ----------------
     flat_e = gate_idx.reshape(G, Tg * K)                    # assignment -> e
-    onehot = F.one_hot(flat_e, E).to(torch.int32)           # (G, Tg*K, E)
+    experts = torch.arange(E, device=dev)
+    # one-hot by comparison: F.one_hot reads the index range back to the
+    # host (two syncs a call)
+    onehot = (flat_e[..., None] == experts).to(torch.int32)  # (G, Tg*K, E)
     pos_all = torch.cumsum(onehot, dim=1) - 1
     pos = torch.gather(pos_all, -1, flat_e[..., None])[..., 0]
     keep = pos < cap                                        # not dropped
@@ -154,7 +157,8 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
     if p.shared is not None:
         y = y + L.swiglu_mlp(p.shared, x)
     # load-balance loss (Switch): E * sum_e f_e * p_e
-    frac_tokens = torch.mean(F.one_hot(gate_idx, E).float(), dim=(0, 1, 2))
+    frac_tokens = torch.mean((gate_idx[..., None] == experts).float(),
+                             dim=(0, 1, 2))
     frac_probs = torch.mean(probs, dim=(0, 1))
     aux = E * torch.sum(frac_tokens * frac_probs)
     return y.to(x.dtype), aux

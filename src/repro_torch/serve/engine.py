@@ -111,7 +111,23 @@ tensor is read for it).
 PyTorch runs eagerly, so there are no traces to count: ``prefill_traces``
 is the number of distinct (batch, bucket) prefill shapes run, and the
 other ``*_traces`` counters of ``stats()`` the distinct shapes of their
-calls — the quantities the reference bounds by its trace counts.
+calls — the quantities the reference bounds by its trace counts.  A
+``TraceSentinel`` (``analysis/trace_rules.py``) observes the signature of
+every call at the reference's call sites, a record kept apart from those
+counters, so the trace rules cross-check the two.
+
+Contract gate (``verify_contracts=True``, run last in ``__init__``): the
+hot-path contract checker (``repro_torch.analysis``) profiles one decode
+step on a clone of the slot cache — and the same step of a dense twin
+over the dequantized weights, when the engine holds plans — and runs the
+step-artifact and trace rules over it; ERROR findings raise
+``ContractViolation`` before the engine serves a token, and the report is
+kept as ``contract_report``.  The engine's own state (caches, counters,
+call shapes, clock, telemetry) is what it was before the gate.  A step's
+transfers go through two counted helpers, ``to_host`` (the one
+device-to-host copy of a step: ``_sample``'s tokens and guard counts) and
+``to_device`` (tokens, a dirty page table, a fault vector), which the
+gate's ``HLO-HT1`` holds the step to.
 
 Families: dense and moe, with GQA or MLA attention, rwkv and the hybrid
 (encdec is refused at construction, as in the reference).  moe, as in
@@ -125,9 +141,8 @@ c_kv/k_pe ride the same insert, rollback and page scatter; the insert
 copies every other leaf whole (the recurrent ``state``/``conv``/``ssm``
 and token-shift rows), and the rollback leaves those alone.
 
-Port note — not accepted yet (each queued in ROADMAP.md): a device mesh
-(``mesh``) and the contract checker (``verify_contracts``); passing either
-raises ``TypeError``.
+Port note — not accepted yet (queued in ROADMAP.md): a device mesh
+(``mesh``); passing it raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -140,6 +155,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as dev_lib
+from repro_torch.analysis import op_trace
+from repro_torch.analysis.trace_rules import TraceSentinel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.plan import prepare_tree
 from repro_torch.models import api
@@ -287,6 +304,20 @@ def _rollback_tail(cache: List, new_lens) -> List:
     return out
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array: the step's one device-to-host transfer (the
+    sampled tokens, with the guard counts), in a counted op-trace scope."""
+    with op_trace.scope(op_trace.TO_HOST):
+        return t.cpu().numpy()
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array uploaded as a step input (tokens, a fault vector), in
+    a counted op-trace scope."""
+    with op_trace.scope(op_trace.TO_DEVICE):
+        return torch.as_tensor(a, device=device)
+
+
 def _take_rows(frag: List, rows: Sequence[int]) -> List:
     """The fragment rows ``rows`` of a contiguous prefill fragment."""
     idx = torch.as_tensor(list(rows), dtype=torch.long,
@@ -318,6 +349,7 @@ class ServingEngine:
                  chunked_prefill=None,
                  controller: Optional[AdmissionController] = None,
                  cost_model: Optional[StepCostModel] = None,
+                 verify_contracts: bool = False,
                  device="cuda"):
         """``params``: a ``Transformer`` (``models.api.init_params`` or
         ``convert.from_numpy_tree``) on ``device``.  ``dtype`` is the KV
@@ -333,8 +365,9 @@ class ServingEngine:
         ``kv_layout="paged"`` with ``page_size`` (default 16; divides
         ``max_len``), ``kv_pages`` (default: contiguous capacity),
         ``kv_dtype`` (None/"f32" or "int8") and ``share_prefixes``: the
-        paged KV cache.  ``telemetry``, ``chunked_prefill``, ``controller``
-        and ``cost_model``: see the module docstring."""
+        paged KV cache.  ``telemetry``, ``chunked_prefill``, ``controller``,
+        ``cost_model`` and ``verify_contracts``: see the module
+        docstring."""
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "ServingEngine serves decoder-only families; encdec "
@@ -526,6 +559,10 @@ class ServingEngine:
         # "draft_decode", "verify", "chunk_prefill", "draft_chunk_prefill"):
         # the port's counterpart of the reference's per-jit trace counters
         self.call_shapes: Dict[str, set] = collections.defaultdict(set)
+        # the signature of every call, observed at the reference's call
+        # sites and kept apart from call_shapes: the trace rules
+        # (repro_torch.analysis) cross-check the two and the budget
+        self.sentinel = TraceSentinel()
         self.emitted_tokens = 0
         self.engine_steps = 0
         self.spec_drafted = 0
@@ -539,9 +576,17 @@ class ServingEngine:
 
         # The controller reads the engine's realized capabilities (spec,
         # kv_dtype) to build its ladder and may extend verify_gammas, so
-        # it attaches last.
+        # it attaches before the contract gate, whose budgets read that set.
         if controller is not None:
             controller.attach(self)
+
+        # Opt-in contract gate: profile one decode step (on a clone of the
+        # slot cache) and run the step-artifact and trace rules over it,
+        # raising ContractViolation before the engine serves a token.
+        self.contract_report = None
+        if verify_contracts:
+            from repro_torch.analysis.artifacts import verify_engine
+            self.contract_report = verify_engine(self)
 
     def _make_slot_cache(self) -> List:
         return api.make_cache(self.cfg, self.n_slots, self.max_len,
@@ -575,7 +620,8 @@ class ServingEngine:
         host = torch.from_numpy(self._tables)
         for cache in self._caches():
             for table in {id(c.table): c.table for c in cache}.values():
-                table.copy_(host)
+                with op_trace.scope(op_trace.TO_DEVICE):
+                    table.copy_(host)
         self._tables_dirty = False
 
     def _map_pools(self, fn) -> None:
@@ -854,10 +900,10 @@ class ServingEngine:
         Returns (tokens, counts or None) as numpy."""
         nxt = logits.argmax(dim=-1)
         if not self.guards:
-            return nxt.cpu().numpy(), None
+            return to_host(nxt), None
         nf = nonfinite_rows(logits).to(nxt.dtype)
-        host = torch.cat([nxt.reshape(nxt.shape[0], -1), nf[:, None]],
-                         dim=1).cpu().numpy()
+        host = to_host(torch.cat([nxt.reshape(nxt.shape[0], -1),
+                                  nf[:, None]], dim=1))
         return host[:, :-1].reshape(nxt.shape), host[:, -1]
 
     @torch.no_grad()
@@ -903,12 +949,14 @@ class ServingEngine:
                 toks[r, :len(reqs[i].prompt)] = reqs[i].prompt
                 lens[r] = len(reqs[i].prompt)
             self.bucketing.record(Bb, bucket)
+            self.sentinel.observe("prefill", (Bb, bucket))
             logits, frag = self._prefill(self.params, toks, lens)
             dfrag = None
             if self.spec is not None:
                 # the draft needs the prompt in ITS cache too: its first
                 # proposal continues from the target's first token
                 self.call_shapes["draft_prefill"].add((Bb, bucket))
+                self.sentinel.observe("draft_prefill", (Bb, bucket))
                 _, dfrag = self._prefill(self.draft_params, toks, lens)
             self._step_prefill_tokens += Bb * bucket * (
                 2 if self.spec is not None else 1)
@@ -1050,6 +1098,7 @@ class ServingEngine:
         for i, n in enumerate(g.lens):
             lens[i] = n
         self.call_shapes["chunk_prefill"].add((g.bb, C))
+        self.sentinel.observe("chunk_prefill", (g.bb, C))
         toks_d = torch.as_tensor(toks, device=self.device)
         with nn.activation_quant(self.act_dtype):
             logits, g.frag = api.prefill_step(
@@ -1058,6 +1107,7 @@ class ServingEngine:
                                           device=self.device))
             if self.spec is not None:
                 self.call_shapes["draft_chunk_prefill"].add((g.bb, C))
+                self.sentinel.observe("draft_chunk_prefill", (g.bb, C))
                 _, g.draft_frag = api.prefill_step(
                     self.draft_params, self.cfg, {"tokens": toks_d},
                     g.draft_frag)
@@ -1176,6 +1226,7 @@ class ServingEngine:
         ta = np.zeros((1, bucket), np.int64)
         ta[0, :n] = P
         self.bucketing.record(1, bucket)
+        self.sentinel.observe("prefill", (1, bucket))
         lens = np.array([n], np.int64)
         _, frag = self._prefill(self.params, ta, lens)
         if bucket != n:
@@ -1185,6 +1236,7 @@ class ServingEngine:
         dfrag = None
         if self.spec is not None:
             self.call_shapes["draft_prefill"].add((1, bucket))
+            self.sentinel.observe("draft_prefill", (1, bucket))
             _, dfrag = self._prefill(self.draft_params, ta, lens)
             if bucket != n:
                 dfrag = _rollback_tail(dfrag, lens)
@@ -1192,10 +1244,12 @@ class ServingEngine:
             for t in toks[:-1]:
                 tok = torch.tensor([t], dtype=torch.long, device=self.device)
                 self.call_shapes["decode"].add((1,))
+                self.sentinel.observe("decode", (1,))
                 _, frag = api.decode_step(self.params, self.cfg, tok, frag)
                 self._step_decode_calls += 1
                 if self.spec is not None:
                     self.call_shapes["draft_decode"].add((1,))
+                    self.sentinel.observe("draft_decode", (1,))
                     _, dfrag = api.decode_step(self.draft_params, self.cfg,
                                                tok, dfrag)
                     self._step_draft_calls += 1
@@ -1551,7 +1605,7 @@ class ServingEngine:
                                         occupied)
         if not vec.any():
             return None
-        return torch.from_numpy(vec).to(self.device)
+        return to_device(vec, self.device)
 
     # ------------------------------------------------------------------- step
     def step(self) -> Dict[int, Any]:
@@ -1615,24 +1669,16 @@ class ServingEngine:
         step_idx = self.engine_steps
         slot_of = {uid: r.slot for uid, r in self.active.items()}
         t0 = tel.now() if tel is not None else 0.0
-        toks = torch.as_tensor(self.last_token, device=self.device)
         iv = self._inject_vec()
         self.call_shapes["decode"].add((self.n_slots,))
-        with nn.activation_quant(self.act_dtype):
-            logits, self.cache = api.decode_step(self.params, self.cfg, toks,
-                                                 self.cache)
-            if self.spec is not None:
-                # spec_off rung: advance the draft cache with the SAME
-                # token so both caches stay uniformly filled and
-                # re-enabling speculation is seamless
-                self.call_shapes["draft_decode"].add((self.n_slots,))
-                _, self.draft_cache = api.decode_step(
-                    self.draft_params, self.cfg, toks, self.draft_cache)
-                self._step_draft_calls += 1
+        self.sentinel.observe("decode", (self.n_slots,))
+        if self.spec is not None:
+            self.call_shapes["draft_decode"].add((self.n_slots,))
+            self.sentinel.observe("draft_decode", (self.n_slots,))
+            self._step_draft_calls += 1
+        nxt, nf_h, self.cache, self.draft_cache = self._decode_batch(
+            self.cache, self.draft_cache, iv)
         self._step_decode_calls += 1
-        if iv is not None:
-            logits = logits + iv.to(logits.dtype)[:, None]
-        nxt, nf_h = self._sample(logits)
         emitted = {}
         for uid, req in list(self.active.items()):
             s = req.slot
@@ -1650,6 +1696,29 @@ class ServingEngine:
             tel.on_step("decode", {u: 1 for u in emitted}, slot_of,
                         tel.now() - t0, step_idx)
         return emitted
+
+    def _decode_batch(self, cache: List, draft_cache, iv):
+        """The vanilla decode step's device work over ``cache`` (and, when
+        given — speculation's spec_off rung — ``draft_cache``): the tokens
+        uploaded, one batched decode, the fault vector ``iv`` added, and
+        the one transfer of ``_sample``.  Returns (tokens, guard counts or
+        None, cache, draft_cache) — the engine's caches, or the contract
+        gate's clones of the target's (the reference's gate lowers the
+        target's decode alone)."""
+        toks = to_device(self.last_token, self.device)
+        with nn.activation_quant(self.act_dtype):
+            logits, cache = api.decode_step(self.params, self.cfg, toks,
+                                            cache)
+            if draft_cache is not None:
+                # spec_off rung: advance the draft cache with the SAME
+                # token so both caches stay uniformly filled and
+                # re-enabling speculation is seamless
+                _, draft_cache = api.decode_step(
+                    self.draft_params, self.cfg, toks, draft_cache)
+        if iv is not None:
+            logits = logits + iv.to(logits.dtype)[:, None]
+        nxt, nf_h = self._sample(logits)
+        return nxt, nf_h, cache, draft_cache
 
     def _spec_step(self) -> Dict[int, List[int]]:
         """One speculation window: γ+1 draft decodes (the last one
@@ -1671,23 +1740,26 @@ class ServingEngine:
         # per-slot fill BEFORE the window: the window itself writes the
         # pending last token's K/V
         base_fill = {uid: self._fill(r) for uid, r in self.active.items()}
-        last = torch.as_tensor(self.last_token, device=self.device)
+        last = to_device(self.last_token, self.device)
         iv = self._inject_vec()
         self.call_shapes["draft_decode"].add((self.n_slots,))
         self.call_shapes["verify"].add((self.n_slots, gamma + 1))
         cur, d_cols = last, []
         with nn.activation_quant(self.act_dtype):
             for _ in range(gamma):
+                self.sentinel.observe("draft_decode", (self.n_slots,))
                 dlogits, self.draft_cache = api.decode_step(
                     self.draft_params, cfg, cur, self.draft_cache)
                 cur = dlogits.argmax(dim=-1)
                 d_cols.append(cur)
             # write-only catch-up: feed d_γ so the draft cache holds it if
             # the whole window is accepted (its logits are not read)
+            self.sentinel.observe("draft_decode", (self.n_slots,))
             _, self.draft_cache = api.decode_step(self.draft_params, cfg, cur,
                                                   self.draft_cache)
             drafts_t = torch.stack(d_cols, dim=1)           # (n_slots, γ)
             span = torch.cat([last[:, None], drafts_t], dim=1)
+            self.sentinel.observe("verify", (self.n_slots, gamma + 1))
             vlogits, self.cache = api.decode_span(self.params, cfg, span,
                                                   self.cache)
         self._step_draft_calls += gamma + 1
@@ -1697,7 +1769,7 @@ class ServingEngine:
         cols = [drafts_t, vlogits.argmax(dim=-1)]
         if self.guards:
             cols.append(nonfinite_rows(vlogits).to(drafts_t.dtype)[:, None])
-        host = torch.cat(cols, dim=1).cpu().numpy()
+        host = to_host(torch.cat(cols, dim=1))
         drafts, greedy = host[:, :gamma], host[:, gamma:2 * gamma + 1]
         nf_h = host[:, -1] if self.guards else None
 

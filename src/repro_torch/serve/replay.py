@@ -382,8 +382,8 @@ def validate_report(report: Dict[str, Any]) -> Dict[str, Any]:
 # ---------------------------------------------------------------------- cli
 
 def _smoke_engine(telemetry: Optional[Telemetry], seed: int,
-                  n_slots: int, max_len: int, faults: bool,
-                  chunk_tokens: Optional[int] = None,
+                  verify_contracts: bool, n_slots: int, max_len: int,
+                  faults: bool, chunk_tokens: Optional[int] = None,
                   controller=None, cost_model=None,
                   queue_depth: Optional[int] = None, device="cuda"):
     """A small fp dense engine (the llama1_7b smoke config, vocab 128, 2
@@ -411,9 +411,9 @@ def _smoke_engine(telemetry: Optional[Telemetry], seed: int,
     return ServingEngine(
         params, cfg, n_slots=n_slots, max_len=max_len, min_bucket=8,
         clock=StepClock(10.0), telemetry=telemetry, faults=inj,
-        on_pressure="preempt", chunked_prefill=chunk_tokens,
-        controller=controller, cost_model=cost_model,
-        queue_depth=queue_depth, device=device)
+        on_pressure="preempt", verify_contracts=verify_contracts,
+        chunked_prefill=chunk_tokens, controller=controller,
+        cost_model=cost_model, queue_depth=queue_depth, device=device)
 
 
 def overload_trace(seed: int, steps: int = 32,
@@ -441,15 +441,16 @@ def _overload_ab(args) -> int:
     # controller exists to manage; both sides get the same deep queue
     depth = 16 * args.slots
     tel_base = Telemetry()
-    base = _smoke_engine(tel_base, args.seed, args.slots, args.max_len,
-                         False, cost_model=cost, queue_depth=depth,
-                         device=args.device)
+    base = _smoke_engine(tel_base, args.seed, False, args.slots,
+                         args.max_len, False, cost_model=cost,
+                         queue_depth=depth, device=args.device)
     base_report = Replayer(base, trace,
                            retry=RetryPolicy(backoff_s=0.0)).run()
     tel = Telemetry()
     ctl = AdmissionController(
         SLOConfig(ttft_p99_ms=target), mode=args.controller_mode)
-    eng = _smoke_engine(tel, args.seed, args.slots, args.max_len, False,
+    eng = _smoke_engine(tel, args.seed, args.verify_contracts, args.slots,
+                        args.max_len, False,
                         chunk_tokens=args.chunk_tokens, controller=ctl,
                         cost_model=cost, queue_depth=depth,
                         device=args.device)
@@ -514,6 +515,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--max-len", type=int, default=48)
     ap.add_argument("--faults", action="store_true",
                     help="seeded pressure window (preempt/resume storm)")
+    ap.add_argument("--verify-contracts", action="store_true",
+                    help="run the contract gate on the engine (with "
+                         "telemetry attached) before replaying")
     ap.add_argument("--report-json", help="write the replay report here")
     ap.add_argument("--perfetto", help="write a Chrome/Perfetto "
                                        "trace_event JSON here")
@@ -536,8 +540,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _overload_ab(args)
 
     tel = Telemetry()
-    eng = _smoke_engine(tel, args.seed, args.slots, args.max_len,
-                        args.faults or args.smoke, device=args.device)
+    eng = _smoke_engine(tel, args.seed, args.verify_contracts,
+                        args.slots, args.max_len, args.faults or args.smoke,
+                        device=args.device)
     if args.trace:
         trace = load_trace(args.trace)
     else:

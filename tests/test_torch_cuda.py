@@ -767,3 +767,50 @@ def test_moe_mla_model_serves_on_the_card(card):
                                            page_size=8, **kw)))
     assert runs[0] == runs[1] == runs[2]
     assert dm.launch_count > launches
+
+
+# ------------------------------------------------ the contract gate (slice 9)
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged", page_size=8,
+                                              kv_dtype="int8")],
+                         ids=["contiguous", "paged_int8"])
+def test_contract_gate_on_the_card(card, kw):
+    """``verify_contracts=True`` over the smoke AP model on the card: the
+    gate is clean, its profiled decode step launched K1 'gathered' and made
+    exactly one device-to-host memcpy (``_sample``'s), counted against the
+    engine's helpers, and a violating trace keeps the engine from coming
+    up; the engine then serves the tokens of an engine without the gate."""
+    from repro_torch.analysis import ContractViolation, artifacts
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.serve import ServingEngine
+    cfg, model = small_claq_model(0, card)
+    base = dict(n_slots=4, max_len=64, min_bucket=8, device="cuda", **kw)
+    traces = []
+    real = artifacts.decode_ops
+
+    def keep(engine):
+        traces.append(real(engine))
+        return traces[-1]
+
+    artifacts.decode_ops = keep
+    try:
+        eng = ServingEngine(model, cfg, verify_contracts=True, **base)
+    finally:
+        artifacts.decode_ops = real
+    rep = eng.contract_report
+    assert rep.clean, rep.render()
+    assert "HLO-GA1" in rep.rules_run and "HLO-HT1" in rep.rules_run
+    counts = OT.transfer_counts(traces[0])
+    assert counts["to_host"] == 1 and counts["dtoh"] == 1, counts
+    assert OT.k1_modes(traces[0]).get("gathered", 0) > 0
+    assert _serve_waves(eng) == _serve_waves(ServingEngine(model, cfg,
+                                                           **base))
+    bad = OT.OpTrace([OT.OpRecord(OT.TO_HOST), OT.OpRecord(
+        "Memcpy DtoH (Device -> Pageable)", "device"), OT.OpRecord(
+        "Memcpy DtoH (Device -> Pageable)", "device")])
+    artifacts.decode_ops = lambda engine: bad
+    try:
+        with pytest.raises(ContractViolation, match="HLO-HT1"):
+            ServingEngine(model, cfg, verify_contracts=True, **base)
+    finally:
+        artifacts.decode_ops = real

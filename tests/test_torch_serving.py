@@ -174,15 +174,16 @@ def test_run_to_completion_surfaces_unfinished_work(quantized):
 
 
 def test_engine_knobs_not_ported_are_rejected(quantized):
-    """Only the device mesh and the contract checker are still refused;
-    the control plane's knobs are accepted."""
+    """Only the device mesh is still refused; the control plane's knobs
+    and the contract gate are accepted."""
     _, tcfg, _, tm = quantized
-    for knob in (dict(mesh=None), dict(verify_contracts=True)):
-        with pytest.raises(TypeError):
-            ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
-                          **knob)
+    with pytest.raises(TypeError):
+        ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
+                      mesh=None)
     eng = ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
                         guards=True, on_pressure="truncate",
-                        chunked_prefill=8, telemetry=None, queue_depth=4)
+                        chunked_prefill=8, telemetry=None, queue_depth=4,
+                        verify_contracts=True)
+    assert eng.contract_report.clean
     assert eng.guards and eng.on_pressure == "truncate"
     assert eng.chunked.chunk_tokens == 8 and eng.queue.depth == 4
