@@ -154,6 +154,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
      and the transfers of the profiled decode step logged — exactly one
      ``Memcpy DtoH`` (``_sample``'s) asserted; then a violating trace
      (a second DtoH) must keep an engine from coming up.
+  14. distribution (``ServingEngine(mesh=...)``, run after phase 13):
+     (a) a (1, 1) mesh on nccl (world size 1, in this process) over phase
+     4's model and prompts: tokens exactly phase 4's, ``stats()["mesh"]``
+     {"data": 1, "model": 1}; (b) two spawned ranks sharing the card over
+     gloo (NCCL refuses two ranks on one device), meshes (1, 2) and
+     (2, 1), serve llama1_7b at full width and ``MESH_DEPTH`` = 4 layers
+     (synthetic AP+OR weights from phase 4's seed) on phase 4's prompts:
+     tokens held to a single-rank engine's under the near-tie rule (the
+     limit twice each rank's largest |sharded - single-device| logit
+     gap on the single-rank tokens, teacher-forced, and at least two bf16
+     steps at the diverging row's largest logit: a data rank decodes 2
+     rows where the single rank decodes 4, and the card's GEMMs need not
+     sum a row alike at both; K1's K split follows N), each rank's plane
+     bytes, K1 launches and all-gathers (count, bytes) a decode step,
+     decode ms a step, and the contract gate's HLO-AG1 / HLO-CB1 with no
+     finding; (c) K1 and K1e against their plain versions at every
+     shard-local shape of llama1_7b's plans for tp = 2, 4 and 8 (where
+     the tiles divide), first and last block, and the largest gap of the
+     blocks' outputs to the whole launch's columns; (d) the same two
+     ranks quantize a 512 x 512 matrix row-sharded, held to the
+     single-rank result (Q to rtol 1e-4 / atol 1e-5, the proxy loss to
+     1e-3).
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -163,6 +185,7 @@ import copy
 import dataclasses
 import functools
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -213,6 +236,9 @@ RING_MAX_LEN = 4608
 RING_DECODE = 64                   # decode steps after it (each wraps)
 ENCDEC_FRAMES = (4, 200)           # 12c's seeded frames: batch, S_src
 ENCDEC_PROMPT = 8                  # its decoder prompt tokens
+MESH_DEPTH = 4                     # layers of phase 14b's llama1_7b
+MESH_SHAPES = ((1, 2), (2, 1))     # 14b's (data, model) meshes, 2 ranks
+ROWSHARD_N = 512                   # 14d's matrix (rows = cols)
 MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
                  v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
@@ -1051,7 +1077,7 @@ def near_tie_limit(api, eng, prompts, act, timed):
     return 2 * diff, diff, len(noise.gaps)
 
 
-def near_ties(got, base, limit, tag):
+def near_ties(got, base, limit, tag, ulps=0):
     """Hold speculative tokens ``got`` against vanilla's (``base``: a
     vanilla ``drive`` record), request by request.  At a divergence,
     vanilla's own decode logits at that position (the row its decode step
@@ -1060,7 +1086,11 @@ def near_ties(got, base, limit, tag):
     (twice the largest |verify - successive decode| logit difference).
     A divergence at the first token reads the prompt's batch-1 prefill
     row (``prefill_logits``); a shorter ``got`` (a quarantined request) is
-    held to vanilla's prefix.  Returns the divergences."""
+    held to vanilla's prefix.  ``ulps`` > 0 raises the limit at a
+    divergence to that many bf16 steps at the row's largest logit: any
+    change of a reduction's order can move a bf16 logit by a step, so two
+    logits that close are a tie at the logits' own resolution.  Returns
+    the divergences."""
     out = []
     for i, (g, w, rows) in enumerate(zip(got, base["tokens"],
                                          base["decode_logits"])):
@@ -1075,14 +1105,18 @@ def near_ties(got, base, limit, tag):
             assert j in rows, (tag, i, j, "vanilla emitted it from prefill")
             row = rows[j]
         top2 = torch.topk(row, 2).values
+        lim = limit
+        if ulps:
+            top = float(row.abs().max())
+            lim = max(limit, ulps * 2.0 ** (np.floor(np.log2(top)) - 7))
         out.append(dict(request=i, position=j, vanilla_token=w[j],
                         spec_token=g[j], gap=float(top2[0] - top2[1]),
                         spec_token_deficit=float(top2[0] - row[g[j]]),
-                        limit=limit))
+                        limit=lim))
         log(f"{tag}: request {i} diverges from vanilla at token {j}: "
             + json.dumps(out[-1]))
-    assert all(d["gap"] < limit and d["spec_token_deficit"] < limit
-               for d in out), out
+    assert all(d["gap"] < d["limit"] and d["spec_token_deficit"]
+               < d["limit"] for d in out), out
     return out
 
 
@@ -2795,6 +2829,293 @@ def phase_control_plane(api, dm, serve_mod, cfg, model, draft, prompts,
     return out
 
 
+# ------------------------------------------------------------ distribution
+
+def free_port() -> int:
+    """A free TCP port on localhost (the one-rank process group's)."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh_one_rank(api, dm, ServingEngine, cfg, model, prompts, base):
+    """14a: phase 4's model and prompts on a (1, 1) mesh over nccl (world
+    size 1, this process): the tokens must be phase 4's exactly."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_debug_mesh((1, 1), device_type="cuda")
+        eng = ServingEngine(model, cfg, n_slots=4, max_len=256,
+                            dtype=torch.bfloat16, device="cuda", mesh=mesh)
+        run = drive(eng, prompts, dm, api, cfg, "mesh_1x1")
+        assert eng.stats()["mesh"] == {"data": 1, "model": 1}
+        assert run["tokens"] == base["tokens"], "the 1x1 mesh left phase 4"
+    finally:
+        dist.destroy_process_group()
+    log("mesh_1x1: tokens exactly phase 4's")
+    return run
+
+
+def mesh_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama1_7b"), n_layers=MESH_DEPTH)
+
+
+def mesh_model(device):
+    """14b's model: full-width llama1_7b at ``MESH_DEPTH`` layers with
+    synthetic AP+OR weights from phase 4's seed (the same on every
+    rank and in the parent)."""
+    return synthetic_model(mesh_cfg(),
+                           torch.Generator(device=device).manual_seed(SEED),
+                           torch.Generator().manual_seed(SEED), device)
+
+
+def mesh_serve(eng, prompts, dm):
+    """Serve ``prompts`` as ``drive`` admits them (slots as they free up,
+    ``MAX_NEW`` tokens each), the launch counts set to 0 just before and
+    read just after; per decode step its K1 launches and synchronized
+    ms.  Returns (tokens in prompt order, counts, launches a step, decode
+    ms a step)."""
+    reset_counts(dm)
+    pending, order, step_ms, step_launches = list(prompts), [], [], []
+    while pending or eng.active:
+        if pending and eng.free:
+            n = min(len(pending), len(eng.free))
+            order += eng.add_requests([pending.pop(0) for _ in range(n)],
+                                      max_new_tokens=MAX_NEW)
+        before = dm.launch_count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emitted = eng.step()
+        torch.cuda.synchronize()
+        if emitted:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_launches.append(dm.launch_count - before)
+    counts = read_counts(dm)
+    fin = eng.take_finished()
+    assert all(fin[u].state.value == "finished"
+               and len(fin[u].tokens) == MAX_NEW for u in order)
+    return [fin[u].tokens for u in order], counts, step_launches, step_ms
+
+
+def mesh_rank(rank, world, device, prompts, base_tokens, W, H):
+    """14b and 14d on one of the two spawned ranks (the process group is
+    up, gloo on the card): per mesh of ``MESH_SHAPES`` the served record,
+    then the row-sharded quantizer's result."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.analysis.artifacts import decode_ops, verify_engine
+    from repro_torch.core import CLAQConfig, claq
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels.plan import PreparedQuantizedTensor, prepare_tree
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import api
+    from repro_torch.serve import ServingEngine
+    cfg = mesh_cfg()
+    single = prepare_tree(mesh_model(device))
+    out = {}
+    for shape in MESH_SHAPES:
+        tag = f"mesh_{shape[0]}x{shape[1]}"
+        mesh = mesh_lib.make_debug_mesh(shape, device_type="cuda")
+        eng = ServingEngine(mesh_model(device), cfg, n_slots=4, max_len=256,
+                            dtype=torch.bfloat16, device=device, mesh=mesh)
+        t0 = time.perf_counter()
+        rep = verify_engine(eng, raise_on_error=False)
+        gate_s = time.perf_counter() - t0
+        tokens, counts, step_launches, step_ms = mesh_serve(eng, prompts, dm)
+        colls = OT.collective_instructions(decode_ops(eng))
+        planes = sum(p.numel() * 4 for m in eng.params.modules()
+                     if isinstance(getattr(m, "kernel", None),
+                                   PreparedQuantizedTensor)
+                     for g in m.kernel.groups for p in g.planes)
+        # the sharding noise: the sharded model against the single-device
+        # one on the single-rank engine's tokens, teacher-forced
+        noise = 0.0
+        with torch.no_grad(), dctx.use_mesh(mesh):
+            for p, t in zip(prompts, base_tokens):
+                seq = torch.tensor([p + t[:-1]], device=device)
+                a, _, _ = api.tf.forward(eng.params, cfg, seq)
+                with dctx.use_mesh(None):
+                    b, _, _ = api.tf.forward(single, cfg, seq)
+                noise = max(noise, float((a.float() - b.float()).abs()
+                                         .max()))
+        out[tag] = dict(
+            tokens=tokens, counts=counts, plane_bytes=planes,
+            launches_per_step=sorted(set(step_launches)),
+            decode_ms_per_step=float(np.mean(step_ms)),
+            decode_ms_per_step_min=float(np.min(step_ms)),
+            all_gathers_per_step=sum(k == "all-gather" for k, _ in colls),
+            all_gather_bytes_per_step=sum(b for k, b in colls
+                                          if k == "all-gather"),
+            collectives_per_step=len(colls),
+            collective_bytes_max=max((b for _, b in colls), default=0),
+            gate_rules=rep.rules_run, weight_shard_ranks=shape[1],
+            gate_findings=[(f.rule_id, f.severity.name, f.message[:160])
+                           for f in rep.findings],
+            gate_s=gate_s, logit_noise=noise, stats_mesh=eng.stats()["mesh"])
+        del eng
+        torch.cuda.empty_cache()
+    del single
+    # 14d: the row-sharded quantizer over the model axis of a (1, 2) mesh
+    mesh = mesh_lib.make_debug_mesh((1, 2), device_type="cuda")
+    qcfg = CLAQConfig(bits=3, method="kmeans", kmeans_iters=5,
+                      gptq_blocksize=32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, Q, st = claq.quantize_matrix(torch.from_numpy(W).to(device),
+                                    torch.from_numpy(H).to(device), qcfg,
+                                    mesh=mesh)
+    torch.cuda.synchronize()
+    out["rowsharded"] = dict(Q=Q.cpu().numpy(), proxy_loss=st.proxy_loss,
+                             seconds=time.perf_counter() - t0)
+    return out
+
+
+def shard_local_kernels(dm, ops, plan, gen, host_gen):
+    """14c: K1 and K1e on shard-local plans of llama1_7b's three matrix
+    shapes (AP plans at the default tile) for tp = 2, 4, 8 where the tiles
+    divide, first and last block, at decode M = 4 (2 per data rank of a
+    (2, 2) mesh too) and a prefill M of 64: each launch against its plain
+    version (rtol 1e-4, atol 1e-3), and the blocks' outputs against the
+    whole plan's launch columns (K1's K split follows N, so the sums may
+    differ in order: the gap is reported, not bounded)."""
+    cases, max_err, gaps = [], 0.0, {}
+    for rows, cols in LLAMA_SHAPES:
+        whole = plan.prepare_for_inference(
+            synthetic_qt(rows, cols, gen, host_gen, "cuda"))
+        for tp in (2, 4, 8):
+            if not whole.shards_whole_tiles(tp):
+                continue
+            for index in sorted({0, tp - 1}):
+                local = plan.local_plan(whole, tp, index)
+                lo = index * local.n_padded
+                for m in (2, 4, 64):
+                    x = torch.randn((m, cols), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    for act in ("f32", "int8"):
+                        xk, scale = ((x, None) if act == "f32"
+                                     else ops.quantize_activations(x))
+                        ys = []
+                        for pqt in (local, whole):
+                            acc, err = None, 0.0
+                            for xg, kw in ops.group_calls(xk, pqt, "kernel",
+                                                          x_scale=scale):
+                                yk = dm.dequant_matmul(
+                                    xg, acc=acc, compute_dtype=torch.bfloat16,
+                                    **kw)
+                                yp = dm.dequant_matmul_plain(
+                                    xg, acc=acc, compute_dtype=torch.bfloat16,
+                                    **kw)
+                                torch.cuda.synchronize()
+                                diff = (yk - yp).abs()
+                                assert torch.isfinite(yk).all()
+                                assert not (diff > ATOL + RTOL * yp.abs()
+                                            ).any(), (rows, cols, tp, index,
+                                                      m, act)
+                                err = max(err, float(diff.max()))
+                                acc = yk
+                            ys.append(acc)
+                            if pqt is local:
+                                max_err = max(max_err, err)
+                        n = min(local.n_padded, rows - lo)
+                        gap = float((ys[0][:, :n] - ys[1][:, lo:lo + n])
+                                    .abs().max())
+                        key = f"{n}x{cols}"
+                        gaps[(key, act)] = max(gaps.get((key, act), 0.0), gap)
+                        cases.append(dict(shape=f"{rows}x{cols}", tp=tp,
+                                          block=index, m=m, act=act,
+                                          local_rows=n, max_abs_err=err,
+                                          gap_to_whole=gap))
+        del whole
+    torch.cuda.empty_cache()
+    return cases, max_err, gaps
+
+
+def phase_distribution(api, dm, ops, plan, ServingEngine, prompts, gen,
+                       host_gen):
+    """14b-d (14a runs over phase 4's model before it is freed)."""
+    from repro_torch.core import CLAQConfig, claq
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    cfg = mesh_cfg()
+    # the single-rank engine: the baseline tokens and decode logits
+    base = drive(ServingEngine(mesh_model("cuda"), cfg, n_slots=4,
+                               max_len=256, dtype=torch.bfloat16,
+                               device="cuda"),
+                 prompts, dm, api, cfg, "mesh_single_rank",
+                 prefill_rows=True)
+    # 14d's matrix and its single-rank quantization on the card
+    rng = np.random.default_rng(SEED)
+    W = rng.normal(size=(ROWSHARD_N, ROWSHARD_N)).astype(np.float32)
+    X = rng.normal(size=(4 * ROWSHARD_N, ROWSHARD_N)).astype(np.float32)
+    H = (2 * X.T @ X).astype(np.float32)
+    qcfg = CLAQConfig(bits=3, method="kmeans", kmeans_iters=5,
+                      gptq_blocksize=32)
+    torch.cuda.synchronize()
+    tq = time.perf_counter()
+    _, Q1, st1 = claq.quantize_matrix(torch.from_numpy(W).to("cuda"),
+                                      torch.from_numpy(H).to("cuda"), qcfg)
+    torch.cuda.synchronize()
+    q1_s = time.perf_counter() - tq
+    Q1 = Q1.cpu().numpy()
+    torch.cuda.empty_cache()
+    # 14b + 14d: two ranks share the card over gloo
+    ranks = mesh_lib.run_local(mesh_rank, 2, prompts, base["tokens"], W, H,
+                               backend="gloo", device="cuda",
+                               workdir=str(REPO / "build"))
+    res = {"single_rank": {k: base[k] for k in (
+        "decode_ms_per_step", "main_path_launches",
+        "launches_per_decode_step")}}
+    for shape in MESH_SHAPES:
+        tag = f"mesh_{shape[0]}x{shape[1]}"
+        for r, out in enumerate(ranks):
+            rec = out[tag]
+            limit = 2 * rec["logit_noise"]
+            ties = near_ties(rec["tokens"], base, limit, f"{tag} rank {r}",
+                             ulps=2)
+            assert rec["stats_mesh"] == {"data": shape[0],
+                                         "model": shape[1]}
+            assert rec["launches_per_step"] == [
+                base["launches_per_decode_step"]], rec["launches_per_step"]
+            assert rec["counts"]["launches"] > 0
+            # the collective rules run where a unit splits over "model"
+            # (on (2, 1) no weight is sharded, and they skip)
+            assert (shape[1] == 1 or ("HLO-AG1" in rec["gate_rules"]
+                                      and "HLO-CB1" in rec["gate_rules"])), \
+                rec["gate_rules"]
+            assert not [f for f in rec["gate_findings"]
+                        if f[0] in ("HLO-AG1", "HLO-CB1")], rec
+            rec = {k: v for k, v in rec.items() if k != "tokens"}
+            rec.update(near_tie_limit=limit, near_ties=len(ties),
+                       tokens_equal=out[tag]["tokens"] == base["tokens"])
+            res[f"{tag}_rank{r}"] = rec
+            log(f"{tag} rank {r} " + json.dumps(rec))
+    for r, out in enumerate(ranks):
+        q = out["rowsharded"]
+        np.testing.assert_allclose(q["Q"], Q1, rtol=1e-4, atol=1e-5)
+        assert abs(q["proxy_loss"] - st1.proxy_loss) <= \
+            1e-3 * abs(st1.proxy_loss)
+        res[f"rowsharded_rank{r}"] = dict(
+            seconds=q["seconds"], proxy_loss=q["proxy_loss"],
+            max_abs_diff=float(np.abs(q["Q"] - Q1).max()))
+    res["rowsharded_single"] = dict(seconds=q1_s, proxy_loss=st1.proxy_loss)
+    log("rowsharded " + json.dumps({k: v for k, v in res.items()
+                                    if k.startswith("rowsharded")}))
+    # 14c
+    cases, max_err, gaps = shard_local_kernels(dm, ops, plan, gen, host_gen)
+    res["shard_local"] = dict(
+        cases=len(cases), max_abs_err=max_err,
+        gap_to_whole={f"{k} {a}": g for (k, a), g in sorted(gaps.items())},
+        all_gaps_zero=all(g == 0.0 for g in gaps.values()))
+    log("shard_local " + json.dumps(res["shard_local"]))
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 14b-d took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not __debug__:
         print("chip_smoke: run without -O; its checks are asserts",
@@ -2925,7 +3246,19 @@ def main() -> int:
             kv_layout="paged", page_size=PAGE_SIZE, kv_dtype="int8"),
         "refusal": contract_refusal(api, ServingEngine, small)}
     gate_s = time.perf_counter() - t13
+
+    # 14a. phase 4's model and prompts on a one-rank nccl mesh
+    t14 = time.perf_counter()
+    mesh_1x1 = phase_mesh_one_rank(api, dm, ServingEngine, cfg, model,
+                                   prompts, serve)
+    t14 = time.perf_counter() - t14
     del model
+    torch.cuda.empty_cache()
+    # 14b-d. two ranks sharing the card (meshes (1, 2), (2, 1)), the
+    # shard-local K1/K1e, the row-sharded quantizer
+    dist_runs = phase_distribution(api, dm, ops, plan, ServingEngine,
+                                   prompts, gen, host_gen)
+    log(f"phase 14 took {t14 + dist_runs['phase_s']:.1f} s")
 
     # 7. K1e vs plain version at every M phase 6 gave it
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
@@ -3140,7 +3473,13 @@ def main() -> int:
         zamba2_ring={k: zamba_run["ring"][k] for k in (
             "launches", "aligned", "gathered")},
         seamless={k: encdec_run[k] for k in ("launches", "aligned",
-                                             "gathered")})
+                                             "gathered")},
+        mesh_1x1=split(mesh_1x1),
+        mesh_single_rank=dict(launches=dist_runs["single_rank"][
+            "main_path_launches"]),
+        **{tag: {k: v for k, v in run["counts"].items() if k != "int8"}
+           for tag, run in dist_runs.items() if tag.startswith("mesh_")})
+    kernels[0]["shard_local"] = dist_runs["shard_local"]
     checked_new = {f"{r}x{c}": sorted(v) for (r, c), v in
                    sorted(shapes_new.items())}
     checked_fam = {f"{r}x{c}": sorted(v) for (r, c), v in

@@ -17,8 +17,11 @@ import copy
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.quantized import QuantizedTensor
+from repro_torch.dist import collectives
+from repro_torch.dist.context import mesh_shape, use_mesh
 from repro_torch.kernels.plan import PreparedQuantizedTensor
 from repro_torch.models import modules as nn_mod
 
@@ -70,12 +73,19 @@ def weight_shard_threshold(params, model_parts: int) -> Optional[int]:
     best: Optional[int] = None
     for m in _quant_modules(params):
         leaf = m.kernel
-        if (isinstance(leaf, PreparedQuantizedTensor) and leaf.bn % 32 == 0
-                and (leaf.n_padded // leaf.bn) % model_parts == 0):
-            for g in leaf.groups:
-                for p in g.planes:
-                    b = p.numel() * 4
-                    best = b if best is None else max(best, b)
+        if not isinstance(leaf, PreparedQuantizedTensor):
+            continue
+        # a shard-local plan (an engine on a mesh) counts its whole plane
+        if leaf.shard is not None:
+            parts = leaf.shard.parts
+        elif leaf.shards_whole_tiles(model_parts):
+            parts = 1
+        else:
+            continue
+        for g in leaf.groups:
+            for p in g.planes:
+                b = p.numel() * 4 * parts
+                best = b if best is None else max(best, b)
     return best
 
 
@@ -88,8 +98,14 @@ def dense_twin_params(params):
     twin = copy.deepcopy(params, memo)
     dtype = params.embedding.dtype
     for m in _quant_modules(twin):
-        m.set_kernel(m.kernel.dequantize(dtype).transpose(-1, -2)
-                     .contiguous())
+        W = m.kernel.dequantize(dtype)
+        sh = getattr(m.kernel, "shard", None)
+        if sh is not None:
+            # a shard-local plan: the whole matrix, gathered once here
+            W = collectives.all_gather(
+                F.pad(W, (0, 0, 0, m.kernel.n_padded - W.shape[0])),
+                dim=0)[:sh.rows]
+        m.set_kernel(W.transpose(-1, -2).contiguous())
     return twin
 
 
@@ -211,10 +227,10 @@ def decode_ops(engine) -> op_trace.OpTrace:
 def engine_context(engine, dense_engine=None) -> Dict[str, Any]:
     """Build the full rule context from a live engine (and, optionally, a
     dense twin engine supplying the gather baseline).  The port updates
-    its cache in place, so ``donation_expected`` is always on; the engine
-    serves on one device, so ``weight_shard_bytes`` is never set and the
-    collective rules skip (the mesh slice sets it from
-    ``weight_shard_threshold``)."""
+    its cache in place, so ``donation_expected`` is always on.  On a mesh
+    with a "model" axis, ``weight_shard_bytes`` is the largest sharded
+    plane (``weight_shard_threshold``) and the collective rules read the
+    step's c10d records; off a mesh they skip."""
     ctx: Dict[str, Any] = {
         "ops": {"decode": decode_ops(engine)},
         "plan": plan_stats(engine.params, n_slots=engine.n_slots),
@@ -227,6 +243,11 @@ def engine_context(engine, dense_engine=None) -> Dict[str, Any]:
     pool = _pool_slice_elems(engine)
     if pool is not None:
         ctx["pool_slice_elems"] = pool
+    if engine.mesh is not None:
+        thresh = weight_shard_threshold(
+            engine.params, mesh_shape(engine.mesh).get("model", 1))
+        if thresh is not None:
+            ctx["weight_shard_bytes"] = thresh
     if dense_engine is not None:
         ctx["dense_ops"] = {"decode": decode_ops(dense_engine)}
     return ctx
@@ -245,7 +266,7 @@ def dense_twin_engine(engine):
         dense_twin_params(engine.params), engine.cfg,
         n_slots=engine.n_slots, max_len=engine.max_len,
         dtype=engine._cache_dtype, prepare=False, guards=engine.guards,
-        device=engine.device, **kw)
+        mesh=engine.mesh, device=engine.device, **kw)
 
 
 def verify_engine(engine, dense_engine=None, *,
@@ -256,9 +277,10 @@ def verify_engine(engine, dense_engine=None, *,
     init hook).  Builds the dense twin for the gather-parity rule when the
     caller did not pass ``dense_engine`` and the params hold plans; the
     twin is dropped before this returns."""
-    if dense_engine is None and plan_stats(engine.params)["has_plans"]:
-        dense_engine = dense_twin_engine(engine)
-    ctx = engine_context(engine, dense_engine)
+    with use_mesh(engine.mesh):
+        if dense_engine is None and plan_stats(engine.params)["has_plans"]:
+            dense_engine = dense_twin_engine(engine)
+        ctx = engine_context(engine, dense_engine)
     del dense_engine
     report = run_rules(list(HLO_RULES) + list(TRACE_RULES), ctx,
                        subject=subject)

@@ -220,11 +220,14 @@ def _ops(trace: OpTrace) -> List[OpRecord]:
 def collective_instructions(trace: OpTrace) -> List[Tuple[str, int]]:
     """Every c10d collective of the step as ``[(kind, bytes), ...]`` in the
     reference's kinds ("all-gather", "all-reduce", ...), each listed once
-    (the outermost record; its ``nccl:`` children are not counted again).
-    ``bytes`` is the largest tensor operand (the output of
-    ``all_gather_into_tensor``)."""
+    (the outermost record; its ``nccl:``/``gloo:`` children are not
+    counted again).  ``bytes`` is the largest tensor operand (the output
+    of ``all_gather_into_tensor``) of the record or of the records nested
+    in it: a collective over a tensor list (``c10d::allreduce_``) records
+    no shapes itself, its backend's child does (``gloo:all_reduce``)."""
+    ops = _ops(trace)
     out = []
-    for r in _ops(trace):
+    for i, r in enumerate(ops):
         low = r.name.lower()
         if not (low.startswith("c10d::") or low.startswith("nccl:")):
             continue
@@ -232,8 +235,14 @@ def collective_instructions(trace: OpTrace) -> List[Tuple[str, int]]:
             continue
         kind = next((k for key, k in _COLLECTIVES if key in low), None)
         if kind is not None:
-            big = max((_bytes(s, d) for s, d in zip(r.shapes, r.dtypes)),
-                      default=0)
+            depth = len(r.path)
+            inner = [r]
+            for c in ops[i + 1:]:
+                if len(c.path) <= depth or c.path[depth] != r.name:
+                    break
+                inner.append(c)
+            big = max((_bytes(s, d) for x in inner
+                       for s, d in zip(x.shapes, x.dtypes)), default=0)
             out.append((kind, big))
     return out
 

@@ -1,6 +1,10 @@
 """CLAQ orchestration: plan -> quantize -> package, per matrix and per
-model (port of ``repro.core.claq``, without the row-sharded ``mesh``
-variant, which waits for the port's distribution slice).
+model (port of ``repro.core.claq``).  The row-sharded variant
+(``quantize_matrix(..., mesh=, shard_axis=)``) splits the matrix rows
+over one dim of a ``DeviceMesh`` for mesh-parallel quantization of large
+matrices: each rank runs the GPTQ loop on its rows, fitting each
+column's codebook on the column gathered whole (so every rank fits the
+identical codebook), and the blocks are gathered back.
 
 Everything runs on the device of the weight it is given: the card for the
 launchers (``launch/quantize.py``), the CPU in the tests.
@@ -12,6 +16,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.dist.context import mesh_shape
 
 from . import gptq, kmeans as kmeans_lib, outlier as outlier_lib, policy
 from .policy import APConfig, CLAQConfig, ORConfig  # re-export  # noqa: F401
@@ -89,10 +95,14 @@ def quantize_matrix(
     H: Optional[torch.Tensor],
     cfg: CLAQConfig,
     plan: Optional[MatrixPlan] = None,
+    mesh=None,
+    shard_axis: str = "model",
 ) -> Tuple[QuantizedTensor, torch.Tensor, QuantStats]:
     """Quantize one (rows = out, cols = in) matrix with the full CLAQ
     recipe, on W's device.  H=None means an identity Hessian (weight-space
-    rounding).  Returns (QuantizedTensor, dequantized matrix, stats)."""
+    rounding).  ``mesh``: every rank passes the whole W and H, and the
+    GPTQ loop runs row-sharded over mesh dim ``shard_axis`` (rows must
+    divide).  Returns (QuantizedTensor, dequantized matrix, stats)."""
     W = W.float()
     dev = W.device
     rows, cols = W.shape
@@ -124,10 +134,14 @@ def quantize_matrix(
             k_valid=torch.as_tensor(2 ** bits_p, device=dev),
             iters=cfg.kmeans_iters, weight=(~res_p).float())
 
-    result = gptq.gptq_quantize_matrix(
-        Wp, U, bits_p, res_p, k_max=2 ** cfg.p_max, blocksize=B,
-        method=cfg.method, kmeans_iters=cfg.kmeans_iters,
-        codebook_mode=cfg.codebook_mode, frozen_codebooks=frozen)
+    kwargs = dict(k_max=2 ** cfg.p_max, blocksize=B, method=cfg.method,
+                  kmeans_iters=cfg.kmeans_iters,
+                  codebook_mode=cfg.codebook_mode, frozen_codebooks=frozen)
+    if mesh is not None and mesh_shape(mesh).get(shard_axis, 1) > 1:
+        result = _quantize_rowsharded(Wp, U, bits_p, res_p, kwargs, mesh,
+                                      shard_axis)
+    else:
+        result = gptq.gptq_quantize_matrix(Wp, U, bits_p, res_p, **kwargs)
 
     Q = result.Q[:, :cols]
     qt = build_quantized_tensor(
@@ -144,6 +158,34 @@ def quantize_matrix(
         extra_bits=plan.achieved_extra_bits,
     )
     return qt, Q, stats
+
+
+def _quantize_rowsharded(Wp, U, bits_p, res_p, kwargs, mesh, shard_axis):
+    """The GPTQ loop with Wp's rows split over ``shard_axis``: each rank
+    quantizes its block, the codebooks come out identical on every rank,
+    and Q and the codes are gathered back whole (the reserved mask is
+    every rank's already)."""
+    from repro_torch.dist import collectives
+    pg = collectives.group(mesh, shard_axis)
+    parts = collectives.axis_size(mesh, shard_axis)
+    index = collectives.coordinate(mesh, shard_axis)
+    rows = Wp.shape[0]
+    if rows % parts:
+        raise ValueError(f"{rows} rows do not split over {shard_axis}="
+                         f"{parts}")
+    sl = collectives.shard_slice(rows, parts, index)
+    res = gptq.gptq_quantize_matrix(Wp[sl].contiguous(), U, bits_p,
+                                    res_p[sl].contiguous(), group=pg,
+                                    **kwargs)
+
+    def whole(t):
+        out = torch.empty((rows,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        collectives.gather_into(out, t.contiguous(), pg)
+        return out
+    return gptq.QuantizeResult(Q=whole(res.Q), codes=whole(res.codes),
+                               codebooks=res.codebooks,
+                               reserved=res_p)
 
 
 # ---------------------------------------------------------------------------

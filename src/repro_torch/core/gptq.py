@@ -15,8 +15,14 @@ in order with lazy blocked error compensation, as in GPTQ:
 
 The reference's two ``fori_loop``s are Python loops here, over blocks and
 over the columns of a block; every per-column step stays on the device of
-W (no host synchronisation inside the loop).  The row-sharded variant
-(``axis_name``) waits for the port's distribution slice.
+W (no host synchronisation inside the loop).
+
+Row-sharded (``group``, a ``torch.distributed`` process group over which
+W's rows are split): each column is gathered whole before its codebook
+fit, so every rank fits the identical codebook, while the O(rows * cols)
+compensation updates stay on each rank's rows.  The lazy update of a
+block is applied as one rank-1 update a column (the reference: one
+GEMM), so a row's arithmetic does not depend on the number of rows.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import kmeans as kmeans_lib
 
@@ -102,6 +109,19 @@ class QuantizeResult(NamedTuple):
     reserved: torch.Tensor    # (rows, cols) bool
 
 
+def _gather_column(w: torch.Tensor, weight: torch.Tensor, group):
+    """One column and its weights, gathered whole from every rank's rows
+    (one all-gather of the two stacked), in rank order."""
+    from repro_torch.dist import collectives
+    both = torch.stack([w, weight]).contiguous()
+    parts = dist.get_world_size(group)
+    out = torch.empty((parts,) + both.shape, dtype=both.dtype,
+                      device=both.device)
+    collectives.gather_into(out, both, group)
+    full = out.permute(1, 0, 2).reshape(2, -1)
+    return full[0], full[1]
+
+
 def gptq_quantize_matrix(
     W: torch.Tensor,
     U: torch.Tensor,
@@ -114,6 +134,7 @@ def gptq_quantize_matrix(
     kmeans_iters: int = 10,
     codebook_mode: str = "live",
     frozen_codebooks: Optional[torch.Tensor] = None,
+    group=None,
 ) -> QuantizeResult:
     """Quantize W (rows, cols) column by column with OBS compensation.
 
@@ -123,7 +144,8 @@ def gptq_quantize_matrix(
     they add no quantization error and are excluded from codebook fits.
     codebook_mode: 'live' refits each column's codebook on the compensated
     column; 'frozen' uses ``frozen_codebooks`` fitted on the original
-    weights.
+    weights.  ``group``: W is this rank's block of rows of a matrix split
+    over the group (see the module docstring); the result is the block's.
     """
     rows, cols = W.shape
     if cols % blocksize:
@@ -155,6 +177,14 @@ def gptq_quantize_matrix(
             if codebook_mode == "frozen":
                 cb = frozen_codebooks[j]
                 codes = kmeans_lib._assign(w, cb)
+            elif group is not None:
+                wf, weight_f = _gather_column(w, weight, group)
+                if method == "kmeans":
+                    cb, _ = kmeans_lib.kmeans_1d(wf, k_max, kv, kmeans_iters,
+                                                 weight_f)
+                else:
+                    cb = _uniform_codebook(wf, k_max, kv, weight_f)
+                codes = kmeans_lib._assign(w, cb)
             elif method == "kmeans":
                 cb, codes = kmeans_lib.kmeans_1d(w, k_max, kv, kmeans_iters,
                                                  weight)
@@ -170,8 +200,14 @@ def gptq_quantize_matrix(
             Eb[:, i] = err
             codes_all[:, j] = codes.to(torch.int32)
             cb_all[j] = cb
-        # lazy update of all later columns
-        W[:, j1:] -= Eb @ U[j0:j1, j1:]
+        # lazy update of all later columns: one rank-1 update a column
+        # of the block, in column order, so every element's sum is taken
+        # in the same order however many rows W holds (a row-sharded
+        # run is then bitwise the whole matrix's, on the card too, where
+        # a GEMM's kernel and summation order follow its row count)
+        rest = W[:, j1:]
+        for i in range(blocksize):
+            rest.addr_(Eb[:, i], U[j0 + i, j1:], alpha=-1)
         W[:, j0:j1] = Qb
     return QuantizeResult(Q=W, codes=codes_all, codebooks=cb_all,
                           reserved=reserved_mask)

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -56,12 +57,16 @@ def _assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 def kmeans_batch(x: torch.Tensor, k_max: int,
                  k_valid: Optional[IntOrTensor] = None, iters: int = 10,
-                 weight: Optional[torch.Tensor] = None):
+                 weight: Optional[torch.Tensor] = None, group=None):
     """K-Means on each row of x (B, n) independently.
 
     k_valid: int or (B,) active centroids per row (None = k_max);
     weight: (B, n), 0 excludes an element.  Returns (centroids (B, k_max),
     ascending over valid slots, +inf in invalid ones; codes (B, n) int64).
+    ``group``: each row is this rank's block of a longer one split over a
+    ``torch.distributed`` process group, and the Lloyd statistics (per
+    cluster sums and counts) are summed over the group (``all_reduce``)
+    — the distributed quantizer's form; the init is the local block's.
     """
     x = x.float()
     B, n = x.shape
@@ -83,6 +88,10 @@ def kmeans_batch(x: torch.Tensor, k_max: int,
         onehot = (a[..., None] == slot).float() * w[..., None]  # (B, n, k)
         sums = torch.einsum("bnk,bn->bk", onehot, x)
         counts = onehot.sum(dim=1)
+        if group is not None:
+            stats = torch.stack([sums, counts])
+            dist.all_reduce(stats, group=group)
+            sums, counts = stats[0], stats[1]
         c = torch.where(counts > 0, sums / torch.clamp(counts, min=1e-9), c)
         c = c.masked_fill(invalid, torch.inf)
     c = torch.sort(c, dim=-1).values
@@ -91,11 +100,13 @@ def kmeans_batch(x: torch.Tensor, k_max: int,
 
 def kmeans_1d(x: torch.Tensor, k_max: int,
               k_valid: Optional[IntOrTensor] = None, iters: int = 10,
-              weight: Optional[torch.Tensor] = None):
-    """1-D K-Means of one column x (n,).  Returns (centroids (k_max,),
-    sorted over valid slots, +inf in invalid ones; codes (n,) int64)."""
+              weight: Optional[torch.Tensor] = None, group=None):
+    """1-D K-Means of one column x (n,) (``group``: x is this rank's block
+    of a column, statistics summed over the group).  Returns (centroids
+    (k_max,), sorted over valid slots, +inf in invalid ones; codes (n,)
+    int64)."""
     c, codes = kmeans_batch(x[None], k_max, k_valid, iters,
-                            None if weight is None else weight[None])
+                            None if weight is None else weight[None], group)
     return c[0], codes[0]
 
 

@@ -1,0 +1,422 @@
+"""Named sharding rules for params, batches and caches (port of
+``repro.dist.sharding``).
+
+A *rule* is ``rule(name, shape, cfg, ax) -> PartitionSpec``, applied per
+leaf by ``tree_specs``.  Rules are divisibility-guarded so the same rule
+set covers every arch family: a dimension is only sharded when the mesh
+axis divides it, otherwise it stays replicated.
+
+Trees are read in the reference's layout, under the reference's
+``jax.tree_util.keystr`` names: ``convert.param_tree`` for a model (block
+leaves are ``tree.LayerStack``s of per-layer tensors, so a leaf's shape
+carries the reference's leading layer axis) and ``cache_tree`` for a slot
+cache (the port's per-layer caches stacked the same way).  Those two maps
+are the one place where port leaves meet reference names; the rules read
+names only for ``_QUANT_LEAF_MARKERS`` and the cache fields.
+
+CLAQ quantized leaves are NOT per-leaf shardable: a
+``PreparedQuantizedTensor`` is a *unit* (packed code planes, per-group
+codebooks, outlier tables and one fused gather index whose layouts are
+coupled).  ``spec_for_quantized`` shards the unit along N instead: planes
+split on their packed-row axis in whole (bn, bk) tiles (guarded by
+``PreparedQuantizedTensor.shards_whole_tiles``), everything K-indexed or
+row-index-valued replicated.  ``tree_specs`` expands quantized units into
+their own (name, spec) entries.
+
+``local_shard`` takes one rank's block of a leaf (the counterpart of
+``jax.device_put`` onto a ``NamedSharding``); ``place_model`` applies the
+serve rule to a live model in place (the engine's ``mesh=``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.core.quantized import QuantizedTensor
+from repro_torch.kernels.plan import PreparedQuantizedTensor, local_plan
+
+from . import context as dctx
+
+_UNITS = (QuantizedTensor, PreparedQuantizedTensor)
+
+
+class PartitionSpec(tuple):
+    """Per-dimension mesh axes of a leaf: None (replicated), an axis name,
+    or a tuple of names (the dim is split over their product, row-major).
+    Trailing dimensions left out are replicated, as in JAX."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class MeshAxes:
+    """Resolved logical axes of a mesh ("dp" spans pod x data when
+    present)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.dp_axes: Tuple[str, ...] = dctx.physical_axes(mesh, "dp")
+        self.model_axes: Tuple[str, ...] = dctx.physical_axes(mesh, "model")
+        self.dp_size: int = dctx._axis_size(mesh, "dp")
+        self.model_size: int = dctx._axis_size(mesh, "model")
+
+    @property
+    def dp(self):
+        return dctx.spec_entry(self.mesh, "dp")
+
+    @property
+    def model(self):
+        return dctx.spec_entry(self.mesh, "model")
+
+
+def _shardable(dim: int, size: int) -> bool:
+    return size > 1 and dim >= size and dim % size == 0
+
+
+# leaf fields of QuantizedTensor / PreparedQuantizedTensor / PlanGroup — a
+# per-leaf rule must never invent a spec for these (see spec_for_quantized)
+_QUANT_LEAF_MARKERS = (".groups[", ".planes[", ".gather_idx", ".codebook",
+                       ".out_idx", ".out_val", ".stripes[", ".col_perm",
+                       ".out_count", ".packed", ".x_idx")
+
+
+def is_unit(leaf) -> bool:
+    """A quantized unit: one QuantizedTensor / PreparedQuantizedTensor, or
+    a ``LayerStack`` of them (the reference's layer-stacked unit)."""
+    if isinstance(leaf, tree_lib.LayerStack):
+        return bool(leaf) and isinstance(leaf[0], _UNITS)
+    return isinstance(leaf, _UNITS)
+
+
+def unit_leaves(q) -> List[Tuple[str, torch.Tensor]]:
+    """(keystr suffix, tensor) of one quantized unit's data leaves, in the
+    reference's flatten order (``.groups[g].planes[p]``, ``.codebook``,
+    ``.out_idx``, ``.out_val``, ``.x_idx``, then ``.gather_idx``; a raw
+    QuantizedTensor's ``.stripes[s].packed`` ... ``.out_count``)."""
+    if isinstance(q, QuantizedTensor):
+        return tree_lib.flatten(q)
+    out = []
+    for gi, g in enumerate(q.groups):
+        for pi, p in enumerate(g.planes):
+            out.append((f".groups[{gi}].planes[{pi}]", p))
+        for f in ("codebook", "out_idx", "out_val", "x_idx"):
+            t = getattr(g, f)
+            if t is not None:
+                out.append((f".groups[{gi}].{f}", t))
+    out.append((".gather_idx", q.gather_idx))
+    return out
+
+
+def leaf_shape(leaf) -> Tuple[int, ...]:
+    """A leaf's shape in the reference's layout (a ``LayerStack`` has the
+    leading layer axis)."""
+    if isinstance(leaf, tree_lib.LayerStack):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(leaf.shape)
+
+
+def spec_for_quantized(q, ax: MeshAxes) -> List[Tuple[str, PartitionSpec]]:
+    """(suffix, spec) of every data leaf of one quantized unit ``q`` (a
+    ``LayerStack`` of units: the leading layer axis is part of each
+    leaf's rank).
+
+    PreparedQuantizedTensor: sharded as a unit along N over "model" —
+      * code planes split on their packed-row axis (axis -2; one packed
+        word = 32/width consecutive rows of one column, and bn is a
+        multiple of the 32-row word, so a bn-aligned split is word-aligned
+        and every shard keeps whole (bn, bk) tiles);
+      * codebooks, outlier tables (whose idx *values* are global row
+        numbers), ``gather_idx`` and the per-group ``x_idx`` block tables
+        are K-indexed: replicated;
+      * guarded by ``shards_whole_tiles(model_size)``: when the tile count
+        does not divide, the WHOLE unit stays replicated — never torn;
+      * stacked (L, ...) / (L, E, ...) leaves shard the same axis -2.
+
+    Raw QuantizedTensor: replicated as a unit (3-bit packs two planes
+    concatenated along packed rows, so no row split is tile-clean)."""
+    stacked = isinstance(q, tree_lib.LayerStack)
+    unit = q[0] if stacked else q
+    if not isinstance(unit, _UNITS):
+        raise TypeError(f"not a quantized unit: {type(unit)}")
+    lead = 1 if stacked else 0
+    shard = (isinstance(unit, PreparedQuantizedTensor)
+             and ax.model_size > 1
+             and unit.shards_whole_tiles(ax.model_size))
+    out = []
+    for suffix, t in unit_leaves(unit):
+        if shard and ".planes[" in suffix:
+            ndim = t.dim() + lead
+            entries = [None] * ndim
+            entries[ndim - 2] = ax.model
+            out.append((suffix, PartitionSpec(*entries)))
+        else:
+            out.append((suffix, PartitionSpec()))
+    return out
+
+
+def spec_for_param(name: str, shape, cfg, ax: MeshAxes) -> PartitionSpec:
+    """Tensor-parallel params: shard the largest model-divisible dimension
+    over "model"; everything else replicated.  Covers dense kernels
+    (in, out), stacked (L, in, out), and embeddings (vocab, d).  Quantized
+    leaves are routed through ``spec_for_quantized`` by ``tree_specs``;
+    raw quantized internals mapped through this rule stay replicated."""
+    if not shape or ax.model_size <= 1:
+        return PartitionSpec()
+    if any(m in name for m in _QUANT_LEAF_MARKERS):
+        return PartitionSpec()
+    candidates = [d for d, dim in enumerate(shape)
+                  if _shardable(dim, ax.model_size)]
+    if not candidates:
+        return PartitionSpec()
+    best = max(candidates, key=lambda d: shape[d])
+    entries = [None] * len(shape)
+    entries[best] = ax.model
+    return PartitionSpec(*entries)
+
+
+def spec_for_param_serve(name: str, shape, cfg, ax: MeshAxes
+                         ) -> PartitionSpec:
+    """Serving keeps the training TP layout (decode is weight-bound; the
+    all-gather of a replicated layout would dominate the step)."""
+    return spec_for_param(name, shape, cfg, ax)
+
+
+def spec_for_batch(name: str, shape, cfg, ax: MeshAxes) -> PartitionSpec:
+    """Batches shard their leading (global batch) dimension over "dp"."""
+    if not shape or not _shardable(shape[0], ax.dp_size):
+        return PartitionSpec()
+    return PartitionSpec(ax.dp)
+
+
+_POOL_FIELDS = ("kp", "vp", "cp", "pp", "k_scale", "v_scale", "c_scale",
+                "p_scale")
+
+
+def spec_for_cache(name: str, shape, cfg, ax: MeshAxes) -> PartitionSpec:
+    """KV/state caches in the reference's stacked layout — (L, B, ...)
+    data, (L, B) fill counters — so the batch (serving slot) axis is axis
+    1, sharded over "dp".  The KV head axis of plain attention caches
+    ((L, B, S, KH, D) leaves named k/v, and the encdec cross_k/cross_v
+    banks) additionally shards over "model", matching head-parallel
+    attention; every other axis stays replicated.  Paged pools
+    ((L, n_pages+1, page_size, ...)) shard their PAGE axis over "dp" and
+    kp/vp heads over "model"; the (L, B, max_pages) tables replicate."""
+    if not shape:
+        return PartitionSpec()
+    field = name.rsplit(".", 1)[-1] if "." in name else name
+    if field == "table":
+        return PartitionSpec()
+    entries = [None] * len(shape)
+    if field in _POOL_FIELDS:
+        if len(shape) >= 2 and _shardable(shape[1], ax.dp_size):
+            entries[1] = ax.dp
+        if (field in ("kp", "vp") and len(shape) == 5
+                and _shardable(shape[-2], ax.model_size)):
+            entries[-2] = ax.model
+        return PartitionSpec(*entries)
+    batch_axis = 1 if len(shape) >= 2 else 0
+    if _shardable(shape[batch_axis], ax.dp_size):
+        entries[batch_axis] = ax.dp
+    if (field in ("k", "v", "cross_k", "cross_v") and len(shape) == 5
+            and _shardable(shape[-2], ax.model_size)):
+        entries[-2] = ax.model
+    return PartitionSpec(*entries)
+
+
+def flatten_units(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``tree.flatten`` that stops at quantized units (a unit, or a
+    ``LayerStack`` of them, is one entry)."""
+    if tree is None:
+        return []
+    if is_unit(tree) or not tree_lib._is_container(tree):
+        return [(prefix, tree)]
+    out = []
+    for name, child in tree_lib._children(tree):
+        out.extend(flatten_units(child, prefix + name))
+    return out
+
+
+def tree_specs(tree, rule, cfg, mesh) -> List[Tuple[str, PartitionSpec]]:
+    """(keystr name, spec) of every leaf of ``tree`` (reference layout), in
+    flatten order; quantized units expand to one entry per data leaf."""
+    ax = MeshAxes(mesh)
+    out = []
+    for name, leaf in flatten_units(tree):
+        if is_unit(leaf):
+            out.extend((name + s, spec)
+                       for s, spec in spec_for_quantized(leaf, ax))
+        else:
+            out.append((name, rule(name, leaf_shape(leaf), cfg, ax)))
+    return out
+
+
+def cache_tree(cache: Sequence, cfg):
+    """A slot cache (the port's flat list of per-layer caches) in the
+    reference's layout: one cache of ``LayerStack`` leaves; the hybrid's
+    ``{"attn": sites, "mamba": layers}``.  The leaves are the cache's own
+    tensors (a paged cache's shared table appears once a layer)."""
+    def stacked(caches):
+        first = caches[0]
+        return type(first)(*(
+            None if getattr(first, f) is None
+            else tree_lib.LayerStack(getattr(c, f) for c in caches)
+            for f in first._fields))
+
+    if cfg.family == "hybrid":
+        n = cfg.n_layers
+        return {"attn": stacked(list(cache[n:])),
+                "mamba": stacked(list(cache[:n]))}
+    return stacked(list(cache))
+
+
+# ---------------------------------------------------------------------------
+# Local shards
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def entry_block(entry, mesh, coords: Dict[str, int]) -> Tuple[int, int]:
+    """(parts, index) of one spec entry: the product of its axes' sizes
+    and this rank's row-major position among them."""
+    shape = dctx.mesh_shape(mesh)
+    parts, index = 1, 0
+    for a in _entry_axes(entry):
+        parts *= shape[a]
+        index = index * shape[a] + coords.get(a, 0)
+    return parts, index
+
+
+def local_shard(leaf: torch.Tensor, spec, mesh,
+                coords: Dict[str, int]) -> torch.Tensor:
+    """This rank's block of ``leaf`` under ``spec`` (a contiguous copy when
+    any dim splits, else ``leaf`` itself)."""
+    out = leaf
+    for d, entry in enumerate(spec):
+        parts, index = entry_block(entry, mesh, coords)
+        if parts > 1:
+            n = leaf.shape[d] // parts
+            out = out.narrow(d, index * n, n)
+    return out if out is leaf else out.contiguous()
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This rank's index along every dim of a ``DeviceMesh``."""
+    return {a: int(mesh.get_local_rank(a)) for a in mesh.mesh_dim_names}
+
+
+def place_model(model, cfg, mesh) -> Dict[str, int]:
+    """Replace, IN PLACE, every tensor of ``model`` that
+    ``spec_for_param_serve`` splits over "model" by this rank's block, and
+    every quantized unit it splits by its shard-local plan
+    (``kernels.plan.local_plan``).  A placed tensor carries
+    ``_model_shard = (dim, parts, index)``, which the sharded layers read
+    (``dist.collectives``).  Returns {"tensors": n, "units": n} placed.
+
+    One departure from the rule, so that no product sums partial products
+    across ranks (tokens stay bitwise the single device's) and no weight
+    moves at use: a dense matrix the rule splits on its CONTRACTION dim
+    (a kernel's input dim, which the largest-dim pick takes for a square
+    or a wide-input matrix; a tied embedding's model dim) is split on its
+    other dim instead, or kept whole when that dim does not divide.
+    The reference's stacked layer axis is never split by the serve rule
+    for a served config; a spec that splits it is refused.  Tensors and
+    plans placed already are left as they are."""
+    from repro_torch import convert
+    ax = MeshAxes(mesh)
+    coords = mesh_coords(mesh)
+    index = coords.get("model", 0)
+    tensor_split: Dict[int, Any] = {}
+    unit_split: Dict[int, int] = {}
+    for name, leaf in flatten_units(convert.param_tree(model, cfg)):
+        stacked = isinstance(leaf, tree_lib.LayerStack)
+        members = list(leaf) if stacked else [leaf]
+        if is_unit(leaf):
+            specs = spec_for_quantized(leaf, ax)
+            if any(e is not None for _, s in specs for e in s):
+                for u in members:
+                    unit_split[id(u)] = ax.model_size
+            continue
+        spec = spec_for_param_serve(name, leaf_shape(leaf), cfg, ax)
+        if stacked and spec and spec[0] is not None:
+            raise NotImplementedError(
+                f"{name}: spec {spec} splits the layer axis")
+        # the param rules split one dim, over "model"
+        dims = [d for d, e in enumerate(spec[1:] if stacked else spec)
+                if e is not None]
+        for t in members if dims else ():
+            tensor_split[id(t)] = (dims[0], ax.model_size)
+    n_t = n_u = 0
+    tied = getattr(cfg, "tie_embeddings", False)
+    for m in model.modules():
+        for bname, t in list(m._buffers.items()):
+            split = None if t is None else tensor_split.get(id(t))
+            if split is None or hasattr(t, "_model_shard"):
+                continue
+            dim, parts = split
+            # the contraction dim of a product stays whole: the other dim
+            # splits instead, or the matrix stays whole
+            contracted = ((bname == "kernel" and t.dim() == 2 and dim == 0)
+                          or (bname == "embedding" and tied and dim == 1))
+            if contracted:
+                dim = 1 - dim
+                if not _shardable(t.shape[dim], parts):
+                    continue
+            n = t.shape[dim] // parts
+            local = t.narrow(dim, index * n, n).contiguous()
+            local._model_shard = (dim, parts, index)
+            m._buffers[bname] = local
+            n_t += 1
+        kernel = getattr(m, "kernel", None)
+        if (isinstance(kernel, PreparedQuantizedTensor)
+                and kernel.shard is None and id(kernel) in unit_split):
+            m.kernel = local_plan(kernel, unit_split[id(kernel)], index)
+            n_u += 1
+    return {"tensors": n_t, "units": n_u}
+
+
+def place_cache(cache: Sequence, cfg, mesh, slots: bool = True) -> List:
+    """This rank's blocks of a slot cache (the port's flat per-layer list)
+    under ``spec_for_cache``, read in the reference's stacked layout; with
+    ``slots=False`` (a prefill fragment, whose rows every data rank
+    prefills) the "dp" splits are dropped and only "model" splits apply.
+    A tensor shared by several layers (a paged cache's table) stays
+    shared."""
+    ax = MeshAxes(mesh)
+    coords = mesh_coords(mesh)
+    n = len(cache)
+    if cfg.family == "hybrid":
+        groups = [("['attn']", range(cfg.n_layers, n)),
+                  ("['mamba']", range(cfg.n_layers))]
+    else:
+        groups = [("", range(n))]
+    out = list(cache)
+    memo: Dict[int, torch.Tensor] = {}
+    for prefix, pos in groups:
+        pos = list(pos)
+        first = cache[pos[0]]
+        repl: Dict[int, Dict[str, torch.Tensor]] = {i: {} for i in pos}
+        for f in first._fields:
+            t0 = getattr(first, f)
+            if t0 is None:
+                continue
+            spec = spec_for_cache(f"{prefix}.{f}",
+                                  (len(pos),) + tuple(t0.shape), cfg, ax)
+            spec = tuple(e if slots or e != ax.dp else None
+                         for e in spec[1:])
+            for i in pos:
+                t = getattr(cache[i], f)
+                if id(t) not in memo:
+                    memo[id(t)] = local_shard(t, spec, mesh, coords)
+                repl[i][f] = memo[id(t)]
+        for i in pos:
+            out[i] = cache[i]._replace(**repl[i])
+    return out

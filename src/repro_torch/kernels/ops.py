@@ -7,6 +7,11 @@ distinct bit-width, chained through the kernel's ``acc`` operand; the
 kernel path never materializes W.  ``act_dtype="int8"`` quantizes the
 activations per token (``quantize_activations``) and folds the scales into
 the last launch (prepared plans only).
+
+A shard-local plan (``plan.local_plan``, placed by the engine's mesh)
+launches K1 on its own N block, giving (M, N/tp) (padded rows included),
+and ONE all-gather over the "model" group gives (M, N): nothing
+weight-sized crosses ranks, and nothing is summed across them.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.analysis import op_trace
 from repro_torch.core import packing
+from repro_torch.dist import collectives
 from repro_torch.core.quantized import QuantizedTensor
 
 from . import dequant_matmul as dm
@@ -114,6 +120,16 @@ def group_calls(x2: torch.Tensor, pqt: PreparedQuantizedTensor,
                          "(expected 'kernel' or 'xla')")
 
 
+def _gather_shards(y: torch.Tensor, pqt: PreparedQuantizedTensor
+                   ) -> torch.Tensor:
+    """(M, n_padded) of the plan's own rows -> (M, rows) of its matrix:
+    the shard-local blocks all-gathered over "model" (a whole plan: its
+    padding dropped)."""
+    if pqt.shard is None:
+        return y[:, :pqt.rows]
+    return collectives.all_gather(y, dim=-1)[:, :pqt.shard.rows]
+
+
 def prepared_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor, *,
                      compute_dtype=torch.float32, gather: str = "kernel",
                      act_dtype=None) -> torch.Tensor:
@@ -136,10 +152,10 @@ def prepared_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor, *,
         for xg, kw in group_calls(x2, pqt, gather, x_scale=scale):
             y = dm.dequant_matmul(xg, acc=y, compute_dtype=compute_dtype,
                                   **kw)
-    y = y[:, :pqt.rows]
     if scale is not None and gather == "xla":
         y = y * scale
-    return y.reshape(lead + (pqt.rows,)).to(x.dtype)
+    y = _gather_shards(y, pqt)
+    return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
 
 
 def _prepared_ref_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor,

@@ -67,6 +67,15 @@ class PlanGroup:
 
 
 @dataclasses.dataclass(frozen=True)
+class PlanShard:
+    """Where a shard-local plan sits in its matrix: block ``index`` of
+    ``parts`` equal row blocks of a plan of ``rows`` rows (``local_plan``)."""
+    parts: int
+    index: int
+    rows: int
+
+
+@dataclasses.dataclass(frozen=True)
 class PreparedQuantizedTensor:
     """Deployment format: one gather index + one padded group per bit-width."""
     groups: Tuple[PlanGroup, ...]
@@ -74,10 +83,24 @@ class PreparedQuantizedTensor:
     shape: Tuple[int, int]     # (rows, cols) of the logical matrix
     n_padded: int              # rows padded to the N block
     bn: int                    # N block size (layout fact)
+    shard: Optional[PlanShard] = None   # set on a shard-local plan: its
+    #                                     rows are one N block of a matrix
 
     @property
     def rows(self) -> int:
         return self.shape[0]
+
+    @property
+    def n_tiles(self) -> int:
+        return self.n_padded // self.bn
+
+    def shards_whole_tiles(self, parts: int) -> bool:
+        """True iff splitting N into ``parts`` equal contiguous shards keeps
+        whole (bn, bk) tiles on every shard: bn a multiple of the full
+        32-row packing word (a width-1 plane packs 32 rows per word) and
+        the tile count divisible by ``parts``.  The sharding rule's guard:
+        otherwise the whole unit stays replicated, never torn."""
+        return parts > 1 and self.bn % 32 == 0 and self.n_tiles % parts == 0
 
     @property
     def cols(self) -> int:
@@ -124,6 +147,43 @@ class PreparedQuantizedTensor:
                 self.stack + (rows, g.k_cols)), Wg[..., :g.k_cols])
             off += g.k_padded
         return W
+
+
+def local_plan(pqt: PreparedQuantizedTensor, parts: int,
+               index: int) -> PreparedQuantizedTensor:
+    """Block ``index`` of ``parts`` of a plan split along N in whole tiles
+    (``shards_whole_tiles(parts)``): each plane keeps its packed rows of
+    the block (a stacked plan: on its axis -2, leading axes whole); the
+    codebooks, ``gather_idx`` and ``x_idx`` are K-indexed and shared
+    whole.  Outlier slots name global rows: each slot is rebased to the
+    block, and a slot of another block becomes an empty one (-1, value
+    0), so the local plan applies exactly its own rows' outliers in slot
+    order.  ``dequantize`` of the blocks, concatenated, is the whole
+    plan's."""
+    if not pqt.shards_whole_tiles(parts):
+        raise ValueError(
+            f"plan of {pqt.n_tiles} tiles of bn={pqt.bn} does not split "
+            f"into {parts} whole-tile shards")
+    n_l = pqt.n_padded // parts
+    lo = index * n_l
+    groups = []
+    for g in pqt.groups:
+        planes = []
+        for w, p in zip(packing.plane_widths(g.bits), g.planes):
+            cpw = 32 // w
+            planes.append(p[..., lo // cpw:(lo + n_l) // cpw, :]
+                          .contiguous())
+        oi, ov = g.out_idx, g.out_val
+        if oi is not None:
+            loc = oi.long() - lo
+            ok = (oi >= 0) & (loc >= 0) & (loc < n_l)
+            oi = torch.where(ok, loc, -1).to(torch.int32).contiguous()
+            ov = torch.where(ok, ov, 0.0).contiguous()
+        groups.append(dataclasses.replace(g, planes=tuple(planes),
+                                          out_idx=oi, out_val=ov))
+    return dataclasses.replace(
+        pqt, groups=tuple(groups), shape=(min(n_l, pqt.rows - lo), pqt.cols),
+        n_padded=n_l, shard=PlanShard(parts, index, pqt.rows))
 
 
 def validated_outliers(qt: QuantizedTensor):

@@ -1,5 +1,5 @@
 """Serving launcher: quantize (optional) + batched engine demo (port of
-``repro.launch.serve`` without its mesh flags).
+``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1_7b \
       --smoke --bits 2.2 --act-dtype int8 --device cpu
@@ -28,6 +28,17 @@ contract gate (``repro_torch.analysis``) at engine init and prints its
 report line.  ``--device`` defaults to ``cuda``
 and raises without a card; pass ``cpu`` to run the kernels' plain
 versions.
+
+A (data, model) mesh (``--mesh-shape DPxTP``, or ``--dp`` / ``--tp``)
+serves on DP * TP ranks, one process each, under ``torchrun``; every rank
+builds and quantizes the same seeded model and runs the same requests,
+and only rank 0 prints the report.  ``--backend`` is explicit: ``nccl``
+for one card per rank, ``gloo`` on the CPU or for ranks that share one
+card:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch \
+      llama1_7b --smoke --bits 2.2 --mesh-shape 2x2 --backend gloo \
+      --device cpu
 """
 from __future__ import annotations
 
@@ -43,6 +54,8 @@ from repro_torch import device as dev_lib
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import APConfig, CLAQConfig, ORConfig
 from repro_torch.data import calibration_set
+from repro_torch.dist.context import mesh_shape
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.quantize import claq_quantize, claq_quantize_with_draft
 from repro_torch.models import api
 from repro_torch.serve import (AdmissionController, AdmissionRejected,
@@ -50,6 +63,33 @@ from repro_torch.serve import (AdmissionController, AdmissionRejected,
                                ServingEngine, SLOConfig, SpecConfig,
                                StepClock, StepCostModel, Telemetry,
                                build_report, load_trace, write_perfetto)
+
+
+def _build_mesh(args):
+    """Resolve --mesh-shape / --dp / --tp into (a (data, model) mesh, this
+    rank's device, whether the process group was brought up here), or
+    (None, the device, False) for single-device serving."""
+    if args.mesh_shape:
+        try:
+            dp, tp = (int(v) for v in args.mesh_shape.lower().split("x"))
+        except ValueError as e:
+            raise SystemExit(
+                f"--mesh-shape must be DPxTP (e.g. 2x4), got "
+                f"{args.mesh_shape!r}") from e
+    else:
+        dp, tp = max(args.dp, 1), max(args.tp, 1)
+    if dp * tp <= 1:
+        return None, dev_lib.resolve(args.device), False
+    import torch.distributed as dist
+    created = not dist.is_initialized()
+    device = mesh_lib.init_distributed(args.backend, args.device)
+    world = dist.get_world_size()
+    if world != dp * tp:
+        raise SystemExit(
+            f"mesh {dp}x{tp} needs {dp * tp} ranks, the world has {world} "
+            f"(run under torchrun --nproc-per-node {dp * tp})")
+    return (mesh_lib.make_debug_mesh((dp, tp), device_type=device.type),
+            device, created)
 
 
 def main(argv=None):
@@ -166,9 +206,28 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; no silent CPU "
                          "fallback)")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="DPxTP mesh, e.g. 2x2 (data x model); run under "
+                         "torchrun with DP * TP processes")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel mesh size (alternative to "
+                         "--mesh-shape)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor(model)-parallel mesh size")
+    ap.add_argument("--backend", choices=mesh_lib.BACKENDS, default="nccl",
+                    help="process-group backend of a mesh: nccl (one card "
+                         "per rank) or gloo (the CPU, or ranks sharing "
+                         "one card)")
     args = ap.parse_args(argv)
 
-    device = dev_lib.resolve(args.device)
+    mesh, device, own_group = _build_mesh(args)
+    rank0 = mesh is None or mesh.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    if not rank0:
+        args.report_json = args.telemetry_trace = None
+    if mesh is not None:
+        say(f"[serve] mesh {mesh_shape(mesh)} over {mesh.size()} "
+            f"ranks ({args.backend})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
     model = api.init_params(gen, cfg, device)
@@ -188,13 +247,13 @@ def main(argv=None):
             # and the low-bit speculative draft share the tapped Hessians
             (model, report), (draft, drep) = claq_quantize_with_draft(
                 model, cfg, calib, qcfg, draft_bits=spec.draft_bits)
-            print(f"[serve] CLAQ-quantized target to "
+            say(f"[serve] CLAQ-quantized target to "
                   f"{report.mean_effective_bits:.2f} bits + draft to "
                   f"{drep.mean_effective_bits:.2f} bits in "
                   f"{time.time() - t0:.1f}s (one calibration pass)")
         else:
             model, report = claq_quantize(model, cfg, calib, qcfg)
-            print(f"[serve] CLAQ-quantized to "
+            say(f"[serve] CLAQ-quantized to "
                   f"{report.mean_effective_bits:.2f} "
                   f"bits in {time.time() - t0:.1f}s")
     elif spec is not None:
@@ -205,7 +264,7 @@ def main(argv=None):
                           kmeans_iters=6, gptq_blocksize=32,
                           orr=ORConfig(0.1))
         draft, drep = claq_quantize(copy.deepcopy(model), cfg, calib, dcfg)
-        print(f"[serve] fp target + {drep.mean_effective_bits:.2f}-bit "
+        say(f"[serve] fp target + {drep.mean_effective_bits:.2f}-bit "
               f"CLAQ draft")
 
     injector = None
@@ -215,7 +274,7 @@ def main(argv=None):
         # and a virtual clock (deadline outcomes must replay exactly)
         injector = FaultInjector(seed=args.fault_seed)
         clock = StepClock()
-        print(f"[serve] fault plan (seed {args.fault_seed}): "
+        say(f"[serve] fault plan (seed {args.fault_seed}): "
               f"{json.dumps(injector.describe())}")
     telemetry = (Telemetry()
                  if (args.telemetry or args.replay_trace or args.report_json
@@ -248,26 +307,27 @@ def main(argv=None):
                         telemetry=telemetry,
                         chunked_prefill=args.chunk_tokens or None,
                         controller=controller, cost_model=cost_model,
+                        mesh=mesh,
                         verify_contracts=args.verify_contracts,
                         device=device)
     if controller is not None:
-        print(f"[serve] SLO controller: p99 TTFT target "
+        say(f"[serve] SLO controller: p99 TTFT target "
               f"{args.slo_ttft_p99_ms:.0f}ms, ladder "
               f"{'->'.join(controller.ladder)}")
     if args.chunk_tokens:
-        print(f"[serve] chunked prefill: {args.chunk_tokens}-token chunks "
+        say(f"[serve] chunked prefill: {args.chunk_tokens}-token chunks "
               f"interleaved with decode")
     if args.verify_contracts:
         rep = eng.contract_report
-        print(f"[serve] contracts: {len(rep.rules_run)} rules clean "
+        say(f"[serve] contracts: {len(rep.rules_run)} rules clean "
               f"({len(rep.findings)} warning(s)) over the profiled "
               f"decode step")
     if paged:
-        print(f"[serve] paged KV cache: page_size={eng.page_size}, "
+        say(f"[serve] paged KV cache: page_size={eng.page_size}, "
               f"pool={eng.n_pages} pages, resident dtype "
               f"{eng.kv_dtype or 'fp'}")
     if args.act_dtype != "f32":
-        print(f"[serve] activations: per-token {args.act_dtype} "
+        say(f"[serve] activations: per-token {args.act_dtype} "
               f"(opt-in weight-activation quantized serving)")
     rng = np.random.default_rng(0)
     pending = [rng.integers(1, cfg.vocab, size=rng.integers(4, 12)).tolist()
@@ -287,7 +347,7 @@ def main(argv=None):
         # trace-driven mode: the Replayer owns arrivals, stepping and the
         # end-of-run report; --requests is ignored
         trace = load_trace(args.replay_trace)
-        print(f"[serve] replaying {len(trace)} arrivals from "
+        say(f"[serve] replaying {len(trace)} arrivals from "
               f"{args.replay_trace}")
         report = Replayer(eng, trace, retry=retry).run()
         steps = report["driver_steps"]
@@ -319,30 +379,30 @@ def main(argv=None):
     dt = time.time() - t0
     total_tokens = sum(r.tokens_out for r in finished.values())
     st = eng.stats()
-    print(f"[serve] {len(finished)} requests, {total_tokens} tokens, "
+    say(f"[serve] {len(finished)} requests, {total_tokens} tokens, "
           f"{dt:.2f}s ({total_tokens / dt:.1f} tok/s)")
     if steps and t_decode:
-        print(f"[serve] {steps} decode steps, "
+        say(f"[serve] {steps} decode steps, "
               f"{step_tokens / steps:.2f} tokens/step, "
               f"{t_decode / steps * 1e3:.1f} ms/step "
               f"({step_tokens / max(t_decode, 1e-9):.1f} decode tok/s)")
-    print(f"[serve] prefill traces {st['prefill_traces']} "
+    say(f"[serve] prefill traces {st['prefill_traces']} "
           f"(buckets {st['buckets']}), compile-cache hit rate "
           f"{st['bucket_hit_rate']:.0%}")
     if spec is not None:
-        print(f"[serve] speculation gamma={spec.gamma}: acceptance "
+        say(f"[serve] speculation gamma={spec.gamma}: acceptance "
               f"{st['acceptance_rate']:.1%} ({st['spec_accepted']}/"
               f"{st['spec_drafted']} draft tokens), "
               f"{st['tokens_per_step']:.2f} tokens per window over all "
               f"slots")
     if paged:
         pg = st["paged"]
-        print(f"[serve] pages: peak {pg['peak_pages_in_use']}/"
+        say(f"[serve] pages: peak {pg['peak_pages_in_use']}/"
               f"{pg['n_pages']}, prefix hits {pg['prefix_hits']}, "
               f"copy-on-write {pg['cow_copies']}, "
               f"{pg['bytes_per_page']} bytes a page")
     nonterminal = len(eng.active) + st["queued"] + eng.pending_prefills
-    print(f"[serve] lifecycle: {json.dumps(st['lifecycle'])}, preemptions "
+    say(f"[serve] lifecycle: {json.dumps(st['lifecycle'])}, preemptions "
           f"{st['preemptions']}, resumes {st['resumes']}, backpressure "
           f"waits {backpressure_waits}, transient-fault retries "
           f"{fault_retries}")
@@ -356,26 +416,29 @@ def main(argv=None):
                    "expired_at_submit": 0, "rejected_unfittable": 0})
     if report is not None:
         tt, tp = report["ttft_ms"], report["tpot_ms"]
-        print(f"[serve] ttft_ms p50/p90/p99 = {tt['p50']:.2f}/"
+        say(f"[serve] ttft_ms p50/p90/p99 = {tt['p50']:.2f}/"
               f"{tt['p90']:.2f}/{tt['p99']:.2f}  tpot_ms p50/p90/p99 = "
               f"{tp['p50']:.2f}/{tp['p90']:.2f}/{tp['p99']:.2f}  "
               f"tokens/s/slot = {report['tokens']['per_s_per_slot']:.2f}")
     if args.report_json:
         with open(args.report_json, "w") as f:
             json.dump(report, f, indent=2, sort_keys=True)
-        print(f"[serve] scheduling report -> {args.report_json}")
+        say(f"[serve] scheduling report -> {args.report_json}")
     if args.telemetry_trace:
         write_perfetto(args.telemetry_trace, telemetry)
-        print(f"[serve] perfetto trace -> {args.telemetry_trace} "
+        say(f"[serve] perfetto trace -> {args.telemetry_trace} "
               f"(open at ui.perfetto.dev)")
     if args.stats:
-        print(eng.metrics().render(title="serve metrics"))
+        say(eng.metrics().render(title="serve metrics"))
     if nonterminal:
         raise SystemExit(
             f"[serve] {nonterminal} requests never reached a terminal "
             f"state — lifecycle invariant violated")
     if args.inject_faults:
-        print("[serve] fault plan survived: every request terminal")
+        say("[serve] fault plan survived: every request terminal")
+    if own_group:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return st
 
 

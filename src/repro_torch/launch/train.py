@@ -14,7 +14,8 @@ Fault-tolerance behaviour, as in the reference:
     straggler event.
 
 ``--device`` defaults to ``cuda``.  ``--mesh`` other than ``none`` raises:
-the port has no distribution layer yet.
+the port's distribution layer serves and quantizes on a mesh, and the
+sharded train step is not ported yet.
 """
 from __future__ import annotations
 
@@ -54,9 +55,10 @@ def main(argv=None):
 
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port has no distribution layer yet "
-            "(sharding rules, mesh, compressed all-reduce); train on one "
-            "device with --mesh none")
+            f"--mesh {args.mesh}: the port's distribution layer serves "
+            "and quantizes on a mesh; a sharded train step is not ported "
+            "yet (ROADMAP.md, Queue 1, item 7): train on one device with "
+            "--mesh none")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = dev_lib.resolve(args.device)
 

@@ -9,6 +9,13 @@ masked softmax over S query rows, so each keeps the reference's
 arithmetic.  Caches are updated IN PLACE (the reference returns a new
 cache): a full-width cache is hundreds of MB, and copying it every step
 would double decode's memory traffic.
+
+On a mesh, attention is head-parallel over "model" when the engine's
+cache holds this rank's block of the KV heads (``dist.sharding.
+spec_for_cache`` splits them where ``n_kv_heads`` divides): the rank
+takes its heads of the replicated q/k/v projections, attends them over
+its cache block, and the heads are all-gathered before the output
+projection.  Each head's arithmetic is the unsharded one's.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import context as dctx
 from repro_torch.kernels import ops as kops
 
 from . import modules as M
@@ -283,6 +292,18 @@ class Attention(nn.Module):
         self.register_buffer("k_norm", k_norm)
 
 
+def head_block(cfg, cache):
+    """(parts, index) of the KV-head block ``cache`` holds on this rank,
+    or None when it holds every head (no cache, or no mesh)."""
+    if cache is None:
+        return None
+    kh = (cache.kp if isinstance(cache, PagedKVCache) else cache.k).shape[2]
+    if kh == cfg.n_kv_heads:
+        return None
+    parts = cfg.n_kv_heads // kh
+    return parts, coll.coordinate(dctx.get_mesh(), "model")
+
+
 def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
                   span: bool = False):
     """GQA attention.  Without a cache: causal self-attention.  With one:
@@ -305,6 +326,12 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
     if cfg.qk_norm:
         q = M.rms_norm(p.q_norm, q, cfg.norm_eps)
         k = M.rms_norm(p.k_norm, k, cfg.norm_eps)
+    block = head_block(cfg, cache)
+    if block is not None:
+        parts, r = block
+        q = q[:, :, r * H // parts:(r + 1) * H // parts]
+        k = k[:, :, r * KH // parts:(r + 1) * KH // parts]
+        v = v[:, :, r * KH // parts:(r + 1) * KH // parts]
 
     dev = x.device
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
@@ -396,6 +423,8 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
                                 kv_block=cfg.kv_block)
         new_cache = KVCache(cache.k, cache.v, new_len)
 
+    if block is not None:
+        out = coll.all_gather(out, dim=2)
     out = out.reshape(B, S, H * hd)
     return M.dense(p.o, out), new_cache
 

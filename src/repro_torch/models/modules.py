@@ -18,6 +18,14 @@ context, as in the reference:
     packages compare key for key.
   * **Activation quantization**: ``activation_quant("int8")`` opts every
     quantized matmul into per-token int8 activations (``QuantMode``).
+
+On a mesh (``dist.sharding.place_model``) a tensor may be this rank's
+block along "model" (``_model_shard``); the primitives below then return
+the replicated result through all-gathers, never through a sum of partial
+products: a kernel (split on its output dim) multiplies locally and
+gathers the columns, a vector (norm scale, bias) applies to this rank's
+slice of the activation, and a vocab-split embedding looks up its own
+rows and sums over ranks with one non-zero term.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from torch import nn
 
 from repro_torch.core import gptq
 from repro_torch.core.quantized import QuantizedTensor
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.plan import PreparedQuantizedTensor
 
@@ -201,8 +210,13 @@ def dense(p: Dense, x: torch.Tensor, tap: Optional[str] = None
     else:
         _maybe_record(p if tap is None else tap, x)
         y = x @ kernel.to(x.dtype)
+        if coll.model_shard(kernel) is not None:
+            # this rank's output columns (placement never splits the input
+            # dim: see dist.sharding.place_model)
+            y = coll.all_gather(y, dim=-1)
     if p.bias is not None:
-        y = y + p.bias.to(y.dtype)
+        y = coll.elementwise(y, p.bias,
+                             lambda a, b: a + b.to(a.dtype))
     return y
 
 
@@ -232,7 +246,7 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    return coll.elementwise(y, scale, lambda a, s: a * s.float()).to(x.dtype)
 
 
 def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
@@ -249,7 +263,30 @@ def embed(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     backward sums a repeated token's rows in a fixed order on the CPU,
     where indexing's accumulating scatter does not (training would not
     repeat itself bitwise)."""
-    return nn.functional.embedding(tokens.long(), embedding)
+    sh = coll.model_shard(embedding)
+    if sh is None:
+        return nn.functional.embedding(tokens.long(), embedding)
+    dim, _, index = sh
+    if dim == 1:
+        return coll.all_gather(nn.functional.embedding(tokens.long(),
+                                                       embedding), dim=-1)
+    n = embedding.shape[0]
+    local = tokens.long() - index * n
+    ok = (local >= 0) & (local < n)
+    rows = nn.functional.embedding(torch.where(ok, local, 0), embedding)
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+    return coll.sum_one_nonzero(rows)
+
+
+def tied_logits(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """``x @ embedding^T`` (tied embeddings): a vocab-split embedding
+    gives this rank's logit columns, all-gathered (placement splits a tied
+    embedding over vocab only)."""
+    y = x @ embedding.to(x.dtype).T
+    if coll.model_shard(embedding) is not None:
+        y = coll.all_gather(y, dim=-1)
+    return y
 
 
 # ---------------------------------------------------------------------------

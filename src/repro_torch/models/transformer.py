@@ -295,7 +295,7 @@ def forward(model: Transformer, cfg, tokens: Optional[torch.Tensor],
         x = M.rms_norm(model.final_norm, x, cfg.norm_eps)
     if cfg.tie_embeddings:
         M._maybe_record("lm_head", x)
-        logits = x @ model.embedding.to(x.dtype).T
+        logits = M.tied_logits(x, model.embedding)
     else:
         logits = M.dense(model.lm_head, x)
     return logits, new_caches, aux_sum

@@ -115,8 +115,7 @@ def apply_updates(params, grads, state: OptState, cfg: OptimConfig):
 
 
 # ---------------------------------------------------------------------------
-# int8 error-feedback gradient compression (the all-reduce that uses it,
-# ``compressed_psum``, waits for the port's distribution layer)
+# int8 error-feedback gradient compression and its all-reduce
 # ---------------------------------------------------------------------------
 
 def compress_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,3 +128,29 @@ def compress_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def compressed_psum(grads, err, group=None):
+    """Error-feedback compressed data-parallel all-reduce over a
+    ``torch.distributed`` process group (default: the world): each rank
+    quantizes (grad + residual) to int8 under a GLOBAL scale (a MAX
+    ``all_reduce`` of the local scales, so the payloads are additive),
+    sums the int8 payload as int32 (a SUM ``all_reduce``), divides by the
+    group size, and keeps what the compression dropped as the residual for
+    the next step (Karimireddy et al. 2019).  ``grads`` and ``err`` are
+    trees of one structure (``tree.tensors`` order); returns (mean
+    gradients, new residuals) as trees of that structure."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    means, resid = [], []
+    for g, e in zip(tree_lib.tensors(grads), tree_lib.tensors(err)):
+        gf = g.float() + e
+        scale = torch.max(torch.abs(gf)) / 127.0 + 1e-12
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        qs = q.to(torch.int32)
+        dist.all_reduce(qs, group=group)
+        means.append(qs.float() * scale / n)
+        resid.append(gf - q.float() * scale)
+    return (tree_lib.unflatten_tensors(grads, means),
+            tree_lib.unflatten_tensors(err, resid))

@@ -141,8 +141,26 @@ c_kv/k_pe ride the same insert, rollback and page scatter; the insert
 copies every other leaf whole (the recurrent ``state``/``conv``/``ssm``
 and token-shift rows), and the rollback leaves those alone.
 
-Port note — not accepted yet (queued in ROADMAP.md): a device mesh
-(``mesh``); passing it raises ``TypeError``.
+Multi-rank serving (``mesh=``, a ``DeviceMesh`` over ("data", "model"),
+one process per rank, every rank running this engine on the same
+requests — SPMD): params are placed by ``dist.sharding.
+spec_for_param_serve`` (each quantized unit split along N in whole tiles
+into a shard-local plan, dense leaves by their largest model-divisible
+dim) and the slot caches by ``spec_for_cache`` (slots over "data", KV
+heads over "model"; a paged pool's pages stay whole, its tables
+replicate).  Each data rank decodes its own slots' rows, and the sampled
+tokens (with the guard counts) are all-gathered over "data" before the
+step's one host transfer, so every rank's scheduler sees every token.
+Prefill, the resume replay and the fragments are computed on every data
+rank (head-parallel over "model") and each rank inserts its own slots'
+rows.  Every collective is an all-gather or a sum with one non-zero
+term, so on the CPU a sharded engine's tokens are bitwise the single
+device's.  Wall-clock decisions (deadlines, the controller) read rank
+0's clock, broadcast (``_RankZeroClock``), so every rank decides alike.
+A one-rank mesh is accepted for every family; more ranks for the dense
+family with GQA attention (f32 or int8 activations, contiguous or paged,
+with or without speculation).  ``stats()["mesh"]`` is the mesh's
+{"data": dp, "model": tp}.
 """
 from __future__ import annotations
 
@@ -156,6 +174,9 @@ import torch
 
 from repro_torch import device as dev_lib
 from repro_torch.analysis import op_trace
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding as shd
 from repro_torch.analysis.trace_rules import TraceSentinel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.plan import prepare_tree
@@ -318,6 +339,35 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
         return torch.as_tensor(a, device=device)
 
 
+class _RankZeroClock:
+    """A clock every rank of a mesh reads alike: rank 0's reading of
+    ``clock``, broadcast over the world at every call (the ranks call it
+    in the same order, as they run the same schedule)."""
+
+    def __init__(self, clock, device):
+        self.clock = clock
+        self.device = device
+
+    def __call__(self) -> float:
+        import torch.distributed as dist
+        t = torch.tensor([self.clock()], dtype=torch.float64,
+                         device=self.device)
+        dist.broadcast(t, src=0)
+        return float(t.item())
+
+
+def _meshed(fn):
+    """Run an engine method that calls the model under the engine's mesh
+    (``dist.context.use_mesh``: the sharded layers read it)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kw):
+        with dctx.use_mesh(self.mesh):
+            return fn(self, *args, **kw)
+    return wrapped
+
+
 def _take_rows(frag: List, rows: Sequence[int]) -> List:
     """The fragment rows ``rows`` of a contiguous prefill fragment."""
     idx = torch.as_tensor(list(rows), dtype=torch.long,
@@ -350,6 +400,7 @@ class ServingEngine:
                  controller: Optional[AdmissionController] = None,
                  cost_model: Optional[StepCostModel] = None,
                  verify_contracts: bool = False,
+                 mesh=None,
                  device="cuda"):
         """``params``: a ``Transformer`` (``models.api.init_params`` or
         ``convert.from_numpy_tree``) on ``device``.  ``dtype`` is the KV
@@ -366,7 +417,7 @@ class ServingEngine:
         ``max_len``), ``kv_pages`` (default: contiguous capacity),
         ``kv_dtype`` (None/"f32" or "int8") and ``share_prefixes``: the
         paged KV cache.  ``telemetry``, ``chunked_prefill``, ``controller``,
-        ``cost_model`` and ``verify_contracts``: see the module
+        ``cost_model``, ``verify_contracts`` and ``mesh``: see the module
         docstring."""
         if cfg.family == "encdec":
             raise NotImplementedError(
@@ -454,6 +505,10 @@ class ServingEngine:
             self.chunked = cpc
         tf.validate_family(cfg)
         self.device = dev_lib.resolve(device)
+        self.mesh = mesh
+        self._ranks = 1
+        if mesh is not None:
+            self._ranks = self._check_mesh(mesh, cfg)
         prep_kw = {}
         if plan_bn is not None:
             prep_kw["bn"] = plan_bn
@@ -461,6 +516,9 @@ class ServingEngine:
             prep_kw["bk"] = plan_bk
         self.params = prepare_tree(params, **prep_kw) if prepare else params
         self.cfg = cfg
+        if self._ranks > 1:
+            with dctx.use_mesh(mesh):
+                shd.place_model(self.params, cfg, mesh)
         self.act_dtype = act_dtype
         self.n_slots = n_slots
         self.max_len = max_len
@@ -469,6 +527,8 @@ class ServingEngine:
         self.faults = faults
         self.on_pressure = on_pressure
         self._clock = clock if clock is not None else time.monotonic
+        if self._ranks > 1:
+            self._clock = _RankZeroClock(self._clock, self._collective_dev())
         # Per-request span recorder (serve/telemetry.py): every hook call
         # is guarded by ``is not None``, and it binds THIS engine's clock,
         # so StepClock runs record deterministic timestamps.
@@ -514,6 +574,7 @@ class ServingEngine:
             self._cache_kw = dict(page_size=self.page_size,
                                   n_pages=self.n_pages,
                                   kv_dtype=self.kv_dtype)
+        self._rows: Optional[slice] = None
         self.cache = self._make_slot_cache()
 
         self.spec = spec
@@ -527,6 +588,9 @@ class ServingEngine:
                 dprep_kw["bk"] = draft_plan_bk
             self.draft_params = (prepare_tree(draft_params, **dprep_kw)
                                  if prepare else draft_params)
+            if self._ranks > 1:
+                with dctx.use_mesh(mesh):
+                    shd.place_model(self.draft_params, cfg, mesh)
             self.draft_cache = self._make_slot_cache()
 
         # ---- paged-cache host state: allocator, tables, counters ---------
@@ -588,10 +652,105 @@ class ServingEngine:
             from repro_torch.analysis.artifacts import verify_engine
             self.contract_report = verify_engine(self)
 
+    # ------------------------------------------------------------------ mesh
+    @staticmethod
+    def _check_mesh(mesh, cfg) -> int:
+        """Validate ``mesh`` for ``cfg``; returns its number of ranks."""
+        shape = dctx.mesh_shape(mesh)
+        ranks = int(np.prod(list(shape.values()))) if shape else 1
+        if ranks == 1:
+            return 1
+        if set(shape) - {"data", "model"}:
+            raise NotImplementedError(
+                f"mesh dims {tuple(shape)}: the engine serves on a (data, "
+                f"model) mesh; a pod axis is queued in ROADMAP.md")
+        if cfg.family != "dense" or cfg.use_mla:
+            raise TypeError(
+                f"a mesh of {ranks} ranks serves the dense family with GQA "
+                f"attention; {cfg.family}{' (MLA)' if cfg.use_mla else ''} "
+                f"on a multi-rank mesh (expert placement, the latent "
+                f"cache, recurrent state) is queued in ROADMAP.md, Queue 1 "
+                f"— serve it on a one-rank mesh or without one")
+        return ranks
+
+    def _collective_dev(self) -> torch.device:
+        """The device of a world-group collective's tensor: the card for
+        nccl, the CPU for gloo (chosen by the backend, never by
+        failure)."""
+        import torch.distributed as dist
+        return (self.device if dist.get_backend() == "nccl"
+                else torch.device("cpu"))
+
     def _make_slot_cache(self) -> List:
-        return api.make_cache(self.cfg, self.n_slots, self.max_len,
-                              dtype=self._cache_dtype, device=self.device,
-                              **self._cache_kw)
+        cache = api.make_cache(self.cfg, self.n_slots, self.max_len,
+                               dtype=self._cache_dtype, device=self.device,
+                               **self._cache_kw)
+        if self._ranks == 1:
+            return cache
+        ax = shd.MeshAxes(self.mesh)
+        if self._paged:
+            pool = next(getattr(cache[0], f) for f in ("kp", "cp")
+                        if hasattr(cache[0], f))
+            if shd.spec_for_cache(".kp", (1,) + tuple(pool.shape), self.cfg,
+                                  ax)[1] is not None:
+                raise NotImplementedError(
+                    f"kv_pages={self.n_pages}: a pool of "
+                    f"{self.n_pages + 1} page rows splits over data="
+                    f"{ax.dp_size}, and the port keeps pools whole on every "
+                    f"data rank (pages over data are queued in ROADMAP.md); "
+                    f"pick kv_pages so that kv_pages + 1 is not a multiple "
+                    f"of the data axis")
+        spec = shd.spec_for_cache(".length", (1, self.n_slots), self.cfg, ax)
+        if spec[1] is not None:
+            parts, index = shd.entry_block(spec[1], self.mesh,
+                                           shd.mesh_coords(self.mesh))
+            n = self.n_slots // parts
+            self._rows = slice(index * n, (index + 1) * n)
+        return shd.place_cache(cache, self.cfg, self.mesh)
+
+    def _new_fragment(self, batch: int) -> List:
+        """A contiguous prefill fragment: every data rank prefills every
+        row, so only its KV heads split (over "model")."""
+        frag = api.make_cache(self.cfg, batch, self.max_len,
+                              dtype=self._cache_dtype, device=self.device)
+        if self._ranks == 1:
+            return frag
+        return shd.place_cache(frag, self.cfg, self.mesh, slots=False)
+
+    def _local(self, t):
+        """This data rank's slot rows of a (n_slots, ...) step input."""
+        return t if self._rows is None else t[self._rows]
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's slot rows of a step output, in slot order."""
+        if self._rows is None:
+            return t
+        return coll.all_gather(t, dim=0, axis="data", mesh=self.mesh)
+
+    def _slot_view(self, cache: List) -> List:
+        """The slot cache as the model reads it: a paged cache's table
+        (replicated) cut to this data rank's slot rows."""
+        if self._rows is None or not self._paged:
+            return cache
+        return [c._replace(table=c.table[self._rows]) for c in cache]
+
+    def _slot_unview(self, cache: List, like: List) -> List:
+        if self._rows is None or not self._paged:
+            return cache
+        return [c._replace(table=t.table) for c, t in zip(cache, like)]
+
+    def _local_slots(self, slots: Sequence[int]):
+        """(fragment rows, local slot indices) of the ``slots`` this data
+        rank holds."""
+        if self._rows is None:
+            return list(range(len(slots))), list(slots)
+        lo, hi = self._rows.start, self._rows.stop
+        rows = [i for i, s in enumerate(slots) if lo <= s < hi]
+        return rows, [slots[i] - lo for i in rows]
+
+    def _rollback(self, cache: List, lens) -> List:
+        """``_rollback_tail`` of a slot cache, ``lens`` per global slot."""
+        return _rollback_tail(cache, self._local(np.asarray(lens)))
 
     @property
     def clock(self):
@@ -748,7 +907,11 @@ class ServingEngine:
         lens_t = torch.as_tensor(list(lens), dtype=torch.int32, device=dev)
         wt = torch.as_tensor(np.asarray(wrows).reshape(-1), dtype=torch.long,
                              device=dev)
-        slots_t = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
+        # the pool is whole on every data rank: every row's pages are
+        # written; the fill counters are this rank's slots'
+        rows, local = self._local_slots(slots)
+        slots_t = torch.as_tensor(local, dtype=torch.long, device=dev)
+        rows_t = torch.as_tensor(rows, dtype=torch.long, device=dev)
         out = []
         for pl, fr in zip(cache, frag):
             for f in _pool_leaves(pl):
@@ -765,7 +928,7 @@ class ServingEngine:
                     pool[wt] = xq.reshape(v.shape)
                     scale[wt] = sc[..., 0]
             length = pl.length.clone()
-            length[slots_t] = lens_t
+            length[slots_t] = lens_t[rows_t]
             out.append(pl._replace(length=length))
         return out
 
@@ -780,11 +943,18 @@ class ServingEngine:
                 self.draft_cache = self._paged_insert(
                     self.draft_cache, dfrag, slots, lens, wrows)
         else:
-            self.cache = _masked_group_insert(self.cache, frag, slots, lens,
+            rows, local = self._local_slots(slots)
+            if not rows:
+                return
+            if rows != list(range(len(rows))):
+                frag = _take_rows(frag, rows)
+                dfrag = None if dfrag is None else _take_rows(dfrag, rows)
+            lens = [lens[i] for i in rows]
+            self.cache = _masked_group_insert(self.cache, frag, local, lens,
                                               masked)
             if dfrag is not None:
                 self.draft_cache = _masked_group_insert(
-                    self.draft_cache, dfrag, slots, lens, masked)
+                    self.draft_cache, dfrag, local, lens, masked)
 
     def _bind_pages(self, reqs: Sequence[Request], slots: Sequence[int],
                     plans: Dict[int, Any]) -> None:
@@ -882,11 +1052,11 @@ class ServingEngine:
         self._admit(reqs)
         return [r.uid for r in reqs]
 
+    @_meshed
     def _prefill(self, params, toks: np.ndarray, lens: np.ndarray):
         """Prefill a (Bb, bucket) token block into a fresh contiguous
         fragment; returns (logits at each row's last true token, frag)."""
-        frag = api.make_cache(self.cfg, toks.shape[0], self.max_len,
-                              dtype=self._cache_dtype, device=self.device)
+        frag = self._new_fragment(toks.shape[0])
         with nn.activation_quant(self.act_dtype):
             return api.prefill_step(
                 params, self.cfg,
@@ -894,17 +1064,20 @@ class ServingEngine:
                 frag, logits_at=torch.as_tensor(lens - 1,
                                                 device=self.device))
 
-    def _sample(self, logits: torch.Tensor):
+    def _sample(self, logits: torch.Tensor, slot_rows: bool = False):
         """Greedy tokens of ``logits`` (B, ..., V) and, with guards, the
         per-row non-finite counts — brought to the host in ONE transfer.
-        Returns (tokens, counts or None) as numpy."""
+        ``slot_rows``: the logits are this data rank's slot rows, whose
+        results are all-gathered over "data" first.  Returns (tokens,
+        counts or None) as numpy."""
         nxt = logits.argmax(dim=-1)
         if not self.guards:
-            return to_host(nxt), None
+            return to_host(self._gather_rows(nxt) if slot_rows else nxt), None
         nf = nonfinite_rows(logits).to(nxt.dtype)
-        host = to_host(torch.cat([nxt.reshape(nxt.shape[0], -1),
-                                  nf[:, None]], dim=1))
-        return host[:, :-1].reshape(nxt.shape), host[:, -1]
+        t = torch.cat([nxt.reshape(nxt.shape[0], -1), nf[:, None]], dim=1)
+        host = to_host(self._gather_rows(t) if slot_rows else t)
+        return (host[:, :-1].reshape((host.shape[0],) + nxt.shape[1:]),
+                host[:, -1])
 
     @torch.no_grad()
     def _admit(self, reqs: List[Request]) -> None:
@@ -1013,13 +1186,10 @@ class ServingEngine:
         tel = self.telemetry
         B = len(reqs)
         Bb = min(1 << (B - 1).bit_length(), self.n_slots)
-        frag = api.make_cache(self.cfg, Bb, self.max_len,
-                              dtype=self._cache_dtype, device=self.device)
+        frag = self._new_fragment(Bb)
         draft_frag = None
         if self.spec is not None:
-            draft_frag = api.make_cache(self.cfg, Bb, self.max_len,
-                                        dtype=self._cache_dtype,
-                                        device=self.device)
+            draft_frag = self._new_fragment(Bb)
         slots = [self.free.pop(0) for _ in reqs]
         group = PrefillGroup(
             reqs=list(reqs), slots=slots,
@@ -1082,6 +1252,7 @@ class ServingEngine:
                 self._finish_group(g)
 
     @torch.no_grad()
+    @_meshed
     def _run_chunk(self, g: PrefillGroup, C: int) -> None:
         """Run one ``(bb, C)`` chunk for a group: every live row advances
         C positions in the fragment cache.  Rows whose TRUE last prompt
@@ -1203,6 +1374,7 @@ class ServingEngine:
         self.queue.push_front(req)
 
     @torch.no_grad()
+    @_meshed
     def _admit_resume(self, req: Request) -> None:
         """Resume a preempted request into a free slot: bucketed prefill
         of the ORIGINAL prompt at batch 1, then a teacher-forced decode
@@ -1359,9 +1531,9 @@ class ServingEngine:
         lens = np.zeros((self.n_slots,), np.int32)
         for r in self.active.values():
             lens[r.slot] = self._fill(r)
-        self.cache = _rollback_tail(self.cache, lens)
+        self.cache = self._rollback(self.cache, lens)
         if self.spec is not None:
-            self.draft_cache = _rollback_tail(self.draft_cache, lens)
+            self.draft_cache = self._rollback(self.draft_cache, lens)
         for req in victims:
             req.transition(RequestState.QUEUED)
             self.queue.push_front(req)
@@ -1697,6 +1869,7 @@ class ServingEngine:
                         tel.now() - t0, step_idx)
         return emitted
 
+    @_meshed
     def _decode_batch(self, cache: List, draft_cache, iv):
         """The vanilla decode step's device work over ``cache`` (and, when
         given — speculation's spec_off rung — ``draft_cache``): the tokens
@@ -1705,21 +1878,24 @@ class ServingEngine:
         None, cache, draft_cache) — the engine's caches, or the contract
         gate's clones of the target's (the reference's gate lowers the
         target's decode alone)."""
-        toks = to_device(self.last_token, self.device)
+        toks = self._local(to_device(self.last_token, self.device))
         with nn.activation_quant(self.act_dtype):
-            logits, cache = api.decode_step(self.params, self.cfg, toks,
-                                            cache)
+            logits, out = api.decode_step(self.params, self.cfg, toks,
+                                          self._slot_view(cache))
+            cache = self._slot_unview(out, cache)
             if draft_cache is not None:
                 # spec_off rung: advance the draft cache with the SAME
                 # token so both caches stay uniformly filled and
                 # re-enabling speculation is seamless
-                _, draft_cache = api.decode_step(
-                    self.draft_params, self.cfg, toks, draft_cache)
+                _, out = api.decode_step(self.draft_params, self.cfg, toks,
+                                         self._slot_view(draft_cache))
+                draft_cache = self._slot_unview(out, draft_cache)
         if iv is not None:
-            logits = logits + iv.to(logits.dtype)[:, None]
-        nxt, nf_h = self._sample(logits)
+            logits = logits + self._local(iv).to(logits.dtype)[:, None]
+        nxt, nf_h = self._sample(logits, slot_rows=True)
         return nxt, nf_h, cache, draft_cache
 
+    @_meshed
     def _spec_step(self) -> Dict[int, List[int]]:
         """One speculation window: γ+1 draft decodes (the last one
         write-only, so both caches advance to fill+γ+1), ONE target span
@@ -1740,36 +1916,40 @@ class ServingEngine:
         # per-slot fill BEFORE the window: the window itself writes the
         # pending last token's K/V
         base_fill = {uid: self._fill(r) for uid, r in self.active.items()}
-        last = to_device(self.last_token, self.device)
+        # this data rank's slot rows (all of them without a mesh)
+        last = self._local(to_device(self.last_token, self.device))
         iv = self._inject_vec()
         self.call_shapes["draft_decode"].add((self.n_slots,))
         self.call_shapes["verify"].add((self.n_slots, gamma + 1))
         cur, d_cols = last, []
+        dview = self._slot_view(self.draft_cache)
         with nn.activation_quant(self.act_dtype):
             for _ in range(gamma):
                 self.sentinel.observe("draft_decode", (self.n_slots,))
-                dlogits, self.draft_cache = api.decode_step(
-                    self.draft_params, cfg, cur, self.draft_cache)
+                dlogits, dview = api.decode_step(
+                    self.draft_params, cfg, cur, dview)
                 cur = dlogits.argmax(dim=-1)
                 d_cols.append(cur)
             # write-only catch-up: feed d_γ so the draft cache holds it if
             # the whole window is accepted (its logits are not read)
             self.sentinel.observe("draft_decode", (self.n_slots,))
-            _, self.draft_cache = api.decode_step(self.draft_params, cfg, cur,
-                                                  self.draft_cache)
+            _, dview = api.decode_step(self.draft_params, cfg, cur, dview)
+            self.draft_cache = self._slot_unview(dview, self.draft_cache)
             drafts_t = torch.stack(d_cols, dim=1)           # (n_slots, γ)
             span = torch.cat([last[:, None], drafts_t], dim=1)
             self.sentinel.observe("verify", (self.n_slots, gamma + 1))
-            vlogits, self.cache = api.decode_span(self.params, cfg, span,
-                                                  self.cache)
+            vlogits, out = api.decode_span(self.params, cfg, span,
+                                           self._slot_view(self.cache))
+            self.cache = self._slot_unview(out, self.cache)
         self._step_draft_calls += gamma + 1
         self._step_verify_tokens += gamma + 1
         if iv is not None:
-            vlogits = vlogits + iv.to(vlogits.dtype)[:, None, None]
+            vlogits = vlogits + self._local(iv).to(vlogits.dtype)[:, None,
+                                                                  None]
         cols = [drafts_t, vlogits.argmax(dim=-1)]
         if self.guards:
             cols.append(nonfinite_rows(vlogits).to(drafts_t.dtype)[:, None])
-        host = to_host(torch.cat(cols, dim=1))
+        host = to_host(self._gather_rows(torch.cat(cols, dim=1)))
         drafts, greedy = host[:, :gamma], host[:, gamma:2 * gamma + 1]
         nf_h = host[:, -1] if self.guards else None
 
@@ -1804,8 +1984,8 @@ class ServingEngine:
             accepted_ks.append(k)
             lens[s] = 0 if req.done else base_fill[uid] + len(appended)
         self.engine_steps += 1
-        self.cache = _rollback_tail(self.cache, lens)
-        self.draft_cache = _rollback_tail(self.draft_cache, lens)
+        self.cache = self._rollback(self.cache, lens)
+        self.draft_cache = self._rollback(self.draft_cache, lens)
         if tel is not None:
             tel.on_step("spec", {u: len(v) for u, v in emitted.items()},
                         slot_of, tel.now() - t0, step_idx,
@@ -1879,6 +2059,8 @@ class ServingEngine:
             "bucket_misses": s.misses,
             "bucket_hit_rate": s.hit_rate,
             "act_dtype": self.act_dtype or "f32",
+            "mesh": (dctx.mesh_shape(self.mesh) if self.mesh is not None
+                     else None),
             "emitted_tokens": self.emitted_tokens,
             "engine_steps": self.engine_steps,
             "tokens_per_step": (self.emitted_tokens / self.engine_steps

@@ -664,7 +664,6 @@ def _serve(eng):
     eng.run_to_completion()
     fin = eng.take_finished()
     st = eng.stats()
-    st.pop("mesh", None)
     return [fin[u].tokens for u in uids], st
 
 

@@ -1,0 +1,286 @@
+"""Multi-rank serving (``ServingEngine(mesh=...)``) on a 2x2 (data x
+model) gloo mesh of 4 spawned CPU ranks, held to the single-device
+engines of both packages.
+
+The model is the AP+OR smoke llama the port's serving tests use,
+quantized by the reference and converted, with ``plan_bn=32`` so its
+128/256-row matrices split into whole tiles over model=2.  Every rank
+runs the same requests (SPMD); the tokens must equal the port's
+single-device engine's and the reference's single-device engine's
+exactly: vanilla, int8 activations, paged fp pages, speculation (an fp
+draft, so windows are rejected and rolled back) against vanilla, and
+preemption/resume with the cache blocks unmoved — with the control plane
+on (guards, a bounded queue, a priority preemption).  Each rank holds
+1/tp of every sharded unit's plane bytes; the contract gate runs HLO-AG1
+and HLO-CB1 clean on the profiled step and refuses an injected weight
+all-gather.  The launcher runs its ``main`` on the same 4 ranks.  One
+spawn for the file; JAX only in this process.
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
+from repro_torch.convert import from_numpy_tree  # noqa: E402
+from repro_torch.kernels.plan import PreparedQuantizedTensor  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.serve import ServingEngine, SpecConfig  # noqa: E402
+
+WAVE1 = [[1, 2, 3], [4, 5, 6, 7, 8, 9],
+         [10, 11, 12, 13, 14, 15, 16, 17, 18], [20, 21]]
+WAVE2 = [[7, 7, 7, 7, 7], [9, 8, 7]]
+ENGINE = dict(n_slots=4, max_len=64, min_bucket=8, plan_bn=32)
+VARIANTS = {"vanilla": {}, "int8": dict(act_dtype="int8"),
+            "paged": dict(kv_layout="paged", page_size=8)}
+
+
+def _cfg():
+    return dataclasses.replace(t_smoke("llama1_7b"), vocab=128, n_layers=2)
+
+
+def _serve(eng, prompts, max_new=6):
+    uids = eng.add_requests(prompts, max_new_tokens=max_new)
+    eng.run_to_completion()
+    fin = eng.take_finished()
+    return [fin[u].tokens for u in uids]
+
+
+def _waves(eng):
+    return _serve(eng, WAVE1) + _serve(eng, WAVE2)
+
+
+def _control_plane(eng):
+    """Queued admission past the slots, a priority arrival that preempts,
+    then a pressure window that preempts everyone: tokens, states and
+    lifecycle counters."""
+    uids = [eng.submit(p, max_new_tokens=8) for p in WAVE1 + WAVE2[:1]]
+    eng.step()
+    eng.step()
+    uids.append(eng.submit(WAVE2[1], max_new_tokens=5, priority=3))
+    eng.step()
+    eng.set_cache_pressure(6)
+    eng.step()
+    eng.set_cache_pressure(None)
+    eng.run_to_completion()
+    fin = eng.take_finished()
+    st = eng.stats()
+    return ([fin[u].tokens for u in uids],
+            [(fin[u].state.value, fin[u].preemptions) for u in uids],
+            (st["preemptions"], st["resumes"], st["queue_peak_depth"]))
+
+
+def _engine(tree, mesh=None, **kw):
+    return ServingEngine(from_numpy_tree(tree, _cfg(), device="cpu"), _cfg(),
+                         device="cpu", mesh=mesh, **{**ENGINE, **kw})
+
+
+def _plane_bytes(model):
+    """{module path: bytes of its plan's planes} of every quantized
+    Dense."""
+    out = {}
+    for name, m in model.named_modules():
+        k = getattr(m, "kernel", None)
+        if isinstance(k, PreparedQuantizedTensor):
+            out[name] = (sum(p.numel() * 4 for g in k.groups
+                             for p in g.planes), k.shard)
+    return out
+
+
+def _inject_weight_gather(eng):
+    """Patch the SwiGLU of the decode step to all-gather the largest
+    sharded plane whole: the regression HLO-AG1 exists to catch."""
+    from repro_torch.dist import collectives
+    from repro_torch.models import layers
+    plane = max((p for m in eng.params.modules()
+                 if isinstance(getattr(m, "kernel", None),
+                               PreparedQuantizedTensor)
+                 and m.kernel.shard is not None
+                 for g in m.kernel.groups for p in g.planes),
+                key=lambda p: p.numel())
+    orig = layers.swiglu_mlp
+
+    def leaky(p, x):
+        collectives.all_gather(plane, dim=0)
+        return orig(p, x)
+    return leaky, orig
+
+
+def _rank_main(rank, world, dev, q_tree, fp_tree):
+    from repro_torch.analysis.artifacts import verify_engine
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    mesh = mesh_lib.make_debug_mesh((2, 2), device_type="cpu")
+    out = {}
+    for tag, kw in VARIANTS.items():
+        eng = _engine(q_tree, mesh, **kw)
+        out[tag] = _waves(eng)
+        if tag == "vanilla":
+            out["planes"] = _plane_bytes(eng.params)
+            out["stats_mesh"] = eng.stats()["mesh"]
+            out["cache_shape"] = tuple(eng.cache[0].k.shape)
+    eng = _engine(q_tree, mesh, spec=SpecConfig(gamma=2, draft_bits=2),
+                  draft_params=from_numpy_tree(fp_tree, _cfg(), device="cpu"))
+    out["spec"] = _waves(eng)
+    st = eng.stats()
+    out["spec_stats"] = (st["verify_traces"], st["draft_decode_traces"],
+                         st["spec_drafted"], st["spec_accepted"])
+    # control plane, and the cache blocks stay where they were placed
+    eng = _engine(q_tree, mesh, guards=True, queue_depth=8)
+    ptrs = [(c.k.data_ptr(), c.v.data_ptr()) for c in eng.cache]
+    out["control"] = _control_plane(eng)
+    out["pinned"] = ptrs == [(c.k.data_ptr(), c.v.data_ptr())
+                             for c in eng.cache]
+    # the contract gate, clean, then refusing an injected weight gather
+    eng = _engine(q_tree, mesh, verify_contracts=True)
+    rep = eng.contract_report
+    out["gate"] = (rep.rules_run, [f.rule_id for f in rep.findings
+                                   if f.severity.name == "ERROR"])
+    leaky, orig = _inject_weight_gather(eng)
+    layers.swiglu_mlp = leaky
+    try:
+        bad = verify_engine(eng, raise_on_error=False)
+    finally:
+        layers.swiglu_mlp = orig
+    out["injected"] = sorted({f.rule_id for f in bad.findings})
+    st = serve.main(["--arch", "llama1_7b", "--smoke", "--mesh-shape", "2x2",
+                     "--backend", "gloo", "--device", "cpu", "--requests",
+                     "3", "--max-new", "3", "--max-len", "32"])
+    out["launcher"] = (st["mesh"], st["lifecycle"]["finished"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def served():
+    """The reference's AP+OR quantization, single-device tokens of both
+    packages, and the 4 ranks' results."""
+    import jax
+    from repro.models import api as japi
+    from repro.serve import ServingEngine as JaxEngine
+    from test_torch_models import jax_tree_to_numpy, quantize_reference
+    from test_torch_models import smoke_cfgs
+    import test_torch_dist_serving as me
+    jcfg, tcfg = smoke_cfgs()
+    params = japi.init_params(jax.random.PRNGKey(0), jcfg)
+    qparams = quantize_reference(params, jcfg)
+    q_tree, fp_tree = jax_tree_to_numpy(qparams), jax_tree_to_numpy(params)
+    ref = _waves(JaxEngine(qparams, jcfg, **ENGINE))
+    single = {tag: _waves(_engine(q_tree, **kw))
+              for tag, kw in VARIANTS.items()}
+    eng = _engine(q_tree)
+    single["planes"] = _plane_bytes(eng.params)
+    single["control"] = _control_plane(_engine(q_tree, guards=True,
+                                               queue_depth=8))
+    ranks = mesh_lib.run_local(me._rank_main, 4, q_tree, fp_tree)
+    return ref, single, ranks
+
+
+@pytest.mark.parametrize("tag", list(VARIANTS) + ["spec"])
+def test_sharded_tokens_equal_single_device_and_reference(served, tag):
+    """Every rank emits the single-device tokens, bit for bit: the port's
+    engine with the same knob (speculation: vanilla's, as the reference's
+    sharded speculative test holds it) and the reference's engine."""
+    ref, single, ranks = served
+    want = single["vanilla" if tag == "spec" else tag]
+    assert single["vanilla"] == ref
+    for r in ranks:
+        assert r[tag] == want, (tag, r[tag], want)
+    assert all(len(t) == 6 for t in want)
+
+
+def test_speculation_rolls_back_on_the_mesh(served):
+    _, _, ranks = served
+    verify, draft, drafted, accepted = ranks[0]["spec_stats"]
+    assert verify == 1 and draft == 1
+    assert 0 < accepted < drafted        # windows were rejected and rolled
+    assert all(r["spec_stats"] == ranks[0]["spec_stats"] for r in ranks)
+
+
+def test_control_plane_decides_alike_on_every_rank(served):
+    """Queue, priority preemption and a pressure window: every rank's
+    tokens, states and counters are the single device's; the slot cache
+    blocks were never re-allocated."""
+    _, single, ranks = served
+    assert single["control"][2][0] > 0 and single["control"][2][1] > 0
+    for r in ranks:
+        assert r["control"] == single["control"]
+        assert r["pinned"]
+
+
+def test_each_rank_holds_its_share_of_the_planes(served):
+    """Every unit splits over model=2 (plan_bn=32), each rank holds half of
+    its plane bytes, and the slot cache holds the rank's 2 of 4 slots and
+    its KV head block."""
+    _, single, ranks = served
+    cfg = _cfg()
+    for rank, r in enumerate(ranks):
+        assert r["stats_mesh"] == {"data": 2, "model": 2}
+        assert r["cache_shape"] == (2, 64, cfg.n_kv_heads // 2,
+                                    cfg.head_dim)
+        assert r["planes"].keys() == single["planes"].keys()
+        for name, (b, shard) in r["planes"].items():
+            whole, none = single["planes"][name]
+            assert none is None and shard is not None
+            assert (shard.parts, shard.index) == (2, rank % 2)
+            assert 2 * b == whole, name
+
+
+def test_gate_runs_collective_rules_and_refuses_a_weight_gather(served):
+    _, _, ranks = served
+    for r in ranks:
+        rules, errors = r["gate"]
+        assert "HLO-AG1" in rules and "HLO-CB1" in rules
+        assert errors == []
+        assert "HLO-AG1" in r["injected"]
+
+
+def test_serve_launcher_on_four_ranks(served):
+    _, _, ranks = served
+    assert [r["launcher"] for r in ranks] == \
+        [({"data": 2, "model": 2}, 3)] * 4
+
+
+# ---------------------------------------------------------------------------
+# One rank, in process
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank_world(tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield mesh_lib.make_debug_mesh((1, 1), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["llama1_7b", "rwkv6_7b",
+                                  "qwen3_moe_30b_a3b"])
+def test_one_rank_mesh_serves_every_family_as_no_mesh(one_rank_world, arch):
+    """A (1, 1) mesh is the no-mesh engine: same tokens, and stats report
+    the mesh."""
+    cfg = dataclasses.replace(t_smoke(arch), n_layers=1, vocab=64)
+    gen = torch.Generator().manual_seed(0)
+    model = tapi.init_params(gen, cfg, "cpu")
+    toks = []
+    for mesh in (None, one_rank_world):
+        eng = ServingEngine(model, cfg, n_slots=2, max_len=32, min_bucket=8,
+                            device="cpu", mesh=mesh)
+        toks.append(_serve(eng, [[1, 2, 3], [5, 6, 7, 8, 9]], max_new=4))
+        st = eng.stats()
+    assert toks[0] == toks[1]
+    assert st["mesh"] == {"data": 1, "model": 1}
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v2_236b",
+                                  "rwkv6_7b", "zamba2_1p2b"])
+def test_multi_rank_mesh_refuses_unported_families(arch):
+    cfg = t_smoke(arch)
+    with pytest.raises(TypeError, match="ROADMAP"):
+        ServingEngine(None, cfg, device="cpu",
+                      mesh=SimpleNamespace(shape={"data": 1, "model": 2}))

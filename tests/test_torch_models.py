@@ -31,6 +31,13 @@ from test_torch_packing import qt_to_numpy  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
+# One intra-op thread for the port's torch work in the test process: the
+# suite runs in several pytest-xdist workers (each collects, so imports,
+# every test module), and each torch process defaulting to a thread per
+# core oversubscribed the host's cores, where torch's spinning threads
+# made CPU training and serving tests tens of times slower.
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 

@@ -195,7 +195,6 @@ def serve_with_preemption(eng):
     eng.run_to_completion()
     fin = eng.take_finished()
     st = eng.stats()
-    st.pop("mesh", None)
     return ([fin[u].tokens for u in uids],
             [(fin[u].state.value, fin[u].preemptions) for u in uids], st)
 

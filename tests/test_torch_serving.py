@@ -5,6 +5,7 @@ greedy tokens equal wherever the top-2 logit gap exceeds the logit
 tolerance, bucketed == unbucketed, the prefill-shape bound, EOS at
 prefill, one-token budgets, slot reuse and cache-full truncation."""
 import math
+from types import SimpleNamespace
 
 import pytest
 
@@ -16,6 +17,7 @@ import numpy as np  # noqa: E402
 
 from repro.models import api as japi  # noqa: E402
 from repro.serve import ServingEngine as JaxEngine  # noqa: E402
+from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.convert import from_numpy_tree  # noqa: E402
 from repro_torch.models import api as tapi  # noqa: E402
 from repro_torch.serve import ServingEngine  # noqa: E402
@@ -174,16 +176,20 @@ def test_run_to_completion_surfaces_unfinished_work(quantized):
 
 
 def test_engine_knobs_not_ported_are_rejected(quantized):
-    """Only the device mesh is still refused; the control plane's knobs
-    and the contract gate are accepted."""
+    """A mesh is accepted (``mesh=None`` here; multi-rank meshes in
+    ``test_torch_dist_serving.py``), and a multi-rank mesh on a family not
+    ported to it (moe) raises; the control plane's knobs and the contract
+    gate are accepted."""
     _, tcfg, _, tm = quantized
-    with pytest.raises(TypeError):
-        ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
-                      mesh=None)
+    moe = t_smoke("qwen3_moe_30b_a3b")
+    with pytest.raises(TypeError, match="ROADMAP"):
+        ServingEngine(tm, moe, n_slots=2, max_len=16, device="cpu",
+                      mesh=SimpleNamespace(shape={"data": 1, "model": 2}))
     eng = ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
                         guards=True, on_pressure="truncate",
                         chunked_prefill=8, telemetry=None, queue_depth=4,
-                        verify_contracts=True)
+                        verify_contracts=True, mesh=None)
+    assert eng.stats()["mesh"] is None
     assert eng.contract_report.clean
     assert eng.guards and eng.on_pressure == "truncate"
     assert eng.chunked.chunk_tokens == 8 and eng.queue.depth == 4
