@@ -176,6 +176,26 @@ Phases (any failure raises and ends the run with a non-zero exit):
      ranks quantize a 512 x 512 matrix row-sharded, held to the
      single-rank result (Q to rtol 1e-4 / atol 1e-5, the proxy loss to
      1e-3).
+  15. training on a mesh and the dry run (run after phase 14): (a) two
+     spawned ranks sharing the card over gloo train llama1_7b at full
+     width, ``QUANT_DEPTH`` = 1 layer (bf16 params, f32 moments, phase
+     10's schedule), B 4 x S 512, ``MESH_TRAIN_STEPS`` = 5 steps on
+     ``SyntheticCorpus`` on meshes (1, 2) and (2, 1), against a single-rank
+     run of the same seed: the step-0 loss (forward only) within 1e-3,
+     every later loss within one bf16 step at its value, the whole params
+     after the last step (blocks all-gathered) departing from the single
+     rank's (the L2 norm of the gap over that of the single rank's own
+     distance from the init) at most twice as far as the single rank's
+     two-microbatch twin does (bf16 rounding in another summation order);
+     ms a step, peak memory a rank, a step's
+     all-gathers and all-reduces (count, bytes) from its op trace, and
+     K1's launches (0: fp training); (b) the dry run
+     (``launch.dryrun.trace_cell`` on a stand-in mesh, meta tensors) of
+     14b's decode (4 layers, 4 slots, ``max_len`` 256, CLAQ stand-in
+     plans) and of 15a's train steps: its collectives must equal the
+     measured ones exactly; then ``run_cell``'s roofline for llama1_7b
+     decode_32k and train_4k on the single production mesh (a model of
+     256 cards on the data sheet's figures, not a measurement).
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -239,6 +259,8 @@ ENCDEC_PROMPT = 8                  # its decoder prompt tokens
 MESH_DEPTH = 4                     # layers of phase 14b's llama1_7b
 MESH_SHAPES = ((1, 2), (2, 1))     # 14b's (data, model) meshes, 2 ranks
 ROWSHARD_N = 512                   # 14d's matrix (rows = cols)
+MESH_TRAIN_STEPS = 5               # 15a's steps on each mesh
+MESH_TRAIN_TRACE = 2               # the step whose op trace 15a records
 MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
                  v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
@@ -3116,6 +3138,249 @@ def phase_distribution(api, dm, ops, plan, ServingEngine, prompts, gen,
     return res
 
 
+def bf16_ulp(x: float) -> float:
+    """One bf16 step at ``x`` (8 significant bits)."""
+    return float(2.0 ** (np.floor(np.log2(abs(x))) - 7))
+
+
+def mesh_train_setup():
+    """15a's model config, optimizer config and batches: llama1_7b at full
+    width cut to ``QUANT_DEPTH`` layers (bf16 params, f32 moments),
+    phase 10's schedule, ``MESH_TRAIN_STEPS`` batches of B ``TRAIN_B`` x S
+    ``TRAIN_S`` from ``SyntheticCorpus``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.optim import OptimConfig
+    cfg = dataclasses.replace(get_config("llama1_7b"), n_layers=QUANT_DEPTH)
+    ocfg = OptimConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                      batch=TRAIN_B, seed=SEED))
+    return cfg, ocfg, [data.batch_at(s) for s in range(MESH_TRAIN_STEPS)]
+
+
+def collective_counts(colls):
+    """{kind: {"count", "bytes"}} of an op trace's collectives."""
+    out = {}
+    for kind, b in colls:
+        n, tot = out.get(kind, (0, 0))
+        out[kind] = (n + 1, tot + b)
+    return {k: {"count": n, "bytes": b} for k, (n, b) in sorted(out.items())}
+
+
+def mesh_train(device, mesh, dm, n_microbatches=1):
+    """15a on one rank (``mesh`` None: the single-rank baseline):
+    ``MESH_TRAIN_STEPS`` steps from the seed under deterministic
+    algorithms, step ``MESH_TRAIN_TRACE`` under the op recorder.  Returns
+    (record, the whole params after the last step: a mesh's blocks
+    all-gathered).  K1's counts are set to 0 before and read after: fp
+    training launches none."""
+    from repro_torch import convert
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.train import gathered_state
+    from repro_torch.models import api
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import make_train_step
+    cfg, ocfg, batches = mesh_train_setup()
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = api.init_params(torch.Generator(device=device).manual_seed(
+            SEED + 5), cfg, device)
+        if mesh is not None:
+            shd.place_model(model, cfg, mesh)
+        opt = init_opt_state(convert.param_tree(model, cfg), ocfg)
+        step = make_train_step(cfg, ocfg, n_microbatches)
+        reset_counts(dm)
+        losses, norms, step_ms, colls = [], [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with dctx.use_mesh(mesh):
+            for s, tokens in enumerate(batches):
+                def one(tokens=tokens):
+                    return step(model, opt, {"tokens": tokens})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if s == MESH_TRAIN_TRACE:
+                    (model, opt, met), trace = OT.capture(one, device)
+                    colls = OT.collective_instructions(trace)
+                else:
+                    model, opt, met = one()
+                losses.append(float(met["loss"]))
+                norms.append(float(met["grad_norm"]))
+                torch.cuda.synchronize()
+                if s not in (0, MESH_TRAIN_TRACE):
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            params = (convert.param_tree(model, cfg) if mesh is None
+                      else gathered_state(model, cfg, opt, mesh)["params"])
+        counts = read_counts(dm)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    rec = dict(losses=losses, grad_norms=norms,
+               ms_per_step=float(np.mean(step_ms)),
+               ms_per_step_min=float(np.min(step_ms)),
+               max_memory_allocated_gb=peak / 1e9,
+               collectives_per_step=collective_counts(colls),
+               k1_launches=counts["launches"])
+    return rec, params
+
+
+def param_gaps(params, want, span):
+    """The whole params of a run against the single rank's (host
+    tensors): the largest gap, the share of elements more than one bf16
+    step of their value apart, and the L2 norm of the difference over
+    ``span`` (the L2 norm of the single rank's own distance from the
+    init): the relative departure of the run from the single rank's."""
+    from repro_torch import tree as tree_lib
+    worst, beyond, total, sq = 0.0, 0, 0, 0.0
+    for a, b in zip(tree_lib.tensors(params), want):
+        a = a.float()
+        b = b.to(a.device).float()
+        d = (a - b).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=1e-30)))
+                         - 7)
+        worst = max(worst, float(d.max()))
+        beyond += int((d > ulp).sum())
+        total += d.numel()
+        sq += float((d * d).sum())
+    return dict(param_max_gap=worst, param_share_beyond_bf16_step=beyond
+                / total, param_departure=float(np.sqrt(sq)) / span)
+
+
+def init_span(params, cfg):
+    """The L2 norm of ``params`` minus the seeded init's (15a's model)."""
+    from repro_torch import convert
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import api
+    init = api.init_params(torch.Generator(device="cuda").manual_seed(
+        SEED + 5), cfg, "cuda")
+    return float(np.sqrt(sum(
+        float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(
+            tree_lib.tensors(params),
+            tree_lib.tensors(convert.param_tree(init, cfg))))))
+
+
+def mesh_train_rank(rank, world, device, want_path, span):
+    """15a on one of the two spawned ranks: per mesh of ``MESH_SHAPES`` the
+    train record and its params' gaps to the single rank's."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.launch import mesh as mesh_lib
+    want = torch.load(want_path)
+    out = {}
+    for shape in MESH_SHAPES:
+        mesh = mesh_lib.make_debug_mesh(shape, device_type="cuda")
+        rec, params = mesh_train(device, mesh, dm)
+        rec.update(param_gaps(params, want, span))
+        out[f"train_{shape[0]}x{shape[1]}"] = rec
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_train(dm, dist_runs):
+    """15. Training on a (data, model) mesh and the dry run against it."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist.standin import StandInMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    # 15a: the single-rank baseline and its two-microbatch twin (the same
+    # steps, the gradients summed in another order: the yardstick of the
+    # params' tolerance), then two ranks sharing the card
+    cfg, _, _ = mesh_train_setup()
+    single, params = mesh_train("cuda", None, dm)
+    span = init_span(params, cfg)
+    want = [t.detach().cpu() for t in tree_lib.tensors(params)]
+    del params
+    micro, params = mesh_train("cuda", None, dm, n_microbatches=2)
+    single["microbatch_twin"] = dict(losses=micro["losses"],
+                                     **param_gaps(params, want, span))
+    del params
+    want_path = REPO / "build" / "phase15_params.pt"
+    want_path.parent.mkdir(exist_ok=True)
+    torch.save(want, want_path)
+    del want
+    torch.cuda.empty_cache()
+    try:
+        ranks = mesh_lib.run_local(mesh_train_rank, 2, str(want_path), span,
+                                   backend="gloo", device="cuda",
+                                   workdir=str(REPO / "build"))
+    finally:
+        want_path.unlink(missing_ok=True)
+    res = {"single_rank": single}
+    log("train single rank " + json.dumps(single))
+    twin = single["microbatch_twin"]["param_departure"]
+    loss_tols = [1e-3] + [bf16_ulp(x) for x in single["losses"][1:]]
+    worst_loss = 0.0
+    for r, out in enumerate(ranks):
+        for tag, rec in out.items():
+            gaps = [abs(a - b) for a, b in zip(rec["losses"],
+                                               single["losses"])]
+            assert all(np.isfinite(rec["losses"])), (tag, rec["losses"])
+            assert all(g <= t for g, t in zip(gaps, loss_tols)), \
+                (tag, r, gaps, loss_tols)
+            # bf16 params and activations: every op rounds, so a run whose
+            # sums go in another order departs from the single rank's by
+            # rounding alone; the mesh may depart at most twice as far as
+            # the single rank's own two-microbatch twin (a missing or
+            # doubled gradient sum departs by the whole update, ~1)
+            assert rec["param_departure"] <= 2 * twin, (tag, r, rec, twin)
+            assert rec["k1_launches"] == 0
+            worst_loss = max(worst_loss, max(gaps))
+            rec.update(loss_gaps=gaps, loss_tolerances=loss_tols)
+            res[f"{tag}_rank{r}"] = rec
+            log(f"{tag} rank {r} " + json.dumps(rec))
+    res["largest_loss_gap"] = worst_loss
+    log(f"mesh train: largest loss gap {worst_loss:.3g} (step 0 held to "
+        f"1e-3, later steps to one bf16 step at the loss: {loss_tols[1:]})")
+    # 15b: the dry run against the card
+    predicted = {}
+    for shape in MESH_SHAPES:
+        tag = f"train_{shape[0]}x{shape[1]}"
+        traced = dryrun.trace_cell(
+            cfg, ShapeCell(tag, TRAIN_S, TRAIN_B, "train"),
+            StandInMesh({"data": shape[0], "model": shape[1]}))
+        predicted[tag] = collective_counts(
+            OT.collective_instructions(traced["trace"]))
+        for r in range(len(ranks)):
+            got = res[f"{tag}_rank{r}"]["collectives_per_step"]
+            assert got == predicted[tag], (tag, r, got, predicted[tag])
+    traced = dryrun.trace_cell(
+        mesh_cfg(), ShapeCell("mesh_decode", 256, 4, "decode"),
+        StandInMesh({"data": 1, "model": 2}), quant="2.12")
+    colls = OT.collective_instructions(traced["trace"])
+    ag = [b for k, b in colls if k == "all-gather"]
+    predicted["decode_1x2"] = dict(all_gathers_per_step=len(ag),
+                                   all_gather_bytes_per_step=sum(ag))
+    for r in range(2):
+        rec = dist_runs[f"mesh_1x2_rank{r}"]
+        got = {k: rec[k] for k in predicted["decode_1x2"]}
+        assert got == predicted["decode_1x2"], (r, got, predicted)
+    res["dry_run_predicted"] = predicted
+    log("dry run predicted = measured " + json.dumps(predicted))
+    t_roof = time.perf_counter()
+    roof = {}
+    for shape in ("decode_32k", "train_4k"):
+        cell = dryrun.run_cell("llama1_7b", shape, False)
+        assert cell["status"] == "ok", cell
+        roof[shape] = dict(roofline=cell["roofline"],
+                           collectives=cell["per_device"]["collectives"],
+                           trace_s=cell["compile_s"])
+    res["roofline_single_production_mesh"] = roof
+    log("dry-run roofline, llama1_7b on the single production mesh (16x16 "
+        "= 256 cards; a model on the H100 data sheet's figures, not a "
+        f"measurement; {time.perf_counter() - t_roof:.1f} s) "
+        + json.dumps(roof))
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 15 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not __debug__:
         print("chip_smoke: run without -O; its checks are asserts",
@@ -3259,6 +3524,11 @@ def main() -> int:
     dist_runs = phase_distribution(api, dm, ops, plan, ServingEngine,
                                    prompts, gen, host_gen)
     log(f"phase 14 took {t14 + dist_runs['phase_s']:.1f} s")
+
+    # 15. training on (1, 2) and (2, 1) meshes of two ranks sharing the
+    # card, held to one rank; the dry run's collectives against 14b's and
+    # 15a's measured ones; the production mesh's roofline
+    mesh_train_runs = phase_mesh_train(dm, dist_runs)
 
     # 7. K1e vs plain version at every M phase 6 gave it
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
@@ -3480,6 +3750,13 @@ def main() -> int:
         **{tag: {k: v for k, v in run["counts"].items() if k != "int8"}
            for tag, run in dist_runs.items() if tag.startswith("mesh_")})
     kernels[0]["shard_local"] = dist_runs["shard_local"]
+    # phase 15's paths train in fp: no K1 or K1e launch, counted
+    fp_training = dict(
+        note="phase 15 trains in fp: no quantized matmul, no launch",
+        **{tag: run["k1_launches"] for tag, run in mesh_train_runs.items()
+           if isinstance(run, dict) and "k1_launches" in run})
+    kernels[0]["launches_fp_training"] = fp_training
+    kernels[1]["launches_fp_training"] = fp_training
     checked_new = {f"{r}x{c}": sorted(v) for (r, c), v in
                    sorted(shapes_new.items())}
     checked_fam = {f"{r}x{c}": sorted(v) for (r, c), v in

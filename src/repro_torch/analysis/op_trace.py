@@ -39,9 +39,15 @@ transfers are its helper scopes and any ``_local_scalar_dense`` (an
 ``nonzero``; on the card the device's ``Memcpy DtoH``/``HtoD`` and the
 runtime's ``*Synchronize`` calls are counted against the helpers.
 
-``repro.dist.hlo_analysis.analyze_hlo``'s cost accounting (flops, HBM
-bytes, collective bytes of a whole step) has no counterpart yet: it comes
-with the dry-run slice.
+The recorder.  ``record`` runs a function under a
+``TorchDispatchMode`` and returns an ``OpTrace`` of every aten op it
+dispatched, with result shapes (``out_shapes``) and whether the op
+returns a view of its input (``alias``): on meta tensors too, where the
+profiler sees no device.  Code that stands in for work the dispatcher
+does not see declares it with ``note`` (a no-op unless a recorder is
+active): the dry run's stand-in collectives (``dist.standin``) and K1 on
+meta tensors, one record each with its FLOPs.  ``dist.op_analysis``
+reads such a trace for the reference's ``analyze_hlo`` keys.
 """
 from __future__ import annotations
 
@@ -49,9 +55,12 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import types
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 PREFIX = "repro_torch::"
 STEP = PREFIX + "step"
@@ -119,6 +128,10 @@ class OpRecord:
     nbytes: int = 0
     path: Tuple[str, ...] = ()
     site: int = -1
+    out_shapes: Tuple[Tuple[int, ...], ...] = ()   # ``record`` only
+    out_dtypes: Tuple[str, ...] = ()
+    alias: bool = False    # a view of an input: no bytes move
+    flops: float = 0.0     # declared by ``note`` (a folded kernel)
 
 
 @dataclasses.dataclass
@@ -213,6 +226,93 @@ def capture(fn: Callable[[], Any], device="cpu"):
     return out, from_events(prof.profiler.kineto_results.events())
 
 
+# torch dtypes -> the profiler's names (the keys of ``_DTYPES``)
+_TORCH_DTYPES = {torch.float32: "float", torch.float64: "double",
+                 torch.float16: "c10::Half", torch.bfloat16: "c10::BFloat16",
+                 torch.int8: "signed char", torch.uint8: "unsigned char",
+                 torch.int16: "short int", torch.int32: "int",
+                 torch.int64: "long int", torch.bool: "bool"}
+
+# the active recorder: a module global, not a thread-local, since the
+# autograd engine may run a backward (and its collectives) on a thread of
+# its own; the recorder is the dry run's, which records one step at a time
+_REC = types.SimpleNamespace(rec=None)
+
+
+def _shapes(tensors):
+    return (tuple(tuple(t.shape) for t in tensors),
+            tuple(_TORCH_DTYPES.get(t.dtype, str(t.dtype)) for t in tensors))
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    return [t for t in _pytree.tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
+def make_record(name: str, inputs, outputs, flops: float = 0.0,
+                alias: bool = False) -> OpRecord:
+    """An ``OpRecord`` of ``name`` over the tensors of ``inputs`` and
+    ``outputs`` (any nesting; ``None`` and non-tensors skipped)."""
+    ins, outs = _tensors(inputs), _tensors(outputs)
+    shapes, dtypes = _shapes(ins)
+    out_shapes, out_dtypes = _shapes(outs)
+    return OpRecord(name, "op", shapes, dtypes,
+                    sum(_bytes(s, d) for s, d in zip(shapes, dtypes)),
+                    out_shapes=out_shapes, out_dtypes=out_dtypes,
+                    alias=alias, flops=float(flops))
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.records: List[OpRecord] = []
+        self.quiet = 0
+
+    def __torch_dispatch__(self, func, arg_types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.quiet:
+            self.records.append(make_record(
+                func._schema.name, (args, kwargs), out,
+                alias=bool(getattr(func, "is_view", False))))
+        return out
+
+
+def record(fn: Callable[[], Any]):
+    """Run ``fn`` once under the op recorder and return (its result, the
+    ``OpTrace`` of every aten op it dispatched and every ``note``)."""
+    rec = _Recorder()
+    prev, _REC.rec = _REC.rec, rec
+    try:
+        with rec:
+            out = fn()
+    finally:
+        _REC.rec = prev
+    return out, OpTrace(rec.records)
+
+
+def note(name: str, inputs, outputs, flops: float = 0.0) -> None:
+    """Record one op the dispatcher does not see (a stand-in collective, a
+    folded kernel on meta tensors) when a recorder is active."""
+    rec = _REC.rec
+    if rec is not None:
+        rec.records.append(make_record(name, inputs, outputs, flops))
+
+
+@contextlib.contextmanager
+def quiet():
+    """Record none of the ops dispatched inside (the implementation of a
+    ``note``d op)."""
+    rec = _REC.rec
+    if rec is None:
+        yield
+        return
+    rec.quiet += 1
+    try:
+        yield
+    finally:
+        rec.quiet -= 1
+
+
 def _ops(trace: OpTrace) -> List[OpRecord]:
     return [r for r in trace.records if r.kind == "op"]
 
@@ -223,8 +323,11 @@ def collective_instructions(trace: OpTrace) -> List[Tuple[str, int]]:
     (the outermost record; its ``nccl:``/``gloo:`` children are not
     counted again).  ``bytes`` is the largest tensor operand (the output
     of ``all_gather_into_tensor``) of the record or of the records nested
-    in it: a collective over a tensor list (``c10d::allreduce_``) records
-    no shapes itself, its backend's child does (``gloo:all_reduce``)."""
+    in it.  A collective over a tensor list (``c10d::allreduce_``) records
+    no shapes itself: its backend's record does (``gloo:all_reduce``),
+    which gloo stamps on a thread of its own, so it need not nest; the
+    first such record of the same kind before the next collective gives
+    the bytes then."""
     ops = _ops(trace)
     out = []
     for i, r in enumerate(ops):
@@ -243,6 +346,17 @@ def collective_instructions(trace: OpTrace) -> List[Tuple[str, int]]:
                 inner.append(c)
             big = max((_bytes(s, d) for x in inner
                        for s, d in zip(x.shapes, x.dtypes)), default=0)
+            if big == 0:
+                for c in ops[i + 1:]:
+                    low_c = c.name.lower()
+                    if low_c.startswith("c10d::"):
+                        break
+                    if low_c.startswith(("gloo:", "nccl:")) and kind == next(
+                            (k for key, k in _COLLECTIVES if key in low_c),
+                            None):
+                        big = max((_bytes(s, d) for s, d in
+                                   zip(c.shapes, c.dtypes)), default=0)
+                        break
             out.append((kind, big))
     return out
 

@@ -123,6 +123,15 @@ def magnitude_mp_metric(W: torch.Tensor,
     return col_mag * act_norm.float()
 
 
+def codebook_overhead_bits(rows: int, bits_per_col: torch.Tensor,
+                           k_max: int) -> float:
+    """Average per-element overhead of storing per-column codebooks:
+    2**bits fp16 entries per column spread over ``rows`` elements
+    (``k_max`` is unused, as in the reference)."""
+    entries = torch.sum(2.0 ** bits_per_col.float())
+    return float(entries * 16.0 / (rows * bits_per_col.shape[0]))
+
+
 def effective_bits(rows: int, bits_per_col: torch.Tensor,
                    reserve_counts: Optional[torch.Tensor] = None) -> float:
     """Average stored bits per element: codes + reserved outliers (the

@@ -18,6 +18,26 @@ catching a failure:
     ``uint8`` view): one non-zero term per byte, so the sum is exact.
     The call is scoped ``c10d::all_gather_via_all_reduce`` so the
     contract rules read it as the all-gather it is.
+
+Training differentiates through the same collectives (``autograd.Function``
+forms, taken only when a gradient is needed, so serving runs the
+forward-only code and its op trace is unchanged):
+
+  * ``all_gather``'s backward is this rank's slice of the gradient: the
+    gathered activation is replicated downstream, so every model rank
+    holds the same upstream gradient and nothing is reduced;
+  * ``replicated`` is the identity on the replicated input of a sharded
+    op, and its backward sums the gradient over the axis: each rank's
+    input gradient is a partial (its own output columns' ``dY_r W_r^T``,
+    or its own slice of an elementwise op), and without the sum every
+    replicated weight upstream would get a different gradient on each
+    model rank;
+  * ``sum_one_nonzero``'s backward is the identity.
+
+A ``dist.standin.StandInMesh`` (the dry run's stand-in of a production
+mesh) routes every collective to ``standin``: meta tensors of the right
+shape, each collective recorded with its kind and bytes.  Real tensors
+never meet a stand-in mesh, nor meta tensors a real one: both raise.
 """
 from __future__ import annotations
 
@@ -29,6 +49,7 @@ import torch.distributed as dist
 from repro_torch.analysis import op_trace
 
 from . import context as dctx
+from . import standin
 
 _VIA_ALL_REDUCE = "c10d::all_gather_via_all_reduce"
 
@@ -47,7 +68,8 @@ def coordinate(mesh, axis: str) -> int:
 
 
 def axis_size(mesh, axis: str) -> int:
-    return dctx.mesh_shape(mesh).get(axis, 1)
+    """The size of mesh dim ``axis`` (1 without a mesh or such a dim)."""
+    return 1 if mesh is None else dctx.mesh_shape(mesh).get(axis, 1)
 
 
 def _gather_flat(out: torch.Tensor, x: torch.Tensor, pg) -> None:
@@ -72,14 +94,39 @@ def gather_into(out: torch.Tensor, x: torch.Tensor, pg) -> None:
         _gather_flat(out.view((-1,) + tuple(x.shape[1:])), x, pg)
 
 
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _real(x: torch.Tensor, mesh) -> bool:
+    """True for a process-group mesh; False for a stand-in mesh (meta
+    tensors only).  Raises where a real tensor meets a stand-in mesh or a
+    meta tensor a real one."""
+    if isinstance(mesh, standin.StandInMesh):
+        standin.check(x)
+        return False
+    if x.is_meta:
+        raise TypeError("a meta tensor on a process-group mesh: the dry "
+                        "run places its model on a stand-in mesh")
+    return True
+
+
 def all_gather(x: torch.Tensor, dim: int, axis: str = "model",
                mesh=None) -> torch.Tensor:
     """Concatenate every rank's ``x`` along ``dim``, in rank order along
     mesh dim ``axis`` (the active mesh unless ``mesh`` is given)."""
     mesh = dctx.get_mesh() if mesh is None else mesh
-    parts = axis_size(mesh, axis)
-    if parts == 1:
+    if axis_size(mesh, axis) == 1:
         return x
+    if _needs_grad(x):
+        return _AllGather.apply(x, dim, axis, mesh)
+    return _all_gather(x, dim, axis, mesh)
+
+
+def _all_gather(x, dim, axis, mesh):
+    parts = axis_size(mesh, axis)
+    if not _real(x, mesh):
+        return standin.all_gather(x, dim, parts)
     x0 = x.movedim(dim, 0).contiguous()
     out = torch.empty((parts * x0.shape[0],) + x0.shape[1:], dtype=x.dtype,
                       device=x.device)
@@ -87,14 +134,79 @@ def all_gather(x: torch.Tensor, dim: int, axis: str = "model",
     return out.movedim(0, dim) if dim != 0 else out
 
 
+def all_reduce_(x: torch.Tensor, axis: str = "model", mesh=None
+                ) -> torch.Tensor:
+    """Sum ``x`` over mesh dim ``axis`` in place (forward only); returns
+    ``x``."""
+    mesh = dctx.get_mesh() if mesh is None else mesh
+    if axis_size(mesh, axis) > 1:
+        if _real(x, mesh):
+            dist.all_reduce(x, group=group(mesh, axis))
+        else:
+            standin.all_reduce(x, axis_size(mesh, axis))
+    return x
+
+
 def sum_one_nonzero(x: torch.Tensor, axis: str = "model",
                     mesh=None) -> torch.Tensor:
     """Sum ``x`` over mesh dim ``axis`` where at most one rank holds a
-    non-zero value at each position (exact), in place."""
+    non-zero value at each position (exact): in place, or into a new
+    tensor when a gradient is needed."""
     mesh = dctx.get_mesh() if mesh is None else mesh
-    if axis_size(mesh, axis) > 1:
-        dist.all_reduce(x, group=group(mesh, axis))
-    return x
+    if axis_size(mesh, axis) == 1:
+        return x
+    if _needs_grad(x):
+        return _SumOneNonzero.apply(x, axis, mesh)
+    return all_reduce_(x, axis, mesh)
+
+
+def replicated(x: torch.Tensor, axis: str = "model", mesh=None
+               ) -> torch.Tensor:
+    """``x``, the replicated input of an op sharded over ``axis``; when a
+    gradient is needed, an identity whose backward sums the gradient over
+    ``axis`` (each rank's is its share's partial)."""
+    if not _needs_grad(x):
+        return x
+    mesh = dctx.get_mesh() if mesh is None else mesh
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _SumGrad.apply(x, axis, mesh)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, mesh):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        return _all_gather(x, dim, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = axis_size(ctx.mesh, ctx.axis)
+        n = g.shape[ctx.dim] // parts
+        index = coordinate(ctx.mesh, ctx.axis)
+        return g.narrow(ctx.dim, index * n, n), None, None, None
+
+
+class _SumOneNonzero(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return all_reduce_(x.clone(), axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.axis, ctx.mesh), \
+            None, None
 
 
 def shard_slice(size: int, parts: int, index: int) -> slice:
@@ -119,4 +231,73 @@ def elementwise(y: torch.Tensor, t: torch.Tensor, op) -> torch.Tensor:
         return op(y, t)
     _, parts, index = sh
     sl = shard_slice(y.shape[-1], parts, index)
-    return all_gather(op(y[..., sl], t), dim=-1)
+    return all_gather(op(replicated(y)[..., sl], t), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# One rank's objects to every rank (the launcher's single controller)
+# ---------------------------------------------------------------------------
+
+def broadcast_(t: torch.Tensor, src: int = 0, pg=None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` into every rank's ``t`` (same shape and dtype),
+    in place, by the group's backend: ``dist.broadcast``, except gloo on
+    a CUDA tensor, where rank ``src`` writes its bytes into a zero-filled
+    buffer and the group sums it as bytes (one non-zero term a byte:
+    exact), the route ``gather_into`` takes."""
+    if t.numel() == 0:
+        return t
+    if t.is_cuda and dist.get_backend(pg) == "gloo":
+        if dist.get_rank(pg) != src:
+            t.zero_()
+        flat = t.view(-1).view(torch.uint8)
+        dist.all_reduce(flat, group=pg)
+    else:
+        dist.broadcast(t, src=src, group=pg)
+    return t
+
+
+def broadcast_object(obj, device, src: int = 0, pg=None):
+    """Rank ``src``'s ``obj`` (any picklable tree: a model, quantized
+    tensors) on every rank.  The structure travels pickled
+    (``broadcast_object_list``), with each tensor replaced by its shape
+    and dtype; the tensors then travel one by one (``broadcast_``) into
+    tensors each rank allocates on ``device``.  Other ranks pass any
+    ``obj`` (ignored).  Returns rank ``src``'s object, its tensors on
+    ``device`` (the same objects on rank ``src``)."""
+    import io
+    import pickle
+
+    rank = dist.get_rank(pg)
+    tensors = []
+    payload = [None]
+    if rank == src:
+        memo = {}
+
+        class _Out(pickle.Pickler):
+            def persistent_id(self, x):
+                if not isinstance(x, torch.Tensor):
+                    return None
+                if id(x) not in memo:
+                    memo[id(x)] = len(tensors)
+                    tensors.append(x)
+                return ("tensor", memo[id(x)], tuple(x.shape), x.dtype)
+
+        buf = io.BytesIO()
+        _Out(buf).dump(obj)
+        payload = [buf.getvalue()]
+    dist.broadcast_object_list(payload, src=src, group=pg)
+    if rank != src:
+        made = {}
+
+        class _In(pickle.Unpickler):
+            def persistent_load(self, pid):
+                _, i, shape, dtype = pid
+                if i not in made:
+                    made[i] = torch.empty(shape, dtype=dtype, device=device)
+                return made[i]
+
+        obj = _In(io.BytesIO(payload[0])).load()
+        tensors = [made[i] for i in range(len(made))]
+    for t in tensors:
+        broadcast_(t if t.is_contiguous() else t.contiguous(), src, pg)
+    return obj

@@ -326,6 +326,9 @@ def dequant_matmul(
         raise TypeError(f"compute_dtype must be f32 or bf16, got "
                         f"{compute_dtype}")
     if not x.is_cuda:
+        if x.is_meta:
+            return _meta_result(x, planes, codebook, out_idx, out_val, n,
+                                x_mode, k_cols, x_idx, x_scale)
         plain_count += 1
         return dequant_matmul_plain(
             x, planes, codebook, out_idx, out_val, bits=bits, n=n,
@@ -392,6 +395,22 @@ def dequant_matmul(
     launch_count += 1
     int8_launch_count += x.dtype == torch.int8
     aligned_launch_count += x_mode == "aligned"
+    return out
+
+
+def _meta_result(x, planes, codebook, out_idx, out_val, n, x_mode,
+                 k_cols, x_idx, x_scale) -> torch.Tensor:
+    """K1 on meta tensors (the dry run): the (M, n) f32 result's shape, and
+    one op-trace record of the launch (``op_trace.note``) with the bytes of
+    the plan's planes, codebook, outlier and x_idx tables, x and the
+    result (a chained ``acc`` is not charged again), and 2 M n K FLOPs (K
+    the group's real columns): no launch is counted."""
+    out = torch.empty((x.shape[0], n), dtype=torch.float32, device="meta")
+    k = k_cols or codebook.shape[0]
+    op_trace.note(f"{op_trace.K1}[{x_mode}]",
+                  [x, *planes, codebook, out_idx, out_val,
+                   x_idx if x_mode == "gathered" else None, x_scale],
+                  [out], flops=2.0 * x.shape[0] * n * k)
     return out
 
 

@@ -126,6 +126,26 @@ class PreparedQuantizedTensor:
         kernel)."""
         return tuple(self.gather_idx.shape[:-1])
 
+    def effective_bits(self, include_codebooks: bool = False) -> float:
+        """Storage cost of the *unpadded* payload in bits an element
+        (parity with ``QuantizedTensor.effective_bits`` up to outlier-count
+        rounding): code planes over each group's real columns, 32 bits a
+        valid outlier slot, and with ``include_codebooks`` 16 bits a
+        codebook entry (a stacked plan: over all its members)."""
+        rows, cols = self.shape
+        members = 1
+        for n in self.stack:
+            members *= n
+        total = 0.0
+        for g in self.groups:
+            total += (packing.storage_bits_per_element(g.bits) * rows
+                      * g.k_cols * members)
+            if g.out_idx is not None:
+                total += 32.0 * float((g.out_idx[..., :g.k_cols] >= 0).sum())
+            if include_codebooks:
+                total += g.k_cols * g.codebook.shape[-1] * 16.0 * members
+        return total / (rows * cols * members)
+
     @op_trace.profiled(op_trace.DEQUANTIZE)
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         """Dequantization from the prepared layout (plan-vs-tensor oracle;

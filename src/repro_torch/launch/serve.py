@@ -31,8 +31,12 @@ versions.
 
 A (data, model) mesh (``--mesh-shape DPxTP``, or ``--dp`` / ``--tp``)
 serves on DP * TP ranks, one process each, under ``torchrun``; every rank
-builds and quantizes the same seeded model and runs the same requests,
-and only rank 0 prints the report.  ``--backend`` is explicit: ``nccl``
+builds the same seeded model, rank 0 alone quantizes it (and the draft),
+as the reference's single controller does, and hands the quantized tree
+to every rank (``collectives.broadcast_object``) before the engine
+places it, so the ranks serve one quantization whatever their thread
+counts or hardware; every rank runs the same requests, and only rank 0
+prints the report.  ``--backend`` is explicit: ``nccl``
 for one card per rank, ``gloo`` on the CPU or for ranks that share one
 card:
 
@@ -54,6 +58,7 @@ from repro_torch import device as dev_lib
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import APConfig, CLAQConfig, ORConfig
 from repro_torch.data import calibration_set
+from repro_torch.dist import collectives as coll
 from repro_torch.dist.context import mesh_shape
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.quantize import claq_quantize, claq_quantize_with_draft
@@ -235,7 +240,9 @@ def main(argv=None):
     spec = (SpecConfig(gamma=args.spec_gamma, draft_bits=args.draft_bits)
             if args.spec_gamma > 0 else None)
     draft = None
-    if args.bits > 0:
+    # rank 0 quantizes; the other ranks receive its tree below
+    quantize_here = mesh is None or mesh.get_rank() == 0
+    if args.bits > 0 and quantize_here:
         base = int(args.bits)
         qcfg = CLAQConfig(
             bits=base, method="kmeans", kmeans_iters=6, gptq_blocksize=32,
@@ -256,7 +263,7 @@ def main(argv=None):
             say(f"[serve] CLAQ-quantized to "
                   f"{report.mean_effective_bits:.2f} "
                   f"bits in {time.time() - t0:.1f}s")
-    elif spec is not None:
+    elif spec is not None and quantize_here:
         # fp target: the draft is a CLAQ quantization of the same weights
         # (a second copy, quantized in place), Outlier Reservation kept
         calib = calibration_set(cfg.vocab, n_segments=8, seq_len=64)
@@ -266,6 +273,8 @@ def main(argv=None):
         draft, drep = claq_quantize(copy.deepcopy(model), cfg, calib, dcfg)
         say(f"[serve] fp target + {drep.mean_effective_bits:.2f}-bit "
               f"CLAQ draft")
+    if mesh is not None and (args.bits > 0 or spec is not None):
+        model, draft = coll.broadcast_object((model, draft), device)
 
     injector = None
     clock = None
@@ -439,7 +448,7 @@ def main(argv=None):
     if own_group:
         import torch.distributed as dist
         dist.destroy_process_group()
-    return st
+    return dict(st, tokens=[finished[u].tokens for u in sorted(finished)])
 
 
 if __name__ == "__main__":

@@ -90,3 +90,41 @@ def decode_span(params, cfg, tokens: torch.Tensor, cache):
     """Speculative verify: append tokens (B, S) at each slot's own fill
     level; returns (logits (B, S, V), cache)."""
     return tf.decode_span(params, cfg, tokens, cache)
+
+
+# ---------------------------------------------------------------------------
+# Input specs for the dry run (meta tensors: shapes and dtypes, no memory)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, cell) -> Dict[str, torch.Tensor]:
+    """Inputs of the cell's entry point (train loss / prefill / decode) as
+    meta tensors of the reference's shapes and dtypes (``repro.models.
+    api.input_specs``).  For modality archs the frontend is a stub:
+    ``prefix_embeds`` / ``frames`` stand in for the precomputed patch /
+    frame embeddings."""
+    B, S = cell.global_batch, cell.seq_len
+    act = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cell.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            return {"frames": _meta((B, S, cfg.d_model), act),
+                    "tokens": _meta((B, S), torch.int32)}
+        if cfg.modality == "vision":
+            P = int(S * cfg.prefix_frac)
+            return {"tokens": _meta((B, S - P), torch.int32),
+                    "prefix_embeds": _meta((B, P, cfg.d_model), act)}
+        return {"tokens": _meta((B, S), torch.int32)}
+    # decode: one new token + a cache of seq_len
+    return {"token": _meta((B,), torch.int32)}
+
+
+def cache_specs(cfg, cell, dtype=torch.bfloat16):
+    """The (filled) cache a decode / prefill cell uses, on ``meta``: the
+    port's per-layer list (``sharding.cache_tree`` gives the reference's
+    stacked layout of ``repro.models.api.cache_specs``)."""
+    B, S = cell.global_batch, cell.seq_len
+    src = S if cfg.family == "encdec" else None
+    return make_cache(cfg, B, S, dtype=dtype, device="meta", src_len=src)

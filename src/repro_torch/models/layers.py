@@ -329,6 +329,8 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
     block = head_block(cfg, cache)
     if block is not None:
         parts, r = block
+        # under a gradient each rank's q/k/v gradient is its heads' part
+        q, k, v = (coll.replicated(t) for t in (q, k, v))
         q = q[:, :, r * H // parts:(r + 1) * H // parts]
         k = k[:, :, r * KH // parts:(r + 1) * KH // parts]
         v = v[:, :, r * KH // parts:(r + 1) * KH // parts]

@@ -25,7 +25,10 @@ the replicated result through all-gathers, never through a sum of partial
 products: a kernel (split on its output dim) multiplies locally and
 gathers the columns, a vector (norm scale, bias) applies to this rank's
 slice of the activation, and a vocab-split embedding looks up its own
-rows and sums over ranks with one non-zero term.
+rows and sums over ranks with one non-zero term.  Under a gradient the
+same calls differentiate (``dist.collectives``): the replicated input of
+each sharded product goes through ``collectives.replicated``, whose
+backward sums the ranks' partial input gradients over "model".
 """
 from __future__ import annotations
 
@@ -207,13 +210,14 @@ def dense(p: Dense, x: torch.Tensor, tap: Optional[str] = None
     if isinstance(kernel, _QUANTIZED):
         y = kops.qmatmul(x, kernel, use_kernel=True,
                          act_dtype=QuantMode.act_dtype)
+    elif coll.model_shard(kernel) is not None:
+        _maybe_record(p if tap is None else tap, x)
+        # this rank's output columns (placement never splits the input
+        # dim: see dist.sharding.place_model), all-gathered
+        y = coll.all_gather(coll.replicated(x) @ kernel.to(x.dtype), dim=-1)
     else:
         _maybe_record(p if tap is None else tap, x)
         y = x @ kernel.to(x.dtype)
-        if coll.model_shard(kernel) is not None:
-            # this rank's output columns (placement never splits the input
-            # dim: see dist.sharding.place_model)
-            y = coll.all_gather(y, dim=-1)
     if p.bias is not None:
         y = coll.elementwise(y, p.bias,
                              lambda a, b: a + b.to(a.dtype))
@@ -283,10 +287,10 @@ def tied_logits(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
     """``x @ embedding^T`` (tied embeddings): a vocab-split embedding
     gives this rank's logit columns, all-gathered (placement splits a tied
     embedding over vocab only)."""
-    y = x @ embedding.to(x.dtype).T
-    if coll.model_shard(embedding) is not None:
-        y = coll.all_gather(y, dim=-1)
-    return y
+    if coll.model_shard(embedding) is None:
+        return x @ embedding.to(x.dtype).T
+    return coll.all_gather(coll.replicated(x) @ embedding.to(x.dtype).T,
+                           dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -19,12 +19,15 @@ prefill, decode_step, decode_span.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.dist import context as dctx
 
 from . import layers as L
 from . import mamba2 as m2
@@ -248,7 +251,13 @@ def _shared_attention(model: Transformer, x, cfg, site: int, cache):
 
 def _apply(blk, x, cfg, cache, span, remat):
     if remat:
-        return checkpoint(block_apply, blk, x, cfg, use_reentrant=False)
+        # the recompute runs in the backward, which the autograd engine
+        # runs on a thread of its own for CUDA tensors: it re-enters the
+        # forward's mesh there (the sharded layers read it)
+        mesh = dctx.get_mesh()
+        return checkpoint(block_apply, blk, x, cfg, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              dctx.use_mesh(mesh)))
     return block_apply(blk, x, cfg, cache, span=span)
 
 

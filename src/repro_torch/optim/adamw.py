@@ -19,6 +19,8 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import context as dctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,24 +71,46 @@ def schedule(step, cfg: OptimConfig) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shards=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, summed leaf by
     leaf in the reference's order (a ``LayerStack`` leaf as the sum of its
-    layers' sums: within rounding of the reference's one reduction)."""
-    sq = None
-    for leaf in tree_lib.leaves(tree):
+    layers' sums: within rounding of the reference's one reduction).
+
+    On a mesh, ``shards`` says per leaf whether it is this rank's block of
+    a tensor split over "model": those leaves' sum of squares is summed
+    over "model" (one all-reduce), a replicated leaf counts once, so the
+    norm is the same on every rank."""
+    sq = sh = None
+    for i, leaf in enumerate(tree_lib.leaves(tree)):
         parts = leaf if isinstance(leaf, tree_lib.LayerStack) else [leaf]
         s = None
         for t in parts:
             ts = torch.sum(torch.square(t.float()))
             s = ts if s is None else s + ts
-        sq = s if sq is None else sq + s
+        if shards is not None and shards[i]:
+            sh = s if sh is None else sh + s
+        else:
+            sq = s if sq is None else sq + s
+    if sh is not None:
+        sh = coll.all_reduce_(sh.reshape(1), "model")[0]
+        sq = sh if sq is None else sq + sh
     return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def model_shards(params):
+    """Per leaf of ``params``, whether it is a model shard
+    (``dist.sharding.place_model``), or None off a multi-rank model
+    axis."""
+    if coll.axis_size(dctx.get_mesh(), "model") == 1:
+        return None
+    return [coll.model_shard(leaf[0] if isinstance(leaf, tree_lib.LayerStack)
+                             else leaf) is not None
+            for leaf in tree_lib.leaves(params)]
+
+
+def clip_by_global_norm(grads, max_norm: float, shards=None):
     """(grads * min(1, max_norm / norm) in f32, norm)."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, shards)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_lib.tree_map(lambda g: g.float() * scale, grads), gn
 
@@ -94,8 +118,11 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def apply_updates(params, grads, state: OptState, cfg: OptimConfig):
     """One AdamW step: clip, schedule, update.  ``params`` and the moments
-    are updated in place; returns (params, state, {"grad_norm", "lr"})."""
-    grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    are updated in place; returns (params, state, {"grad_norm", "lr"}).
+    On a mesh the leaves are this rank's blocks (elementwise updates) and
+    the clip reads the global norm over every rank's blocks."""
+    grads, gn = clip_by_global_norm(grads, cfg.clip_norm,
+                                    model_shards(params))
     step = state.step + 1
     lr = schedule(step, cfg)
     b1, b2 = cfg.beta1, cfg.beta2

@@ -131,8 +131,18 @@ def test_train_launcher_resumes(tmp_path):
     assert "loss" not in second.stdout          # no step left to run
 
 
-def test_train_launcher_refuses_a_mesh():
+def test_train_launcher_refuses_a_mesh(tmp_path):
+    """--mesh single needs the production mesh's 256 ranks: in a world of
+    1 it raises make_production_mesh's ValueError (and leaves the group
+    it did not bring up)."""
+    import torch.distributed as dist
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="distribution"):
-        train.main(["--arch", "llama1_7b", "--smoke", "--mesh", "single",
-                    "--device", "cpu"])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="world of 256"):
+            train.main(["--arch", "llama1_7b", "--smoke", "--mesh",
+                        "single", "--backend", "gloo", "--device", "cpu"])
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
