@@ -15,7 +15,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      (exactly the monolithic tokens) and speculation with a synthetic
      2-bit draft (vanilla's tokens except after a near tie);
   4. serve llama1_7b at full width (d 4096, bf16; cut to ``SERVE_DEPTH``
-     = 16 of its 32 layers to keep the script's time) with
+     = 8 of its 32 layers to keep the script's time) with
      synthetic CLAQ AP+OR weights through ``ServingEngine``: 8 requests,
      4 slots, 16 new tokens each, with the kernel's launch counts and a
      ``torch.profiler`` reading of two decode steps (device-busy share,
@@ -110,7 +110,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      synthetic tokens and CLAQ-quantized on the card, target and 2-bit
      draft from one calibration
      (``launch.quantize.claq_quantize_with_draft``, the recipe of
-     ``launch.serve --bits 2.2 --spec-gamma``), one 4096x4096 matrix also
+     ``launch.serve --bits 2.2 --spec-gamma``), one 4096x1024 matrix also
      quantized on the CPU and held against the card's (with a full-rank
      Hessian); perplexity on 2 eval
      batches (B 4, S 512) of fp, RTN uniform 2-bit, the draft and the
@@ -159,7 +159,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      4's model and prompts: tokens exactly phase 4's, ``stats()["mesh"]``
      {"data": 1, "model": 1}; (b) two spawned ranks sharing the card over
      gloo (NCCL refuses two ranks on one device), meshes (1, 2) and
-     (2, 1), serve llama1_7b at full width and ``MESH_DEPTH`` = 4 layers
+     (2, 1), serve llama1_7b at full width and ``MESH_DEPTH`` = 2 layers
      (synthetic AP+OR weights from phase 4's seed) on phase 4's prompts:
      tokens held to a single-rank engine's under the near-tie rule (the
      limit twice each rank's largest |sharded - single-device| logit
@@ -179,7 +179,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
   15. training on a mesh and the dry run (run after phase 14): (a) two
      spawned ranks sharing the card over gloo train llama1_7b at full
      width, ``QUANT_DEPTH`` = 1 layer (bf16 params, f32 moments, phase
-     10's schedule), B 4 x S 512, ``MESH_TRAIN_STEPS`` = 5 steps on
+     10's schedule), B 4 x S 512, ``MESH_TRAIN_STEPS`` = 3 steps on
      ``SyntheticCorpus`` on meshes (1, 2) and (2, 1), against a single-rank
      run of the same seed: the step-0 loss (forward only) within 1e-3,
      every later loss within one bf16 step at its value, the whole params
@@ -191,11 +191,35 @@ Phases (any failure raises and ends the run with a non-zero exit):
      all-gathers and all-reduces (count, bytes) from its op trace, and
      K1's launches (0: fp training); (b) the dry run
      (``launch.dryrun.trace_cell`` on a stand-in mesh, meta tensors) of
-     14b's decode (4 layers, 4 slots, ``max_len`` 256, CLAQ stand-in
+     14b's decode (2 layers, 4 slots, ``max_len`` 256, CLAQ stand-in
      plans) and of 15a's train steps: its collectives must equal the
      measured ones exactly; then ``run_cell``'s roofline for llama1_7b
      decode_32k and train_4k on the single production mesh (a model of
      256 cards on the data sheet's figures, not a measurement).
+  16. the moe family and MLA with experts on a mesh (run after phase
+     15): two spawned ranks sharing the card over gloo, meshes (1, 2) and
+     (2, 1): (a) qwen3_moe_30b_a3b at full width, ``MOE_MESH_DEPTH`` = 2
+     layers, synthetic AP+OR weights and expert stacks from the seed,
+     phase 4's prompts, 4 slots (a data rank's decode gathers the MoE
+     rows over "data" and routes the global batch; a placed expert stack
+     dequantizes its own rows): tokens held to a single-rank engine's
+     under 14b's near-tie rule; per rank plane bytes, K1 launches, a
+     decode step's collectives (count, bytes), capacity drops and the
+     experts' dequantize device ms a layer beside the single rank's,
+     decode ms a step, and the contract gate's HLO-AG1 / HLO-CB1 with no
+     finding; (b) deepseek_v2_236b at full width, 1 layer (MLA on the
+     rank's heads of ``kv_up``), contiguous cache, the same, plus the
+     latent cache bytes a rank; (c) training: qwen3_moe_30b_a3b at full
+     width, 1 layer, bf16 params, f32 moments, B 4 x S 512,
+     ``MOE_TRAIN_STEPS`` = 3 steps against a single-rank run of the seed
+     under 15a's loss and param rules (its two-microbatch twin the
+     yardstick); ms a step, peak memory and the collectives of a step
+     per rank; (d) the dry run's collectives of (a)'s decode on (1, 2)
+     (CLAQ stand-in plans) and of (c)'s steps equal the measured ones,
+     by kind, count and bytes; then ``run_cell``'s roofline for
+     deepseek_v2_236b decode_32k and qwen3_moe_30b_a3b train_4k on the
+     single production mesh (a model of 256 cards, not a measurement).
+     The phase's time is printed.
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -221,7 +245,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL, RTOL = 1e-3, 1e-4
 LLAMA_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))   # (out, in)
 BIT_MIX = (0.05, 0.05)             # shares of 3- and 4-bit columns
-SERVE_DEPTH = 16                   # layers of phases 4-7 and 9's llama1_7b
+SERVE_DEPTH = 8                    # layers of phases 4-7 and 9's llama1_7b
 QUANT_DEPTH = 1                    # layers of the phase-8 model
 GAMMA = 4                          # speculation window of the new phases
 PAGE_SIZE = 16
@@ -248,7 +272,8 @@ CKPT_STEP = 10                     # the async save, and the resume point
 MICRO_STEP = 15                    # the one step at n_microbatches=2
 PROFILE_TRAIN_STEP = 3             # two train steps from the 4th profiled
 EVAL_BATCHES = 2                   # phase 8's perplexity batches
-MOE_DEPTH = 4                      # layers of phase 11's qwen3_moe_30b_a3b
+CARD_CPU_COLS = 1024               # phase 8's card-vs-CPU matrix: 4096 x this
+MOE_DEPTH = 2                      # layers of phase 11's qwen3_moe_30b_a3b
 RWKV_DEPTH = 8                     # layers of phase 12's rwkv6_7b
 RWKV_CHECK_LEN = 100               # 12's chunked prefill vs recurrent decode
 RING_PROMPT = 4200                 # 12b's long prompt (> attn_window 4096)
@@ -256,11 +281,14 @@ RING_MAX_LEN = 4608
 RING_DECODE = 64                   # decode steps after it (each wraps)
 ENCDEC_FRAMES = (4, 200)           # 12c's seeded frames: batch, S_src
 ENCDEC_PROMPT = 8                  # its decoder prompt tokens
-MESH_DEPTH = 4                     # layers of phase 14b's llama1_7b
+MESH_DEPTH = 2                     # layers of phase 14b's llama1_7b
 MESH_SHAPES = ((1, 2), (2, 1))     # 14b's (data, model) meshes, 2 ranks
 ROWSHARD_N = 512                   # 14d's matrix (rows = cols)
-MESH_TRAIN_STEPS = 5               # 15a's steps on each mesh
+MESH_TRAIN_STEPS = 3               # 15a's steps on each mesh
 MESH_TRAIN_TRACE = 2               # the step whose op trace 15a records
+MOE_MESH_DEPTH = 2                 # layers of phase 16a's qwen3_moe_30b_a3b
+MOE_MESH_ARCHS = ("qwen3_moe", "deepseek")   # 16a, 16b
+MOE_TRAIN_STEPS = 3                # 16c's steps on each mesh
 MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
                  v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
@@ -1329,7 +1357,7 @@ def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
     """Quantize phase 10's trained full-width llama1_7b (``QUANT_DEPTH``
     layers) on the card with the launcher's recipe for ``--bits 2.2
     --spec-gamma``: one calibration, a 2-bit draft and the AP target
-    (``claq_quantize_with_draft``); hold one 4096x4096 matrix against the
+    (``claq_quantize_with_draft``); hold one 4096x1024 matrix against the
     CPU; print perplexity on ``EVAL_BATCHES`` batches (B ``TRAIN_B``, S
     ``TRAIN_S``) for fp, RTN uniform 2-bit (dense), the draft and the
     target (K1 blocked at M = B * S, launches counted); serve the target
@@ -1370,7 +1398,8 @@ def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
     # 16384 rows).  (Layer 0's calibration Hessians have rank <= the
     # number of distinct tokens and agree less; PERF.md keeps their
     # reading, which is left out here for the script's time.)
-    W = model.blocks[0].attn.q.kernel.float().T.contiguous()
+    W = model.blocks[0].attn.q.kernel.float().T[:, :CARD_CPU_COLS] \
+        .contiguous()
     X = torch.randn((16384, W.shape[1]), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(
                         SEED + 4))
@@ -1378,7 +1407,7 @@ def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
     del X
     full = card_vs_cpu(claq_lib, W, gauss, qcfg)
     checks = {"gaussian_16384_rows": full}
-    log("quantize card-vs-cpu 4096x4096 gaussian_16384_rows "
+    log(f"quantize card-vs-cpu 4096x{CARD_CPU_COLS} gaussian_16384_rows "
         + json.dumps(full))
     assert full["codes_equal_first_512"] >= 0.99, full
     assert full["proxy_loss_rel_diff"] <= 1e-3, full
@@ -2899,14 +2928,16 @@ def mesh_serve(eng, prompts, dm):
     ``MAX_NEW`` tokens each), the launch counts set to 0 just before and
     read just after; per decode step its K1 launches and synchronized
     ms.  Returns (tokens in prompt order, counts, launches a step, decode
-    ms a step)."""
+    ms a step, the emitting steps run before each request's admission)."""
     reset_counts(dm)
     pending, order, step_ms, step_launches = list(prompts), [], [], []
+    admitted = []
     while pending or eng.active:
         if pending and eng.free:
             n = min(len(pending), len(eng.free))
             order += eng.add_requests([pending.pop(0) for _ in range(n)],
                                       max_new_tokens=MAX_NEW)
+            admitted += [len(step_ms)] * n
         before = dm.launch_count
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2919,7 +2950,8 @@ def mesh_serve(eng, prompts, dm):
     fin = eng.take_finished()
     assert all(fin[u].state.value == "finished"
                and len(fin[u].tokens) == MAX_NEW for u in order)
-    return [fin[u].tokens for u in order], counts, step_launches, step_ms
+    return ([fin[u].tokens for u in order], counts, step_launches, step_ms,
+            admitted)
 
 
 def mesh_rank(rank, world, device, prompts, base_tokens, W, H):
@@ -2947,7 +2979,8 @@ def mesh_rank(rank, world, device, prompts, base_tokens, W, H):
         t0 = time.perf_counter()
         rep = verify_engine(eng, raise_on_error=False)
         gate_s = time.perf_counter() - t0
-        tokens, counts, step_launches, step_ms = mesh_serve(eng, prompts, dm)
+        tokens, counts, step_launches, step_ms, _ = mesh_serve(eng, prompts,
+                                                               dm)
         colls = OT.collective_instructions(decode_ops(eng))
         planes = sum(p.numel() * 4 for m in eng.params.modules()
                      if isinstance(getattr(m, "kernel", None),
@@ -3167,13 +3200,13 @@ def collective_counts(colls):
     return {k: {"count": n, "bytes": b} for k, (n, b) in sorted(out.items())}
 
 
-def mesh_train(device, mesh, dm, n_microbatches=1):
-    """15a on one rank (``mesh`` None: the single-rank baseline):
-    ``MESH_TRAIN_STEPS`` steps from the seed under deterministic
-    algorithms, step ``MESH_TRAIN_TRACE`` under the op recorder.  Returns
-    (record, the whole params after the last step: a mesh's blocks
-    all-gathered).  K1's counts are set to 0 before and read after: fp
-    training launches none."""
+def mesh_train(device, mesh, dm, n_microbatches=1, setup=None):
+    """15a (16c: ``setup`` ``moe_train_setup``) on one rank (``mesh``
+    None: the single-rank baseline): the setup's steps from the seed under
+    deterministic algorithms, step ``MESH_TRAIN_TRACE`` under the op
+    recorder.  Returns (record, the whole params after the last step: a
+    mesh's blocks all-gathered).  K1's counts are set to 0 before and read
+    after: fp training launches none."""
     from repro_torch import convert
     from repro_torch.analysis import op_trace as OT
     from repro_torch.dist import context as dctx
@@ -3182,7 +3215,7 @@ def mesh_train(device, mesh, dm, n_microbatches=1):
     from repro_torch.models import api
     from repro_torch.optim import init_opt_state
     from repro_torch.train import make_train_step
-    cfg, ocfg, batches = mesh_train_setup()
+    cfg, ocfg, batches = (setup or mesh_train_setup)()
     det = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -3262,9 +3295,10 @@ def init_span(params, cfg):
             tree_lib.tensors(convert.param_tree(init, cfg))))))
 
 
-def mesh_train_rank(rank, world, device, want_path, span):
-    """15a on one of the two spawned ranks: per mesh of ``MESH_SHAPES`` the
-    train record and its params' gaps to the single rank's."""
+def mesh_train_rank(rank, world, device, want_path, span, setup=None):
+    """15a (16c) on one of the two spawned ranks: per mesh of
+    ``MESH_SHAPES`` the train record and its params' gaps to the single
+    rank's."""
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.launch import mesh as mesh_lib
@@ -3272,7 +3306,7 @@ def mesh_train_rank(rank, world, device, want_path, span):
     out = {}
     for shape in MESH_SHAPES:
         mesh = mesh_lib.make_debug_mesh(shape, device_type="cuda")
-        rec, params = mesh_train(device, mesh, dm)
+        rec, params = mesh_train(device, mesh, dm, setup=setup)
         rec.update(param_gaps(params, want, span))
         out[f"train_{shape[0]}x{shape[1]}"] = rec
         del params
@@ -3280,32 +3314,77 @@ def mesh_train_rank(rank, world, device, want_path, span):
     return out
 
 
+def train_baseline(dm, setup, want_path):
+    """The single-rank run of a mesh-training phase and its two-microbatch
+    twin (the same steps, the gradients summed in another order: the
+    yardstick of the params' tolerance); the single rank's params saved
+    to ``want_path`` for the ranks.  Returns (record, span)."""
+    from repro_torch import tree as tree_lib
+    cfg, _, _ = setup()
+    single, params = mesh_train("cuda", None, dm, setup=setup)
+    span = init_span(params, cfg)
+    want = [t.detach().cpu() for t in tree_lib.tensors(params)]
+    del params
+    micro, params = mesh_train("cuda", None, dm, n_microbatches=2,
+                               setup=setup)
+    single["microbatch_twin"] = dict(losses=micro["losses"],
+                                     **param_gaps(params, want, span))
+    del params
+    want_path.parent.mkdir(exist_ok=True)
+    torch.save(want, want_path)
+    del want
+    torch.cuda.empty_cache()
+    return single, span
+
+
+def check_train_ranks(single, ranks, res, what):
+    """15a's rules over each rank's train records (``res`` gets them):
+    the step-0 loss (forward only) within 1e-3 of the single rank's, every
+    later loss within one bf16 step at its value, the whole params'
+    departure at most twice the two-microbatch twin's, no K1 launch.
+    Returns the largest loss gap."""
+    twin = single["microbatch_twin"]["param_departure"]
+    loss_tols = [1e-3] + [bf16_ulp(x) for x in single["losses"][1:]]
+    worst_loss = 0.0
+    for r, out in enumerate(ranks):
+        for tag, rec in out.items():
+            if not tag.startswith("train_"):
+                continue
+            gaps = [abs(a - b) for a, b in zip(rec["losses"],
+                                               single["losses"])]
+            assert all(np.isfinite(rec["losses"])), (tag, rec["losses"])
+            assert all(g <= t for g, t in zip(gaps, loss_tols)), \
+                (what, tag, r, gaps, loss_tols)
+            # bf16 params and activations: every op rounds, so a run whose
+            # sums go in another order departs from the single rank's by
+            # rounding alone; the mesh may depart at most twice as far as
+            # the single rank's own two-microbatch twin (a missing or
+            # doubled gradient sum departs by the whole update, ~1)
+            assert rec["param_departure"] <= 2 * twin, (what, tag, r, rec,
+                                                        twin)
+            assert rec["k1_launches"] == 0
+            worst_loss = max(worst_loss, max(gaps))
+            rec.update(loss_gaps=gaps, loss_tolerances=loss_tols)
+            res[f"{tag}_rank{r}"] = rec
+            log(f"{what} {tag} rank {r} " + json.dumps(rec))
+    log(f"{what}: largest loss gap {worst_loss:.3g} (step 0 held to 1e-3, "
+        f"later steps to one bf16 step at the loss: {loss_tols[1:]})")
+    return worst_loss
+
+
 def phase_mesh_train(dm, dist_runs):
     """15. Training on a (data, model) mesh and the dry run against it."""
-    from repro_torch import tree as tree_lib
     from repro_torch.analysis import op_trace as OT
     from repro_torch.configs import ShapeCell
     from repro_torch.dist.standin import StandInMesh
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     t0 = time.perf_counter()
-    # 15a: the single-rank baseline and its two-microbatch twin (the same
-    # steps, the gradients summed in another order: the yardstick of the
-    # params' tolerance), then two ranks sharing the card
+    # 15a: the single-rank baseline and its two-microbatch twin, then two
+    # ranks sharing the card
     cfg, _, _ = mesh_train_setup()
-    single, params = mesh_train("cuda", None, dm)
-    span = init_span(params, cfg)
-    want = [t.detach().cpu() for t in tree_lib.tensors(params)]
-    del params
-    micro, params = mesh_train("cuda", None, dm, n_microbatches=2)
-    single["microbatch_twin"] = dict(losses=micro["losses"],
-                                     **param_gaps(params, want, span))
-    del params
     want_path = REPO / "build" / "phase15_params.pt"
-    want_path.parent.mkdir(exist_ok=True)
-    torch.save(want, want_path)
-    del want
-    torch.cuda.empty_cache()
+    single, span = train_baseline(dm, mesh_train_setup, want_path)
     try:
         ranks = mesh_lib.run_local(mesh_train_rank, 2, str(want_path), span,
                                    backend="gloo", device="cuda",
@@ -3314,30 +3393,8 @@ def phase_mesh_train(dm, dist_runs):
         want_path.unlink(missing_ok=True)
     res = {"single_rank": single}
     log("train single rank " + json.dumps(single))
-    twin = single["microbatch_twin"]["param_departure"]
-    loss_tols = [1e-3] + [bf16_ulp(x) for x in single["losses"][1:]]
-    worst_loss = 0.0
-    for r, out in enumerate(ranks):
-        for tag, rec in out.items():
-            gaps = [abs(a - b) for a, b in zip(rec["losses"],
-                                               single["losses"])]
-            assert all(np.isfinite(rec["losses"])), (tag, rec["losses"])
-            assert all(g <= t for g, t in zip(gaps, loss_tols)), \
-                (tag, r, gaps, loss_tols)
-            # bf16 params and activations: every op rounds, so a run whose
-            # sums go in another order departs from the single rank's by
-            # rounding alone; the mesh may depart at most twice as far as
-            # the single rank's own two-microbatch twin (a missing or
-            # doubled gradient sum departs by the whole update, ~1)
-            assert rec["param_departure"] <= 2 * twin, (tag, r, rec, twin)
-            assert rec["k1_launches"] == 0
-            worst_loss = max(worst_loss, max(gaps))
-            rec.update(loss_gaps=gaps, loss_tolerances=loss_tols)
-            res[f"{tag}_rank{r}"] = rec
-            log(f"{tag} rank {r} " + json.dumps(rec))
-    res["largest_loss_gap"] = worst_loss
-    log(f"mesh train: largest loss gap {worst_loss:.3g} (step 0 held to "
-        f"1e-3, later steps to one bf16 step at the loss: {loss_tols[1:]})")
+    res["largest_loss_gap"] = check_train_ranks(single, ranks, res,
+                                                "mesh train")
     # 15b: the dry run against the card
     predicted = {}
     for shape in MESH_SHAPES:
@@ -3381,6 +3438,353 @@ def phase_mesh_train(dm, dist_runs):
     return res
 
 
+def moe_mesh_cfg(arch):
+    """16a's qwen3_moe_30b_a3b at full width, ``MOE_MESH_DEPTH`` layers;
+    16b's deepseek_v2_236b at full width, 1 layer."""
+    from repro_torch.configs import get_config
+    if arch == "qwen3_moe":
+        return dataclasses.replace(get_config("qwen3_moe_30b_a3b"),
+                                   n_layers=MOE_MESH_DEPTH)
+    return dataclasses.replace(get_config("deepseek_v2_236b"), n_layers=1)
+
+
+def moe_mesh_model(arch, device):
+    """16a/b's model: synthetic AP+OR weights and experts from the seed
+    (the same on every rank and in the parent)."""
+    return synthetic_model(moe_mesh_cfg(arch),
+                           torch.Generator(device=device).manual_seed(SEED),
+                           torch.Generator().manual_seed(SEED), device)
+
+
+def moe_train_setup():
+    """16c's model config, optimizer config and batches: qwen3_moe_30b_a3b
+    at full width cut to 1 layer (bf16 params, f32 moments), phase 10's
+    schedule, ``MOE_TRAIN_STEPS`` batches of B ``TRAIN_B`` x S ``TRAIN_S``
+    from ``SyntheticCorpus``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.optim import OptimConfig
+    cfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b"), n_layers=1)
+    ocfg = OptimConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                      batch=TRAIN_B, seed=SEED))
+    return cfg, ocfg, [data.batch_at(s) for s in range(MOE_TRAIN_STEPS)]
+
+
+def dequant_ms(moe_lib, model, flush, reps=5):
+    """Device ms of one layer's experts' dequantize (block 0's three
+    stacks; a placed stack rebuilds its own rows), CUDA events after an L2
+    flush."""
+    mlp = model.blocks[0].mlp
+
+    def deq():
+        for n in ("w_gate", "w_up", "w_down"):
+            moe_lib.expert_weight(getattr(mlp, n), torch.bfloat16)
+    torch.cuda.synchronize()
+    return time_ms(deq, reps, flush)
+
+
+def forced_replay(eng, prompts, base):
+    """Serve ``prompts`` again through ``eng`` with every sampled token
+    forced to the single rank's (``base``: its tokens, batch-1 prefill
+    rows and decode logits rows, on the host), so every step runs the
+    single rank's batch; returns (the largest |mesh - single| logit gap
+    over every emitted row, the rows, the rows whose argmax is not the
+    single rank's token).  The logits are all-gathered over "data" to be
+    read (one more collective a step, this replay's only)."""
+    order, pending = [], list(prompts)
+    index = {}
+    admitted = []
+    stats = dict(noise=0.0, rows=0, flips=0)
+
+    def held(row, want_row, token):
+        row = row.float().cpu()
+        stats["noise"] = max(stats["noise"],
+                             float((row - want_row).abs().max()))
+        stats["rows"] += 1
+        stats["flips"] += int(row.argmax()) != token
+
+    def forced(logits, slot_rows=False):
+        if not slot_rows:                  # a moe prefill: one request
+            assert logits.shape[0] == 1, logits.shape
+            i = index[admitted.pop(0)]
+            held(logits[0], base["prefill_logits"][i], base["tokens"][i][0])
+            return np.array([base["tokens"][i][0]]), None
+        rows = eng._gather_rows(logits)
+        out = np.zeros((eng.n_slots,), np.int64)
+        for uid, req in eng.active.items():
+            i, k = index[uid], len(req.tokens)
+            held(rows[req.slot], base["decode_logits"][i][k],
+                 base["tokens"][i][k])
+            out[req.slot] = base["tokens"][i][k]
+        return out, None
+
+    eng._sample = forced
+    try:
+        while pending or eng.active:
+            if pending and eng.free:
+                n = min(len(pending), len(eng.free))
+                batch = [pending.pop(0) for _ in range(n)]
+                uids = list(range(eng._uid, eng._uid + n))
+                index.update({u: len(order) + j for j, u in enumerate(uids)})
+                admitted.extend(uids)
+                got = eng.add_requests(batch, max_new_tokens=MAX_NEW)
+                assert got == uids, (got, uids)
+                order += got
+            eng.step()
+    finally:
+        del eng._sample
+    fin = eng.take_finished()
+    assert [fin[u].tokens for u in order] == base["tokens"]
+    return stats["noise"], stats["rows"], stats["flips"]
+
+
+def moe_mesh_rank(rank, world, device, prompts, want_path, span):
+    """16a-c on one of the two spawned ranks: per model and mesh of
+    ``MESH_SHAPES`` the served record, then 16c's train records."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.analysis.artifacts import decode_ops, verify_engine
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels.plan import PreparedQuantizedTensor
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serve import ServingEngine
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=device)
+    out = {}
+    for arch in MOE_MESH_ARCHS:
+        cfg = moe_mesh_cfg(arch)
+        base = torch.load(REPO / "build" / f"phase16_{arch}.pt")
+        whole = moe_mesh_model(arch, device)
+        for shape in MESH_SHAPES:
+            tag = f"{arch}_{shape[0]}x{shape[1]}"
+            mesh = mesh_lib.make_debug_mesh(shape, device_type="cuda")
+            t0 = time.perf_counter()
+            eng = ServingEngine(copy.deepcopy(whole), cfg, n_slots=4,
+                                max_len=256, dtype=torch.bfloat16,
+                                device=device, mesh=mesh)
+            t1 = time.perf_counter()
+            rep = verify_engine(eng, raise_on_error=False)
+            t2 = time.perf_counter()
+            with MoeDrops(moe_lib) as drops:
+                tokens, counts, step_launches, step_ms, admitted = \
+                    mesh_serve(eng, prompts, dm)
+            t3 = time.perf_counter()
+            noise, rows, flips = forced_replay(eng, prompts, base)
+            t4 = time.perf_counter()
+            colls = OT.collective_instructions(decode_ops(eng))
+            planes = sum(p.numel() * 4 for m in eng.params.modules()
+                         if isinstance(getattr(m, "kernel", None),
+                                       PreparedQuantizedTensor)
+                         for g in m.kernel.groups for p in g.planes)
+            ag = [b for k, b in colls if k == "all-gather"]
+            out[tag] = dict(
+                tokens=tokens, admitted=admitted, counts=counts,
+                plane_bytes=planes,
+                launches_per_step=sorted(set(step_launches)),
+                decode_ms_per_step=float(np.mean(step_ms)),
+                decode_ms_per_step_min=float(np.min(step_ms)),
+                all_gathers_per_step=len(ag),
+                all_gather_bytes_per_step=sum(ag),
+                collectives_per_step=collective_counts(colls),
+                capacity_drops=drops.summary(cfg)["decode"],
+                dequantize_ms_per_layer=dequant_ms(moe_lib, eng.params,
+                                                   flush),
+                latent_cache_bytes=(sum(t.numel() * t.element_size()
+                                        for c in eng.cache
+                                        for t in (c.c_kv, c.k_pe))
+                                    if cfg.use_mla else None),
+                gate_rules=rep.rules_run,
+                gate_findings=[(f.rule_id, f.severity.name, f.message[:160])
+                               for f in rep.findings],
+                replay_noise=noise, replay_rows=rows,
+                replay_argmax_flips=flips,
+                seconds=dict(engine=t1 - t0, gate=t2 - t1, serve=t3 - t2,
+                             replay=t4 - t3),
+                stats_mesh=eng.stats()["mesh"])
+            del eng
+            torch.cuda.empty_cache()
+        del whole, base
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out.update(mesh_train_rank(rank, world, device, want_path, span,
+                               setup=moe_train_setup))
+    out["mesh_train_s"] = time.perf_counter() - t0
+    return out
+
+
+def first_divergences(got, want, admitted):
+    """The requests of ``got`` that diverge from ``want`` first in time
+    (``got`` with every other request's tokens replaced by ``want``'s, for
+    ``near_ties``), and the count of the later ones.  A request admitted
+    after k emitting steps emits token 0 from its prefill (time 2k + 1)
+    and token j at step k + j (time 2(k + j)).  Until a first divergence
+    every row of every step saw the single rank's inputs; after it, the
+    MoE's capacity couples every row of a step to the changed one, so a
+    later divergence is a consequence, not a tie to judge."""
+    times = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            j = next(k for k, (a, b) in enumerate(zip(g, w)) if a != b)
+            times[i] = 2 * admitted[i] + 1 if j == 0 \
+                else 2 * (admitted[i] + j)
+    if not times:
+        return got, 0
+    t0 = min(times.values())
+    first = [g if times.get(i) == t0 else w
+             for i, (g, w) in enumerate(zip(got, want))]
+    return first, sum(t > t0 for t in times.values())
+
+
+def phase_moe_mesh(api, dm, ServingEngine, prompts):
+    """16. The moe family (qwen3_moe_30b_a3b, GQA) and MLA with experts
+    (deepseek_v2_236b) on (1, 2) and (2, 1) meshes of two ranks sharing
+    the card: serving and training against one rank, and the dry run
+    against both."""
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist.standin import StandInMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe as moe_lib
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    # the single-rank engines: the baseline tokens, decode logits, drops
+    # and the experts' dequantize
+    base = {}
+    for arch in MOE_MESH_ARCHS:
+        cfg = moe_mesh_cfg(arch)
+        eng = ServingEngine(moe_mesh_model(arch, "cuda"), cfg, n_slots=4,
+                            max_len=256, dtype=torch.bfloat16, device="cuda")
+        with MoeDrops(moe_lib) as drops:
+            base[arch] = drive(eng, prompts, dm, api, cfg,
+                               f"moe_mesh_single_{arch}", prefill_rows=True)
+        base[arch].update(capacity_drops=drops.summary(cfg)["decode"],
+                          dequantize_ms_per_layer=dequant_ms(
+                              moe_lib, eng.params, flush))
+        torch.save({"tokens": base[arch]["tokens"],
+                    "prefill_logits": [r.float().cpu() for r in
+                                       base[arch]["prefill_logits"]],
+                    "decode_logits": [{k: r.float().cpu()
+                                       for k, r in rows.items()}
+                                      for rows in base[arch]["decode_logits"]]},
+                   build / f"phase16_{arch}.pt")
+        del eng
+        torch.cuda.empty_cache()
+    t_base = time.perf_counter() - t0
+    # 16c's single rank and its two-microbatch twin
+    want_path = build / "phase16_params.pt"
+    single_train, span = train_baseline(dm, moe_train_setup, want_path)
+    log("moe train single rank " + json.dumps(single_train))
+    t_train = time.perf_counter() - t0 - t_base
+    try:
+        ranks = mesh_lib.run_local(moe_mesh_rank, 2, prompts, str(want_path),
+                                   span, backend="gloo", device="cuda",
+                                   workdir=str(build))
+        log(f"phase 16: single-rank engines {t_base:.1f} s, single-rank "
+            f"training {t_train:.1f} s, the ranks "
+            f"{time.perf_counter() - t0 - t_base - t_train:.1f} s (their "
+            f"training {ranks[0]['mesh_train_s']:.1f} s)")
+    finally:
+        want_path.unlink(missing_ok=True)
+        for arch in MOE_MESH_ARCHS:
+            (build / f"phase16_{arch}.pt").unlink(missing_ok=True)
+    res = {f"single_rank_{a}": {k: v for k, v in base[a].items()
+                                if k not in ("tokens", "decode_logits",
+                                             "prefill_logits")}
+           for a in MOE_MESH_ARCHS}
+    # 16a/b: tokens under the near-tie rule, launches, the gate
+    for arch in MOE_MESH_ARCHS:
+        one = base[arch]
+        for shape in MESH_SHAPES:
+            tag = f"{arch}_{shape[0]}x{shape[1]}"
+            for r, out in enumerate(ranks):
+                rec = out[tag]
+                # the forced replay runs the single rank's batches: a
+                # broken placement would move every row; rounding (a data
+                # rank decodes 2 rows of 4, a model shard sums another
+                # way) flips few, a router near tie moving a row further
+                assert rec["replay_argmax_flips"] <= 0.1 * rec[
+                    "replay_rows"], rec
+                limit = 2 * rec["replay_noise"]
+                first, coupled = first_divergences(rec["tokens"],
+                                                   one["tokens"],
+                                                   rec["admitted"])
+                ties = near_ties(first, one, limit, f"{tag} rank {r}",
+                                 ulps=2)
+                assert rec["stats_mesh"] == {"data": shape[0],
+                                             "model": shape[1]}
+                assert rec["launches_per_step"] == [
+                    one["launches_per_decode_step"]], rec["launches_per_step"]
+                assert rec["counts"]["launches"] > 0
+                assert (shape[1] == 1 or ("HLO-AG1" in rec["gate_rules"]
+                                          and "HLO-CB1" in rec["gate_rules"])
+                        ), rec["gate_rules"]
+                assert not [f for f in rec["gate_findings"]
+                            if f[0] in ("HLO-AG1", "HLO-CB1")], rec
+                rec = {k: v for k, v in rec.items()
+                       if k not in ("tokens", "admitted")}
+                rec.update(near_tie_limit=limit, near_ties=len(ties),
+                           coupled_divergences=coupled,
+                           tokens_equal=out[tag]["tokens"] == one["tokens"],
+                           single_rank=dict(
+                               capacity_drops=one["capacity_drops"],
+                               dequantize_ms_per_layer=one[
+                                   "dequantize_ms_per_layer"],
+                               decode_ms_per_step=one["decode_ms_per_step"],
+                               launches_per_decode_step=one[
+                                   "launches_per_decode_step"]))
+                res[f"{tag}_rank{r}"] = rec
+                log(f"{tag} rank {r} " + json.dumps(rec))
+    # 16c: 15a's rules
+    res["train_single_rank"] = single_train
+    res["largest_loss_gap"] = check_train_ranks(single_train, ranks, res,
+                                                "moe mesh train")
+    # 16d: the dry run's collectives against the measured ones
+    predicted = {}
+    traced = dryrun.trace_cell(
+        moe_mesh_cfg("qwen3_moe"), ShapeCell("moe_decode", 256, 4, "decode"),
+        StandInMesh({"data": 1, "model": 2}), quant="2.12")
+    predicted["qwen3_moe_decode_1x2"] = collective_counts(
+        OT.collective_instructions(traced["trace"]))
+    for r in range(len(ranks)):
+        got = res[f"qwen3_moe_1x2_rank{r}"]["collectives_per_step"]
+        assert got == predicted["qwen3_moe_decode_1x2"], (r, got, predicted)
+    tcfg, _, _ = moe_train_setup()
+    for shape in MESH_SHAPES:
+        tag = f"train_{shape[0]}x{shape[1]}"
+        traced = dryrun.trace_cell(
+            tcfg, ShapeCell(tag, TRAIN_S, TRAIN_B, "train"),
+            StandInMesh({"data": shape[0], "model": shape[1]}))
+        predicted[tag] = collective_counts(
+            OT.collective_instructions(traced["trace"]))
+        for r in range(len(ranks)):
+            got = res[f"{tag}_rank{r}"]["collectives_per_step"]
+            assert got == predicted[tag], (tag, r, got, predicted[tag])
+    res["dry_run_predicted"] = predicted
+    log("moe dry run predicted = measured " + json.dumps(predicted))
+    t_roof = time.perf_counter()
+    roof = {}
+    for arch, shape in (("deepseek_v2_236b", "decode_32k"),
+                        ("qwen3_moe_30b_a3b", "train_4k")):
+        cell = dryrun.run_cell(arch, shape, False)
+        assert cell["status"] == "ok", cell
+        roof[f"{arch}|{shape}"] = dict(
+            roofline=cell["roofline"],
+            collectives=cell["per_device"]["collectives"],
+            trace_s=cell["compile_s"])
+    res["roofline_single_production_mesh"] = roof
+    log("dry-run roofline on the single production mesh (16x16 = 256 "
+        "cards; a model on the H100 data sheet's figures, not a "
+        f"measurement; {time.perf_counter() - t_roof:.1f} s) "
+        + json.dumps(roof))
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 16 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not __debug__:
         print("chip_smoke: run without -O; its checks are asserts",
@@ -3405,6 +3809,13 @@ def main() -> int:
 
     # 1. device
     t_start = time.perf_counter()
+    lap_at = [t_start]
+
+    def lap(what):
+        """Log the seconds since the previous lap: the phases just run."""
+        now = time.perf_counter()
+        log(f"{what} took {now - lap_at[0]:.1f} s")
+        lap_at[0] = now
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -3422,6 +3833,7 @@ def main() -> int:
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
+    lap("phases 1-2")
 
     # 3. small-input reference (card vs CPU): dense, moe, moe + MLA, and
     # a dense use_mla model (its chunked prefill and speculation too)
@@ -3434,6 +3846,7 @@ def main() -> int:
     phase_small_mla(api, ServingEngine, SpecConfig, small_mla,
                     phase_small_reference(api, ServingEngine, small_mla, gen,
                                           host_gen, tag="dense use_mla"))
+    lap("phase 3")
 
     # 4. full-width serving
     full = get_config("llama1_7b")
@@ -3442,18 +3855,21 @@ def main() -> int:
     cfg = dataclasses.replace(full, n_layers=SERVE_DEPTH)
     serve, model, prompts = phase_serve(api, dm, ServingEngine,
                                         module_tensors, cfg, gen, host_gen)
+    lap("phase 4")
 
     # 4b. the same target served speculatively, with a synthetic draft
     spec, draft, limit = phase_spec_serve(api, dm, ServingEngine, SpecConfig,
                                           cfg, model, prompts, serve)
     spec_self = self_draft(api, dm, ServingEngine, SpecConfig, cfg, model,
                            prompts, serve, limit, "spec_self_serve")
+    lap("phase 4b")
 
     # 4c. the same model from a page pool: fp, int8, shared prefixes,
     # speculation
     paged = phase_paged_serve(api, dm, ServingEngine, SpecConfig, cfg, model,
                               prompts, serve, spec, spec_self, draft, limit,
                               host_gen)
+    lap("phase 4c")
 
     # 9. the control plane: preempt/resume, guards and faults, chunked
     # prefill, an overload storm under the SLO controller, the wall clock
@@ -3470,6 +3886,7 @@ def main() -> int:
              "storm_wall_clock": control["storm"]["wall_clock"]}
     m9 = set().union(*(r["kernel_m"] for r in runs9.values()))
     assert {1, 4 * (GAMMA // 2 + 1)} <= m9, sorted(m9)
+    lap("phase 9")
 
     # 5. kernel vs plain version at the shapes the serve phase ran, on the
     # served model's first plan of each matrix shape (the "aligned" cases
@@ -3496,9 +3913,11 @@ def main() -> int:
         dm, ops, plan, ref, served, new_m9, gen, host_gen,
         modes=("aligned", "gathered"), dtypes=(torch.bfloat16,))
     max_err = max(max_err, max_err_9)
+    lap("phase 5")
 
     # 6. the same model and prompts with int8 activations (K1e)
     serve8 = phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts)
+    lap("phase 6")
 
     # 13. the contract gate on the card over phase 4's model, contiguous
     # and on int8 pages (the moe, rwkv and hybrid engines get theirs in
@@ -3511,30 +3930,37 @@ def main() -> int:
             kv_layout="paged", page_size=PAGE_SIZE, kv_dtype="int8"),
         "refusal": contract_refusal(api, ServingEngine, small)}
     gate_s = time.perf_counter() - t13
+    lap("phase 13")
 
     # 14a. phase 4's model and prompts on a one-rank nccl mesh
-    t14 = time.perf_counter()
     mesh_1x1 = phase_mesh_one_rank(api, dm, ServingEngine, cfg, model,
                                    prompts, serve)
-    t14 = time.perf_counter() - t14
     del model
     torch.cuda.empty_cache()
     # 14b-d. two ranks sharing the card (meshes (1, 2), (2, 1)), the
     # shard-local K1/K1e, the row-sharded quantizer
     dist_runs = phase_distribution(api, dm, ops, plan, ServingEngine,
                                    prompts, gen, host_gen)
-    log(f"phase 14 took {t14 + dist_runs['phase_s']:.1f} s")
+    lap("phase 14")
 
     # 15. training on (1, 2) and (2, 1) meshes of two ranks sharing the
     # card, held to one rank; the dry run's collectives against 14b's and
     # 15a's measured ones; the production mesh's roofline
     mesh_train_runs = phase_mesh_train(dm, dist_runs)
+    lap("phase 15")
+
+    # 16. the moe family and MLA with experts on (1, 2) and (2, 1) meshes
+    # of two ranks sharing the card: serving and training held to one
+    # rank, the dry run's collectives to the measured ones
+    moe_mesh = phase_moe_mesh(api, dm, ServingEngine, prompts)
+    lap("phase 16")
 
     # 7. K1e vs plain version at every M phase 6 gave it
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
                                      serve8["kernel_m"], gen, host_gen,
                                      act="int8")
     torch.cuda.empty_cache()
+    lap("phase 7")
 
     # 11. qwen3_moe_30b_a3b at full width (MOE_DEPTH layers): routed
     # experts dequantized + einsum, every other quantized matmul on K1
@@ -3567,11 +3993,11 @@ def main() -> int:
     max_err, max_err8 = max(max_err, max_err_ns), max(max_err8, max_err8_ns)
     del served_new, served_d
     torch.cuda.empty_cache()
+    lap("phases 11-11b and their kernel checks")
 
     # 12. rwkv6_7b at full width (RWKV_DEPTH layers); 12b. zamba2_1p2b at
     # full width and depth, its ring cache wrapped by a 4200-token prompt;
     # 12c. seamless_m4t_medium at full width and depth through models.api
-    t12 = time.perf_counter()
     rcfg = dataclasses.replace(get_config("rwkv6_7b"), n_layers=RWKV_DEPTH)
     assert (rcfg.d_model, rcfg.n_heads, rcfg.rwkv_head_dim, rcfg.d_ff,
             rcfg.vocab, rcfg.dtype) == (4096, 64, 64, 14336, 65536,
@@ -3605,8 +4031,7 @@ def main() -> int:
                                                        max_err8_fam)
     del served_f, served_z, served_e
     torch.cuda.empty_cache()
-    log(f"phases 12-12c and their kernel checks took "
-        f"{time.perf_counter() - t12:.1f} s")
+    lap("phases 12-12c and their kernel checks")
     contracts.update(qwen3_moe=moe_runs["contiguous"]["contracts"],
                      rwkv6_7b=rwkv_run["contracts"],
                      zamba2_1p2b=zamba_run["contracts"])
@@ -3621,6 +4046,7 @@ def main() -> int:
     # 10. train llama1_7b at full width (QUANT_DEPTH layers), checkpoint
     # asynchronously mid-run, restore into a fresh state, resume
     train, trained = phase_train(api, cfg)
+    lap("phase 10")
 
     # 8. quantize the trained model's target + draft on the card, their
     # perplexities through K1, then serve with int8 activations, vanilla
@@ -3628,6 +4054,7 @@ def main() -> int:
     qserve = phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg,
                                   prompts, trained)
     del trained
+    lap("phase 8")
 
     # 7b. K1e at the M values only phase 8's speculation gave it (the
     # verify's n_slots * (gamma+1), its prefill shapes; phase 7's
@@ -3655,11 +4082,13 @@ def main() -> int:
     max_err = max(max_err, max_err_10)
     del served
     torch.cuda.empty_cache()
+    lap("phase 7b and the M = 2048 checks")
 
     # 10b. the reference benchmarks' trained substrate on the card: the
     # paper's orderings, then speculation with its 2-bit draft
     substrate = phase_substrate(api, dm, ops, ServingEngine, SpecConfig, gen)
     max_err = max(max_err, substrate["plan_max_abs_err"])
+    lap("phase 10b")
 
     def record(name, replaces, run, case, err, case_cases, what):
         return {
@@ -3748,12 +4177,20 @@ def main() -> int:
         mesh_single_rank=dict(launches=dist_runs["single_rank"][
             "main_path_launches"]),
         **{tag: {k: v for k, v in run["counts"].items() if k != "int8"}
-           for tag, run in dist_runs.items() if tag.startswith("mesh_")})
+           for tag, run in dist_runs.items() if tag.startswith("mesh_")},
+        **{f"moe_mesh_single_{a}": split(moe_mesh[f"single_rank_{a}"])
+           for a in MOE_MESH_ARCHS},
+        **{f"moe_mesh_{tag}": {k: v for k, v in run["counts"].items()
+                               if k != "int8"}
+           for tag, run in moe_mesh.items()
+           if tag.startswith(MOE_MESH_ARCHS) and "counts" in run})
     kernels[0]["shard_local"] = dist_runs["shard_local"]
     # phase 15's paths train in fp: no K1 or K1e launch, counted
     fp_training = dict(
-        note="phase 15 trains in fp: no quantized matmul, no launch",
+        note="phases 15 and 16c train in fp: no quantized matmul, no launch",
         **{tag: run["k1_launches"] for tag, run in mesh_train_runs.items()
+           if isinstance(run, dict) and "k1_launches" in run},
+        **{f"moe_{tag}": run["k1_launches"] for tag, run in moe_mesh.items()
            if isinstance(run, dict) and "k1_launches" in run})
     kernels[0]["launches_fp_training"] = fp_training
     kernels[1]["launches_fp_training"] = fp_training

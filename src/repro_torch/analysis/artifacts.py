@@ -101,10 +101,11 @@ def dense_twin_params(params):
         W = m.kernel.dequantize(dtype)
         sh = getattr(m.kernel, "shard", None)
         if sh is not None:
-            # a shard-local plan: the whole matrix, gathered once here
+            # a shard-local plan: the whole matrix (an expert stack's
+            # every matrix), gathered once here
             W = collectives.all_gather(
-                F.pad(W, (0, 0, 0, m.kernel.n_padded - W.shape[0])),
-                dim=0)[:sh.rows]
+                F.pad(W, (0, 0, 0, m.kernel.n_padded - W.shape[-2])),
+                dim=-2)[..., :sh.rows, :]
         m.set_kernel(W.transpose(-1, -2).contiguous())
     return twin
 

@@ -56,11 +56,12 @@ STEP_BODIES: Dict[str, Tuple[str, ...]] = {
     "repro_torch/models/modules.py": ("dense", "materialize_kernel",
                                       "rms_norm", "layer_norm", "embed"),
     "repro_torch/models/mla.py": (
-        "_project_q", "_latent_kv", "mla_attention", "_expanded",
-        "_absorbed_weights", "_absorbed_rows", "_absorbed_decode",
-        "_absorbed_span"),
+        "_project_q", "_latent_kv", "mla_attention", "head_block",
+        "_output", "_expanded", "_absorbed_weights", "_absorbed_rows",
+        "_absorbed_decode", "_absorbed_span"),
     "repro_torch/models/moe.py": ("expert_weight", "top_k", "capacity",
-                                  "moe_mlp"),
+                                  "_placed", "_gathered", "_dp_rows",
+                                  "moe_mlp", "_routed"),
     "repro_torch/models/rwkv6.py": ("_token_shift", "_wkv_chunked",
                                     "time_mix", "channel_mix"),
     "repro_torch/models/mamba2.py": ("_conv_apply", "_ssd_chunked",

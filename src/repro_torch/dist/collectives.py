@@ -25,7 +25,13 @@ forward-only code and its op trace is unchanged):
 
   * ``all_gather``'s backward is this rank's slice of the gradient: the
     gathered activation is replicated downstream, so every model rank
-    holds the same upstream gradient and nothing is reduced;
+    holds the same upstream gradient and nothing is reduced.  Where the
+    downstream is NOT replicated (the MoE gathers its input rows over
+    "dp", routes them all and keeps its own: each data rank's gradient
+    is its own rows' part), ``all_gather(..., replicated_grad=False)``
+    sums the gradient over the axis first (a reduce-scatter);
+  * ``all_sum``'s backward is ``all_sum`` of the gradient (a sum's
+    adjoint);
   * ``replicated`` is the identity on the replicated input of a sharded
     op, and its backward sums the gradient over the axis: each rank's
     input gradient is a partial (its own output columns' ``dY_r W_r^T``,
@@ -112,14 +118,17 @@ def _real(x: torch.Tensor, mesh) -> bool:
 
 
 def all_gather(x: torch.Tensor, dim: int, axis: str = "model",
-               mesh=None) -> torch.Tensor:
+               mesh=None, replicated_grad: bool = True) -> torch.Tensor:
     """Concatenate every rank's ``x`` along ``dim``, in rank order along
-    mesh dim ``axis`` (the active mesh unless ``mesh`` is given)."""
+    mesh dim ``axis`` (the active mesh unless ``mesh`` is given).
+    ``replicated_grad=False``: the ranks' downstream gradients differ,
+    and the backward sums them over ``axis`` before taking this rank's
+    block."""
     mesh = dctx.get_mesh() if mesh is None else mesh
     if axis_size(mesh, axis) == 1:
         return x
     if _needs_grad(x):
-        return _AllGather.apply(x, dim, axis, mesh)
+        return _AllGather.apply(x, dim, axis, mesh, replicated_grad)
     return _all_gather(x, dim, axis, mesh)
 
 
@@ -145,6 +154,19 @@ def all_reduce_(x: torch.Tensor, axis: str = "model", mesh=None
         else:
             standin.all_reduce(x, axis_size(mesh, axis))
     return x
+
+
+def all_sum(x: torch.Tensor, axis: str = "model", mesh=None
+            ) -> torch.Tensor:
+    """The sum of ``x`` over mesh dim ``axis`` (a new tensor when the axis
+    has several ranks); when a gradient is needed, its backward sums the
+    gradient over ``axis``."""
+    mesh = dctx.get_mesh() if mesh is None else mesh
+    if axis_size(mesh, axis) == 1:
+        return x
+    if _needs_grad(x):
+        return _AllSum.apply(x, axis, mesh)
+    return all_reduce_(x.clone(), axis, mesh)
 
 
 def sum_one_nonzero(x: torch.Tensor, axis: str = "model",
@@ -175,8 +197,9 @@ def replicated(x: torch.Tensor, axis: str = "model", mesh=None
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, axis, mesh):
+    def forward(ctx, x, dim, axis, mesh, replicated_grad):
         ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        ctx.replicated_grad = replicated_grad
         return _all_gather(x, dim, axis, mesh)
 
     @staticmethod
@@ -184,7 +207,21 @@ class _AllGather(torch.autograd.Function):
         parts = axis_size(ctx.mesh, ctx.axis)
         n = g.shape[ctx.dim] // parts
         index = coordinate(ctx.mesh, ctx.axis)
-        return g.narrow(ctx.dim, index * n, n), None, None, None
+        if not ctx.replicated_grad:
+            g = all_reduce_(g.contiguous().clone(), ctx.axis, ctx.mesh)
+        return g.narrow(ctx.dim, index * n, n), None, None, None, None
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return all_reduce_(x.clone(), axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.axis, ctx.mesh), \
+            None, None
 
 
 class _SumOneNonzero(torch.autograd.Function):

@@ -13,6 +13,13 @@ reference's rules accept a duck-typed mesh.
 for a compiler to propagate.  The sharded layers place their activations
 explicitly instead (``collectives``), and the engine places params and
 caches by the rules of ``sharding``.
+
+Whether a model call's batch rows are this data rank's block of the
+global batch (a decode step over the rank's slots, a train step over its
+rows) or the whole batch (every data rank prefills every prompt) is
+state of the call, not of its shapes: ``rows_over_dp`` marks the former,
+and layers whose rows are coupled (the MoE's capacity) read it through
+``rows_split``.
 """
 from __future__ import annotations
 
@@ -54,6 +61,40 @@ def use_mesh(mesh):
         yield mesh
     finally:
         _STATE.mesh = prev
+
+
+def rows_split() -> bool:
+    """True inside ``rows_over_dp``: the batch rows of this thread's model
+    calls are this data rank's block of the global batch."""
+    return getattr(_STATE, "rows", False)
+
+
+@contextlib.contextmanager
+def rows_over_dp(split: bool = True):
+    """Mark (``split``) or unmark the batch rows of the model calls inside
+    as this data rank's block of the global batch, in rank order over
+    "dp"."""
+    prev = getattr(_STATE, "rows", False)
+    _STATE.rows = bool(split)
+    try:
+        yield
+    finally:
+        _STATE.rows = prev
+
+
+def snapshot():
+    """This thread's mesh context (the active mesh and ``rows_split``),
+    for ``restore`` on another thread."""
+    return get_mesh(), rows_split()
+
+
+@contextlib.contextmanager
+def restore(state):
+    """Re-enter a ``snapshot`` (a backward's recompute, which the autograd
+    engine may run on a thread of its own)."""
+    mesh, split = state
+    with use_mesh(mesh), rows_over_dp(split):
+        yield
 
 
 def physical_axes(mesh, logical: Optional[str]) -> Tuple[str, ...]:

@@ -29,7 +29,7 @@ serve rule to a live model in place (the engine's ``mesh=``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +40,18 @@ from repro_torch.kernels.plan import PreparedQuantizedTensor, local_plan
 from . import context as dctx
 
 _UNITS = (QuantizedTensor, PreparedQuantizedTensor)
+
+# the families whose layers take placed weights on a multi-rank mesh (GQA
+# or MLA attention, SwiGLU or expert MLPs)
+MESH_FAMILIES = ("dense", "moe")
+
+
+def unported_family(cfg) -> Optional[str]:
+    """Why ``cfg`` cannot run on a multi-rank mesh yet, or None."""
+    if cfg.family in MESH_FAMILIES:
+        return None
+    return (f"the {cfg.family} family on a multi-rank mesh (recurrent "
+            f"state, the encoder-decoder) is queued in ROADMAP.md, Queue 1")
 
 
 class PartitionSpec(tuple):
@@ -323,10 +335,12 @@ def place_model(model, cfg, mesh) -> Dict[str, int]:
 
     One departure from the rule, so that no product sums partial products
     across ranks (tokens stay bitwise the single device's) and no weight
-    moves at use: a dense matrix the rule splits on its CONTRACTION dim
-    (a kernel's input dim, which the largest-dim pick takes for a square
-    or a wide-input matrix; a tied embedding's model dim) is split on its
-    other dim instead, or kept whole when that dim does not divide.
+    moves at use: a dense kernel ((in, out), or an (E, in, out) expert
+    stack) the rule splits on any dim but its out dim (the contraction
+    dim, which the largest-dim pick takes for a square or a wide-input
+    matrix; an expert stack's E) is split on its out dim instead, or kept
+    whole when that dim does not divide; a tied embedding split on its
+    model dim (contracted by the logits) is split on vocab instead.
     The reference's stacked layer axis is never split by the serve rule
     for a served config; a spec that splits it is refused.  Tensors and
     plans placed already are left as they are."""
@@ -362,12 +376,13 @@ def place_model(model, cfg, mesh) -> Dict[str, int]:
             if split is None or hasattr(t, "_model_shard"):
                 continue
             dim, parts = split
-            # the contraction dim of a product stays whole: the other dim
-            # splits instead, or the matrix stays whole
-            contracted = ((bname == "kernel" and t.dim() == 2 and dim == 0)
-                          or (bname == "embedding" and tied and dim == 1))
-            if contracted:
-                dim = 1 - dim
+            # a kernel splits on its out dim (never a contraction dim or
+            # an expert stack's E), a tied embedding on vocab, or the
+            # tensor stays whole
+            want = {"kernel": t.dim() - 1,
+                    "embedding": 0 if tied else dim}.get(bname, dim)
+            if want != dim:
+                dim = want
                 if not _shardable(t.shape[dim], parts):
                     continue
             n = t.shape[dim] // parts

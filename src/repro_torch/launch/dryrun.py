@@ -23,10 +23,12 @@ The JSON keeps the reference's keys.  ``per_device.hlo_flops`` /
 ``hlo_bytes`` are the op stream's (there is no HLO in eager torch),
 ``xla_cost_flops_1iter`` is torch's own ``FlopCounterMode`` count (it
 cannot see K1 on meta tensors, which the op stream charges), and
-``temp_bytes`` is None (meta tensors have no allocator).  A family the
-port does not shard yet (moe, MLA, rwkv, the hybrid, encdec) gets
-``"status": "not_ported"`` with the reason: counted in the final line,
-neither an error nor a skip.
+``temp_bytes`` is None (meta tensors have no allocator).  A moe cell
+takes ``moe_groups`` = the data shards (halved until the tokens divide),
+as the reference's does, so a data rank routes whole groups of its own
+rows.  A family the port does not shard yet (rwkv, the hybrid, encdec)
+gets ``"status": "not_ported"`` with the reason: counted in the final
+line, neither an error nor a skip.
 """
 from __future__ import annotations
 
@@ -281,14 +283,20 @@ def _plan_struct(qt, bn: int):
 
 def install_standins(model, cfg, qcfg, plan_bn: int) -> None:
     """Set every block matrix the quantizer would quantize (its
-    ``block_matrices``) to a stand-in plan."""
+    ``block_matrices``) and every expert stack to a stand-in plan (a
+    stack's: stacked on E, as ``launch.quantize`` stacks the experts)."""
     from repro_torch.launch.quantize import block_matrices
+    from repro_torch.models.moe import MoE
     for key in ("blocks", "enc_blocks", "dec_blocks"):
         for block in getattr(model, key, None) or ():
-            for _, m in list(block_matrices(block)):
-                d_in, d_out = m.kernel.shape
-                m.set_kernel(_plan_struct(
-                    _qt_struct(1, d_out, d_in, qcfg)[0], plan_bn))
+            mats = list(block_matrices(block))
+            if isinstance(getattr(block, "mlp", None), MoE):
+                mats += [(n, getattr(block.mlp, n))
+                         for n in ("w_gate", "w_up", "w_down")]
+            for _, m in mats:
+                *stack, d_in, d_out = m.kernel.shape
+                m.set_kernel(_plan_struct(_qt_struct(
+                    1, d_out, d_in, qcfg, stack=tuple(stack))[0], plan_bn))
 
 
 # ---------------------------------------------------------------------------
@@ -350,10 +358,13 @@ def trace_cell(cfg, cell, mesh, quant: Optional[str] = None, *,
             args = (list(module_tensors(model)), local, cache)
             if cell.kind == "prefill":
                 def fn():
-                    return api.prefill_step(model, cfg, local, cache)
+                    with dctx.rows_over_dp():
+                        return api.prefill_step(model, cfg, local, cache)
             else:
                 def fn():
-                    return api.decode_step(model, cfg, local["token"], cache)
+                    with dctx.rows_over_dp():
+                        return api.decode_step(model, cfg, local["token"],
+                                               cache)
         with FlopCounterMode(display=False) as fc:
             out, trace = op_trace.record(fn)
     inputs = {id(t) for t in op_trace._tensors(args)}
@@ -449,16 +460,6 @@ def analyze(f: dict, cfg, mesh, cell) -> dict:
     }
 
 
-def not_ported(cfg) -> Optional[str]:
-    """Why the port cannot shard ``cfg`` on a multi-rank mesh yet, or
-    None."""
-    if cfg.family == "dense" and not cfg.use_mla:
-        return None
-    return (f"{cfg.family}{' (MLA)' if cfg.use_mla else ''} on a "
-            f"multi-rank mesh (expert placement, the latent cache, "
-            f"recurrent state) is queued in ROADMAP.md, Queue 1")
-
-
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              quant: Optional[str] = None) -> dict:
     cfg0 = get_config(arch)
@@ -466,7 +467,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     ok, reason = cell_applicable(cfg0, cell)
     if not ok:
         return {"status": "skipped", "reason": reason}
-    why = not_ported(cfg0)
+    why = shd.unported_family(cfg0)
     if why is not None:
         return {"status": "not_ported", "reason": why}
     t0 = time.time()

@@ -8,10 +8,19 @@ directly against the latent cache (c_kv, k_pe), so a token costs
 kv_lora + rope_head_dim cache entries (576 for the 236B config) instead
 of 2 * H * head_dim.  Caches are updated in place, as ``layers`` does.
 
-``dctx.constrain`` (the reference's sharding hints) has no meaning on one
-device and is left out.  Span decode (speculative verify) runs the
-absorbed decode's einsums row by row, so on the CPU a verify is bitwise
-S successive absorbed decodes (as ``layers._span_decode_attention``).
+Span decode (speculative verify) runs the absorbed decode's einsums row
+by row, so on the CPU a verify is bitwise S successive absorbed decodes
+(as ``layers._span_decode_attention``).
+
+``dctx.constrain`` (the reference's sharding hints) has no counterpart.
+On a mesh, attention is head-parallel over "model" where
+``dist.sharding.place_model`` placed ``kv_up`` (its out dim, whole heads:
+a CLAQ plan's N block, a dense kernel's column block): the rank takes its
+heads of the replicated q, runs the absorbed decode and span on its own
+rows of ``kv_up`` (expanded prefill and training on its heads of the
+replicated K/V), and the heads are all-gathered before ``o``, as
+``layers.gqa_attention`` does.  Where ``kv_up`` stays whole every rank
+runs every head.  The latent caches are whole on every model rank.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+
+from repro_torch.dist import collectives as coll
 
 from . import layers as L
 from . import modules as M
@@ -136,10 +147,15 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg, cache=None,
         positions = cache.length[:, None].long() + positions
     q_nope, q_pe = _project_q(p, x, cfg, positions)
     c_kv, k_pe = _latent_kv(p, x, cfg, positions)
+    heads = head_block(p, cfg)
+    if heads is not None:
+        # under a gradient each rank's q gradient is its heads' part
+        q_nope, q_pe = (coll.replicated(t)[:, :, heads] for t in (q_nope,
+                                                                  q_pe))
 
     if cache is None:
-        out = _expanded(p, q_nope, q_pe, c_kv, k_pe, cfg, 0, None)
-        return M.dense(p.o, out.reshape(B, S, H * dv)), None
+        out = _expanded(p, q_nope, q_pe, c_kv, k_pe, cfg, 0, None, heads)
+        return _output(p, out, heads, B, S, H * dv), None
     new_len = cache.length + S
     if isinstance(cache, PagedMLACache):
         if S > 1 and not span:
@@ -183,19 +199,58 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg, cache=None,
         cache.k_pe[:, pos] = k_pe.to(cache.k_pe.dtype)
         new_cache = MLACache(cache.c_kv, cache.k_pe, new_len)
         out = _expanded(p, q_nope, q_pe, cache.c_kv, cache.k_pe, cfg, start,
-                        new_len)
-    return M.dense(p.o, out.reshape(B, S, H * dv)), new_cache
+                        new_len, heads)
+    return _output(p, out, heads, B, S, H * dv), new_cache
 
 
-def _expanded(p: MLA, q_nope, q_pe, c_kv, k_pe, cfg, q_off, kv_len):
+def head_block(p: MLA, cfg) -> Optional[slice]:
+    """This rank's heads where ``kv_up`` is placed over "model" (its out
+    block, which must be whole heads), else None (every head)."""
+    k = p.kv_up.kernel
+    width = cfg.head_dim + cfg.v_head_dim
+    if isinstance(k, M._QUANTIZED):
+        sh = getattr(k, "shard", None)
+        if sh is None:
+            return None
+        n, index = k.n_padded, sh.index
+        whole = n * sh.parts == sh.rows and n % width == 0
+    else:
+        sh = coll.model_shard(k)
+        if sh is None:
+            return None
+        n, index = k.shape[1], sh[2]
+        whole = n % width == 0
+    if not whole:
+        raise NotImplementedError(
+            f"kv_up's placed block of {n} rows is not whole heads of "
+            f"{width}: place it on a model axis that divides the heads")
+    return slice(index * n // width, (index + 1) * n // width)
+
+
+def _output(p: MLA, out, heads, B, S, width):
+    """``o`` over the attention output (B, S, heads, dv), its heads
+    all-gathered over "model" first when this rank ran its own."""
+    if heads is not None:
+        out = coll.all_gather(out, dim=2)
+    return M.dense(p.o, out.reshape(B, S, width))
+
+
+def _expanded(p: MLA, q_nope, q_pe, c_kv, k_pe, cfg, q_off, kv_len,
+              heads=None):
     """The train/prefill path: K/V expanded from every latent row given
     (the whole cache at prefill, as the reference does), then blocked
-    causal attention."""
+    causal attention (over this rank's ``heads`` of the replicated K/V on
+    a mesh)."""
     B, Skv, _ = c_kv.shape
     H, dn, dr, dv = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
                      cfg.v_head_dim)
     dt = q_nope.dtype
     kv = M.dense(p.kv_up, c_kv.to(dt)).reshape(B, Skv, H, dn + dv)
+    if heads is not None:
+        # every head reads k_pe: a rank's gradient is its heads' part
+        kv = coll.replicated(kv)[:, :, heads]
+        k_pe = coll.replicated(k_pe)
+    H = kv.shape[2]
     k = torch.cat([kv[..., :dn], k_pe[:, :, None, :].to(dt).expand(
         B, Skv, H, dr)], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
@@ -206,9 +261,10 @@ def _expanded(p: MLA, q_nope, q_pe, c_kv, k_pe, cfg, q_off, kv_len):
 
 def _absorbed_weights(p: MLA, cfg):
     """(w_uk (kv_lora, H, dn), w_uv (kv_lora, H, dv)) from ``kv_up``
-    (dequantized to bf16 when quantized, as in the reference)."""
-    H, dn = cfg.n_heads, cfg.head_dim
-    kv_up = M.materialize_kernel(p.kv_up).reshape(cfg.kv_lora, H,
+    (dequantized to bf16 when quantized, as in the reference); a placed
+    ``kv_up`` gives this rank's heads."""
+    dn = cfg.head_dim
+    kv_up = M.materialize_kernel(p.kv_up).reshape(cfg.kv_lora, -1,
                                                   dn + cfg.v_head_dim)
     return kv_up[..., :dn], kv_up[..., dn:]
 

@@ -11,13 +11,28 @@ SwiGLU whose quantized matmuls run K1.
 
 Departures from the reference, each deliberate:
 
-  * ``dctx.constrain`` (the reference's sharding hints) has no meaning on
-    one device and is left out;
+  * ``dctx.constrain`` (the reference's sharding hints) has no
+    counterpart: on a mesh the placement is explicit (below);
   * top-k is a stable descending sort, so ties pick the lower expert index
     first, as ``jax.lax.top_k`` does (``torch.topk`` promises no order);
   * the combine gathers each token's k gated slots and sums them in k
     order from zero: the reference's scatter-add order, deterministic on
     the card where ``index_add_`` uses atomics.
+
+On a (data, model) mesh.  ``dist.sharding.place_model`` splits an expert
+stack on its out dim over "model" (a CLAQ stack along N into whole tiles,
+a dense (E, in, out) stack on ``out``; never E, never a contraction dim),
+or keeps it whole.  A placed stack dequantizes only its own rows, and
+each expert product's out block is all-gathered over "model" before the
+next product reads it (gate and up: their SwiGLU product once).  The
+reference routes the global batch in ``cfg.moe_groups`` groups, so where
+the rows are this data rank's block (``dctx.rows_split``: a decode step,
+a train step) the port routes the same problem: locally when the rank's
+rows are whole groups (``moe_groups`` a multiple of the data size), the
+aux loss's two means averaged over "dp" before their product where a
+gradient is taken (serving never reads aux); otherwise it all-gathers
+the rows over "dp", routes every row and keeps its own, the gather's
+backward summing over "dp".
 """
 from __future__ import annotations
 
@@ -26,6 +41,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import context as dctx
 
 from . import layers as L
 from . import modules as M
@@ -87,13 +105,87 @@ def capacity(tg: int, cfg) -> int:
     return max(int(slots), 1)  # contract: ok — host numbers, not a tensor
 
 
+def _placed(w: M.Dense) -> bool:
+    """Whether an expert stack holds this rank's out block only."""
+    k = w.kernel
+    if isinstance(k, M._QUANTIZED):
+        return getattr(k, "shard", None) is not None
+    return coll.model_shard(k) is not None
+
+
+def _gathered(y: torch.Tensor, w: M.Dense) -> torch.Tensor:
+    """An expert product's out block (``y``'s last dim, from ``w``'s
+    weight), all-gathered over "model" when ``w`` is placed (a plan's
+    padding rows dropped), else ``y``."""
+    k = w.kernel
+    if isinstance(k, M._QUANTIZED):
+        sh = getattr(k, "shard", None)
+        if sh is None:
+            return y
+        if y.shape[-1] < k.n_padded:
+            y = F.pad(y, (0, k.n_padded - y.shape[-1]))
+        return coll.all_gather(y, dim=-1)[..., :sh.rows]
+    return y if coll.model_shard(k) is None else coll.all_gather(y, dim=-1)
+
+
+def _dp_rows(x: torch.Tensor, mesh, axes):
+    """(every data rank's rows of ``x`` in rank order over "dp", this
+    rank's block index); the gather's backward sums over "dp"."""
+    index = 0
+    for a in axes:
+        index = index * coll.axis_size(mesh, a) + coll.coordinate(mesh, a)
+    for a in reversed(axes):
+        x = coll.all_gather(x, dim=0, axis=a, mesh=mesh,
+                            replicated_grad=False)
+    return x, index
+
+
 def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y, aux loss).  Routing is per token, top_k experts.
     ``stats`` (a dict), when given, gets ``dropped``: the (device) count of
-    assignments past capacity."""
+    assignments past capacity (over every data rank's rows)."""
+    E, G = cfg.n_experts, cfg.moe_groups
+    mesh = dctx.get_mesh()
+    axes = (dctx.physical_axes(mesh, "dp")
+            if mesh is not None and dctx.rows_split() else ())
+    dp = 1
+    for a in axes:
+        dp *= coll.axis_size(mesh, a)
+    gather = dp > 1 and G % dp != 0
+    if gather:
+        rows, index = _dp_rows(x, mesh, axes)
+        y, fracs, dropped = _routed(p, rows, cfg, G, stats is not None)
+        y = y[index * x.shape[0]:(index + 1) * x.shape[0]]
+    else:
+        y, fracs, dropped = _routed(p, x, cfg, G // dp, stats is not None)
+    local = dp > 1 and not gather
+    if stats is not None:
+        if local:
+            for a in axes:
+                dropped = coll.all_reduce_(dropped, a, mesh)
+        stats["dropped"] = dropped
+
+    # ---- shared experts + aux loss ------------------------------------------
+    if p.shared is not None:
+        y = y + L.swiglu_mlp(p.shared, x)
+    frac_tokens, frac_probs = fracs
+    if local and torch.is_grad_enabled():
+        both = torch.stack([frac_tokens, frac_probs])
+        for a in axes:
+            both = coll.all_sum(both, a, mesh)
+        frac_tokens, frac_probs = both / dp
+    # load-balance loss (Switch): E * sum_e f_e * p_e
+    aux = E * torch.sum(frac_tokens * frac_probs)
+    return y.to(x.dtype), aux
+
+
+def _routed(p: MoE, x: torch.Tensor, cfg, G: int, drops: bool):
+    """The routed experts of ``x`` (B, S, D) in ``G`` groups: (y in the
+    experts' dtype, (frac_tokens, frac_probs) over these rows, with
+    ``drops`` the count of assignments past capacity, else None)."""
     B, S, D = x.shape
-    E, K, G = cfg.n_experts, cfg.top_k, cfg.moe_groups
+    E, K = cfg.n_experts, cfg.top_k
     T = B * S
     assert T % G == 0, (T, G)
     Tg = T // G
@@ -116,8 +208,6 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
     pos_all = torch.cumsum(onehot, dim=1) - 1
     pos = torch.gather(pos_all, -1, flat_e[..., None])[..., 0]
     keep = pos < cap                                        # not dropped
-    if stats is not None:
-        stats["dropped"] = (~keep).sum()
 
     # ---- dispatch: (G, E, cap) slot -> source token -------------------------
     tok_ids = torch.arange(Tg, device=dev)[None, :, None].expand(
@@ -131,15 +221,20 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
     dispatched = torch.gather(x_pad, 1, d_tok[..., None].expand(
         G, E * cap, D)).reshape(G, E, cap, D)
 
-    # ---- expert FFN ---------------------------------------------------------
+    # ---- expert FFN: placed stacks multiply their own out block ------------
     M.record_expert_inputs(p, "expert_in", dispatched)
-    h_g = torch.einsum("gecd,edf->gecf", dispatched,
+    # w_gate and w_up have one shape (and one tile): they place alike
+    xin = coll.replicated(dispatched) if _placed(p.w_gate) else dispatched
+    h_g = torch.einsum("gecd,edf->gecf", xin,
                        expert_weight(p.w_gate, x.dtype))
-    h_u = torch.einsum("gecd,edf->gecf", dispatched,
+    h_u = torch.einsum("gecd,edf->gecf", xin,
                        expert_weight(p.w_up, x.dtype))
-    h = F.silu(h_g) * h_u
+    h = _gathered(F.silu(h_g) * h_u, p.w_gate)
     M.record_expert_inputs(p, "expert_mid", h)
-    out = torch.einsum("gecf,efd->gecd", h, expert_weight(p.w_down, x.dtype))
+    if _placed(p.w_down):
+        h = coll.replicated(h)
+    out = _gathered(torch.einsum("gecf,efd->gecd", h,
+                                 expert_weight(p.w_down, x.dtype)), p.w_down)
 
     # ---- combine: each token's k gated slots, summed in k order -------------
     gates_flat = torch.where(keep, gate_vals.reshape(G, Tg * K), 0.0)
@@ -151,14 +246,8 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
     y = torch.zeros((G, Tg, D), dtype=out.dtype, device=dev)
     for j in range(K):
         y = y + src[:, :, j]
-    y = y.reshape(B, S, D)
-
-    # ---- shared experts + aux loss ------------------------------------------
-    if p.shared is not None:
-        y = y + L.swiglu_mlp(p.shared, x)
-    # load-balance loss (Switch): E * sum_e f_e * p_e
     frac_tokens = torch.mean((gate_idx[..., None] == experts).float(),
                              dim=(0, 1, 2))
     frac_probs = torch.mean(probs, dim=(0, 1))
-    aux = E * torch.sum(frac_tokens * frac_probs)
-    return y.to(x.dtype), aux
+    return (y.reshape(B, S, D), (frac_tokens, frac_probs),
+            (~keep).sum() if drops else None)

@@ -253,11 +253,11 @@ def _apply(blk, x, cfg, cache, span, remat):
     if remat:
         # the recompute runs in the backward, which the autograd engine
         # runs on a thread of its own for CUDA tensors: it re-enters the
-        # forward's mesh there (the sharded layers read it)
-        mesh = dctx.get_mesh()
+        # forward's mesh context there (the sharded layers read it)
+        state = dctx.snapshot()
         return checkpoint(block_apply, blk, x, cfg, use_reentrant=False,
                           context_fn=lambda: (contextlib.nullcontext(),
-                                              dctx.use_mesh(mesh)))
+                                              dctx.restore(state)))
     return block_apply(blk, x, cfg, cache, span=span)
 
 

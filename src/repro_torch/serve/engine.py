@@ -157,10 +157,12 @@ rows.  Every collective is an all-gather or a sum with one non-zero
 term, so on the CPU a sharded engine's tokens are bitwise the single
 device's.  Wall-clock decisions (deadlines, the controller) read rank
 0's clock, broadcast (``_RankZeroClock``), so every rank decides alike.
-A one-rank mesh is accepted for every family; more ranks for the dense
-family with GQA attention (f32 or int8 activations, contiguous or paged,
-with or without speculation).  ``stats()["mesh"]`` is the mesh's
-{"data": dp, "model": tp}.
+A decode step's rows are the data rank's slots (``dctx.rows_over_dp``:
+the MoE routes the global batch from them, see ``models.moe``).  A
+one-rank mesh is accepted for every family; more ranks for the dense and
+moe families with GQA or MLA attention (f32 or int8 activations,
+contiguous or paged, with or without speculation where the family takes
+it).  ``stats()["mesh"]`` is the mesh's {"data": dp, "model": tp}.
 """
 from __future__ import annotations
 
@@ -664,13 +666,10 @@ class ServingEngine:
             raise NotImplementedError(
                 f"mesh dims {tuple(shape)}: the engine serves on a (data, "
                 f"model) mesh; a pod axis is queued in ROADMAP.md")
-        if cfg.family != "dense" or cfg.use_mla:
-            raise TypeError(
-                f"a mesh of {ranks} ranks serves the dense family with GQA "
-                f"attention; {cfg.family}{' (MLA)' if cfg.use_mla else ''} "
-                f"on a multi-rank mesh (expert placement, the latent "
-                f"cache, recurrent state) is queued in ROADMAP.md, Queue 1 "
-                f"— serve it on a one-rank mesh or without one")
+        why = shd.unported_family(cfg)
+        if why is not None:
+            raise TypeError(f"a mesh of {ranks} ranks: {why} — serve it on "
+                            f"a one-rank mesh or without one")
         return ranks
 
     def _collective_dev(self) -> torch.device:
@@ -1879,7 +1878,8 @@ class ServingEngine:
         gate's clones of the target's (the reference's gate lowers the
         target's decode alone)."""
         toks = self._local(to_device(self.last_token, self.device))
-        with nn.activation_quant(self.act_dtype):
+        with nn.activation_quant(self.act_dtype), \
+                dctx.rows_over_dp(self._rows is not None):
             logits, out = api.decode_step(self.params, self.cfg, toks,
                                           self._slot_view(cache))
             cache = self._slot_unview(out, cache)
@@ -1923,7 +1923,8 @@ class ServingEngine:
         self.call_shapes["verify"].add((self.n_slots, gamma + 1))
         cur, d_cols = last, []
         dview = self._slot_view(self.draft_cache)
-        with nn.activation_quant(self.act_dtype):
+        with nn.activation_quant(self.act_dtype), \
+                dctx.rows_over_dp(self._rows is not None):
             for _ in range(gamma):
                 self.sentinel.observe("draft_decode", (self.n_slots,))
                 dlogits, dview = api.decode_step(

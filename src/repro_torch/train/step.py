@@ -15,9 +15,11 @@ blocks.  The batch's leading dim splits over "dp" (``spec_for_batch``);
 each data rank's loss is the mean over its own rows, and every gradient
 is summed over "dp" in f32 and divided by its size (a plain all-reduce,
 as GSPMD's).  The gradients through the sharded layers come from the
-differentiable collectives (``dist.collectives``).  The dense family
-(GQA attention) trains on a multi-rank mesh; any other raises
-``TypeError``, as the engine does.
+differentiable collectives (``dist.collectives``); the loss runs under
+``dist.context.rows_over_dp``, so the MoE routes the global batch (see
+``models.moe``).  The dense and moe families (GQA or MLA attention)
+train on a multi-rank mesh; any other raises ``TypeError``, as the
+engine does.
 """
 from __future__ import annotations
 
@@ -63,13 +65,10 @@ def check_mesh_family(cfg, mesh) -> int:
     ranks = 1
     for n in shape.values():
         ranks *= n
-    if ranks > 1 and (cfg.family != "dense" or cfg.use_mla):
-        raise TypeError(
-            f"a mesh of {ranks} ranks trains the dense family with GQA "
-            f"attention; {cfg.family}{' (MLA)' if cfg.use_mla else ''} "
-            f"on a multi-rank mesh (expert placement, the latent cache, "
-            f"recurrent state) is queued in ROADMAP.md, Queue 1 — train "
-            f"it on one device")
+    why = shd.unported_family(cfg) if ranks > 1 else None
+    if why is not None:
+        raise TypeError(f"a mesh of {ranks} ranks: {why} — train it on one "
+                        f"device")
     return ranks
 
 
@@ -130,13 +129,15 @@ def make_train_step(cfg, optim_cfg: OptimConfig, n_microbatches: int = 1):
         ranks = check_mesh_family(cfg, mesh)
         dev = model.embedding.device
         batch = {k: v.to(dev) for k, v in batch.items()}
+        split = ranks > 1 and shd.MeshAxes(mesh).dp_size > 1
         if ranks > 1:
             batch = local_batch(batch, cfg, mesh)
-        if n_microbatches > 1:
-            loss, grads = accumulated(model, batch)
-        else:
-            loss, grads = single(model, batch)
-        if ranks > 1 and shd.MeshAxes(mesh).dp_size > 1:
+        with dctx.rows_over_dp(split):
+            if n_microbatches > 1:
+                loss, grads = accumulated(model, batch)
+            else:
+                loss, grads = single(model, batch)
+        if split:
             grads = tree_lib.unflatten_tensors(
                 grads, [dp_mean(g, mesh) for g in tree_lib.tensors(grads)])
             loss = dp_mean(loss.reshape(1), mesh)[0]

@@ -277,8 +277,7 @@ def test_one_rank_mesh_serves_every_family_as_no_mesh(one_rank_world, arch):
     assert st["mesh"] == {"data": 1, "model": 1}
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v2_236b",
-                                  "rwkv6_7b", "zamba2_1p2b"])
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b"])
 def test_multi_rank_mesh_refuses_unported_families(arch):
     cfg = t_smoke(arch)
     with pytest.raises(TypeError, match="ROADMAP"):

@@ -281,8 +281,7 @@ def test_mesh_serves_rank0_quantization_whatever_the_threads(runs, arch):
     assert all(len(t) == 4 for t in runs["served"][arch])
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v2_236b",
-                                  "rwkv6_7b", "zamba2_1p2b",
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
                                   "seamless_m4t_medium"])
 def test_multi_rank_mesh_refuses_unported_families(arch):
     cfg = t_smoke(arch)

@@ -178,12 +178,12 @@ def test_run_to_completion_surfaces_unfinished_work(quantized):
 def test_engine_knobs_not_ported_are_rejected(quantized):
     """A mesh is accepted (``mesh=None`` here; multi-rank meshes in
     ``test_torch_dist_serving.py``), and a multi-rank mesh on a family not
-    ported to it (moe) raises; the control plane's knobs and the contract
+    ported to it (rwkv) raises; the control plane's knobs and the contract
     gate are accepted."""
     _, tcfg, _, tm = quantized
-    moe = t_smoke("qwen3_moe_30b_a3b")
+    rwkv = t_smoke("rwkv6_7b")
     with pytest.raises(TypeError, match="ROADMAP"):
-        ServingEngine(tm, moe, n_slots=2, max_len=16, device="cpu",
+        ServingEngine(tm, rwkv, n_slots=2, max_len=16, device="cpu",
                       mesh=SimpleNamespace(shape={"data": 1, "model": 2}))
     eng = ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
                         guards=True, on_pressure="truncate",
