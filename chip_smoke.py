@@ -15,7 +15,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      (exactly the monolithic tokens) and speculation with a synthetic
      2-bit draft (vanilla's tokens except after a near tie);
   4. serve llama1_7b at full width (d 4096, bf16; cut to ``SERVE_DEPTH``
-     = 8 of its 32 layers to keep the script's time) with
+     = 16 of its 32 layers to keep the script's time) with
      synthetic CLAQ AP+OR weights through ``ServingEngine``: 8 requests,
      4 slots, 16 new tokens each, with the kernel's launch counts and a
      ``torch.profiler`` reading of two decode steps (device-busy share,
@@ -110,8 +110,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
      synthetic tokens and CLAQ-quantized on the card, target and 2-bit
      draft from one calibration
      (``launch.quantize.claq_quantize_with_draft``, the recipe of
-     ``launch.serve --bits 2.2 --spec-gamma``), one 4096x1024 matrix also
-     quantized on the CPU and held against the card's (with a full-rank
+     ``launch.serve --bits 2.2 --spec-gamma``), one 4096x4096 matrix also
+     quantized on the CPU (in a process of its own, beside the card's
+     quantization) and held against the card's (with a full-rank
      Hessian); perplexity on 2 eval
      batches (B 4, S 512) of fp, RTN uniform 2-bit, the draft and the
      target (the last two through K1 blocked at M = 2048, launches
@@ -159,7 +160,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      4's model and prompts: tokens exactly phase 4's, ``stats()["mesh"]``
      {"data": 1, "model": 1}; (b) two spawned ranks sharing the card over
      gloo (NCCL refuses two ranks on one device), meshes (1, 2) and
-     (2, 1), serve llama1_7b at full width and ``MESH_DEPTH`` = 2 layers
+     (2, 1), serve llama1_7b at full width and ``MESH_DEPTH`` = 1 layer
      (synthetic AP+OR weights from phase 4's seed) on phase 4's prompts:
      tokens held to a single-rank engine's under the near-tie rule (the
      limit twice each rank's largest |sharded - single-device| logit
@@ -191,7 +192,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      all-gathers and all-reduces (count, bytes) from its op trace, and
      K1's launches (0: fp training); (b) the dry run
      (``launch.dryrun.trace_cell`` on a stand-in mesh, meta tensors) of
-     14b's decode (2 layers, 4 slots, ``max_len`` 256, CLAQ stand-in
+     14b's decode (1 layer, 4 slots, ``max_len`` 256, CLAQ stand-in
      plans) and of 15a's train steps: its collectives must equal the
      measured ones exactly; then ``run_cell``'s roofline for llama1_7b
      decode_32k and train_4k on the single production mesh (a model of
@@ -202,8 +203,18 @@ Phases (any failure raises and ends the run with a non-zero exit):
      layers, synthetic AP+OR weights and expert stacks from the seed,
      phase 4's prompts, 4 slots (a data rank's decode gathers the MoE
      rows over "data" and routes the global batch; a placed expert stack
-     dequantizes its own rows): tokens held to a single-rank engine's
-     under 14b's near-tie rule; per rank plane bytes, K1 launches, a
+     dequantizes its own rows): a forced replay on each rank (the
+     single rank's tokens and router choices, recorded on its own
+     replay) holds every row to the single rank's: capacity drops of
+     every MoE call exactly, the logit noise within
+     ``REPLAY_NOISE_STEPS`` bf16 steps at the row's largest logit, the
+     router's within ``REPLAY_ROUTER_NOISE``, at most ``REPLAY_FLIPS``
+     argmax flips (ceilings from sound runs); the served tokens equal the
+     single rank's except at a first divergence that is a logit near tie
+     (14b's rule at twice the replay's noise) or comes at or after a
+     router choice the replay found differing (a near tie of the
+     router: until then the served run is the replay), the later ones
+     counted; per rank plane bytes, K1 launches, a
      decode step's collectives (count, bytes), capacity drops and the
      experts' dequantize device ms a layer beside the single rank's,
      decode ms a step, and the contract gate's HLO-AG1 / HLO-CB1 with no
@@ -225,10 +236,13 @@ It prints a JSON line of kernel records, then, as its last line,
 """
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import functools
 import json
+import multiprocessing
+import os
 import socket
 import subprocess
 import sys
@@ -245,7 +259,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL, RTOL = 1e-3, 1e-4
 LLAMA_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))   # (out, in)
 BIT_MIX = (0.05, 0.05)             # shares of 3- and 4-bit columns
-SERVE_DEPTH = 8                    # layers of phases 4-7 and 9's llama1_7b
+SERVE_DEPTH = 16                   # layers of phases 4-7 and 9's llama1_7b
 QUANT_DEPTH = 1                    # layers of the phase-8 model
 GAMMA = 4                          # speculation window of the new phases
 PAGE_SIZE = 16
@@ -272,8 +286,7 @@ CKPT_STEP = 10                     # the async save, and the resume point
 MICRO_STEP = 15                    # the one step at n_microbatches=2
 PROFILE_TRAIN_STEP = 3             # two train steps from the 4th profiled
 EVAL_BATCHES = 2                   # phase 8's perplexity batches
-CARD_CPU_COLS = 1024               # phase 8's card-vs-CPU matrix: 4096 x this
-MOE_DEPTH = 2                      # layers of phase 11's qwen3_moe_30b_a3b
+MOE_DEPTH = 4                      # layers of phase 11's qwen3_moe_30b_a3b
 RWKV_DEPTH = 8                     # layers of phase 12's rwkv6_7b
 RWKV_CHECK_LEN = 100               # 12's chunked prefill vs recurrent decode
 RING_PROMPT = 4200                 # 12b's long prompt (> attn_window 4096)
@@ -281,7 +294,7 @@ RING_MAX_LEN = 4608
 RING_DECODE = 64                   # decode steps after it (each wraps)
 ENCDEC_FRAMES = (4, 200)           # 12c's seeded frames: batch, S_src
 ENCDEC_PROMPT = 8                  # its decoder prompt tokens
-MESH_DEPTH = 2                     # layers of phase 14b's llama1_7b
+MESH_DEPTH = 1                     # layers of phase 14b's llama1_7b
 MESH_SHAPES = ((1, 2), (2, 1))     # 14b's (data, model) meshes, 2 ranks
 ROWSHARD_N = 512                   # 14d's matrix (rows = cols)
 MESH_TRAIN_STEPS = 3               # 15a's steps on each mesh
@@ -289,6 +302,13 @@ MESH_TRAIN_TRACE = 2               # the step whose op trace 15a records
 MOE_MESH_DEPTH = 2                 # layers of phase 16a's qwen3_moe_30b_a3b
 MOE_MESH_ARCHS = ("qwen3_moe", "deepseek")   # 16a, 16b
 MOE_TRAIN_STEPS = 3                # 16c's steps on each mesh
+REPLAY_NOISE_STEPS = 4.0           # 16's forced replay: the largest logit
+#                                    gap, in bf16 steps at the row's
+#                                    largest logit (sound runs: <= 2.125)
+REPLAY_ROUTER_NOISE = 4e-3         # its largest router probability gap
+#                                    (sound runs: <= 2.19e-3)
+REPLAY_FLIPS = 8                   # its argmax flips in 128 rows (sound
+#                                    runs: <= 4)
 MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
                  v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
@@ -1325,31 +1345,86 @@ def codes_of(qt):
     return out
 
 
-def card_vs_cpu(claq_lib, W, H, qcfg):
-    """Quantize the same W and H on the card and on the CPU: plans must be
+def quantize_on_cpu(W, H, qcfg, threads):
+    """Phase 8's CPU side of the card-vs-CPU check, run in a process of
+    its own beside the card's quantization: W and H (CPU tensors)
+    quantized on ``threads`` threads.  Returns (column bits, reserve
+    counts, codes in original column order as uint8, proxy loss,
+    seconds)."""
+    sys.path.insert(0, str(REPO / "src"))
+    torch.set_num_threads(threads)
+    from repro_torch.core import claq as claq_lib
+    plan = claq_lib.plan_matrix(W, qcfg)
+    t0 = time.perf_counter()
+    q, _, stats = claq_lib.quantize_matrix(W, H, qcfg, plan)
+    return (plan.column_bits, plan.reserve_counts,
+            codes_of(q).to(torch.uint8), stats.proxy_loss,
+            time.perf_counter() - t0)
+
+
+def quantize_on_card(claq_lib, W, H, qcfg):
+    """The card's side of the check, W and H on the card: the same tuple
+    as ``quantize_on_cpu``, the codes on the host."""
+    plan = claq_lib.plan_matrix(W, qcfg)
+    t0 = time.perf_counter()
+    q, _, stats = claq_lib.quantize_matrix(W, H, qcfg, plan)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (plan.column_bits, plan.reserve_counts,
+            codes_of(q).cpu().to(torch.uint8), stats.proxy_loss, secs)
+
+
+def card_vs_cpu(card, cpu):
+    """Hold the same W and H quantized on the card and on the CPU (each a
+    ``quantize_on_card`` / ``quantize_on_cpu`` tuple): plans must be
     equal; returns the share of equal codes (all, the first 512 columns,
     and by quarter of the columns in GPTQ order) and both proxy losses."""
-    plans, out, secs = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        Wd, Hd = W.to(dev), H.to(dev)
-        plans[dev] = claq_lib.plan_matrix(Wd, qcfg)
-        t0 = time.perf_counter()
-        out[dev] = claq_lib.quantize_matrix(Wd, Hd, qcfg, plans[dev])
-        torch.cuda.synchronize()
-        secs[dev] = time.perf_counter() - t0
-    assert np.array_equal(plans["cuda"].column_bits, plans["cpu"].column_bits)
-    assert np.array_equal(plans["cuda"].reserve_counts,
-                          plans["cpu"].reserve_counts)
-    eq = (codes_of(out["cuda"][0]).cpu() == codes_of(out["cpu"][0])).float()
+    assert np.array_equal(card[0], cpu[0])
+    assert np.array_equal(card[1], cpu[1])
+    eq = (card[2] == cpu[2]).float()
     q = eq.shape[1] // 4
-    lg, lc = out["cuda"][2].proxy_loss, out["cpu"][2].proxy_loss
+    lg, lc = card[3], cpu[3]
     return dict(codes_equal=float(eq.mean()),
                 codes_equal_first_512=float(eq[:, :512].mean()),
                 codes_equal_by_quarter=[float(eq[:, i * q:(i + 1) * q].mean())
                                         for i in range(4)],
                 proxy_loss_card=lg, proxy_loss_cpu=lc,
                 proxy_loss_rel_diff=abs(lg - lc) / abs(lc),
-                card_s=secs["cuda"], cpu_s=secs["cpu"])
+                card_s=card[4], cpu_s=cpu[4])
+
+
+def quantize_pipeline(claq_lib, lq, model, dcfg, calib, qcfg):
+    """The launcher's pipeline on the card (``--bits 2.2 --spec-gamma``):
+    one calibration, the 2-bit draft then the target, timed per matrix.
+    Returns (seconds, seconds per matrix, target, its report, draft, its
+    report)."""
+    seconds = {"draft": {}, "target": {}}
+    inner = claq_lib.quantize_matrix
+    n_mats = 7 * QUANT_DEPTH
+    done = []
+
+    def timed(W, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = inner(W, *a, **k)
+        torch.cuda.synchronize()
+        part = "draft" if len(done) < n_mats else "target"
+        seconds[part].setdefault("x".join(map(str, W.shape)), []).append(
+            time.perf_counter() - t)
+        done.append(1)
+        return r
+
+    claq_lib.quantize_matrix = timed
+    try:
+        t0 = time.perf_counter()
+        (model, report), (draft, drep) = lq.claq_quantize_with_draft(
+            model, dcfg, calib, qcfg, draft_bits=2)
+        quant_s = time.perf_counter() - t0
+    finally:
+        claq_lib.quantize_matrix = inner
+    torch.cuda.empty_cache()
+    assert len(done) == 2 * n_mats
+    return quant_s, seconds, model, report, draft, drep
 
 
 def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
@@ -1357,7 +1432,7 @@ def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
     """Quantize phase 10's trained full-width llama1_7b (``QUANT_DEPTH``
     layers) on the card with the launcher's recipe for ``--bits 2.2
     --spec-gamma``: one calibration, a 2-bit draft and the AP target
-    (``claq_quantize_with_draft``); hold one 4096x1024 matrix against the
+    (``claq_quantize_with_draft``); hold one 4096x4096 matrix against the
     CPU; print perplexity on ``EVAL_BATCHES`` batches (B ``TRAIN_B``, S
     ``TRAIN_S``) for fp, RTN uniform 2-bit (dense), the draft and the
     target (K1 blocked at M = B * S, launches counted); serve the target
@@ -1397,51 +1472,35 @@ def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
     # proxy loss to 1e-3, on a full-rank Hessian (Gaussian activations,
     # 16384 rows).  (Layer 0's calibration Hessians have rank <= the
     # number of distinct tokens and agree less; PERF.md keeps their
-    # reading, which is left out here for the script's time.)
-    W = model.blocks[0].attn.q.kernel.float().T[:, :CARD_CPU_COLS] \
-        .contiguous()
+    # reading, which is left out here for the script's time.)  The CPU's
+    # side runs in a process of its own while the card quantizes (the
+    # card's quantizer is host-bound on one thread: the CPU's threads
+    # leave it two cores).
+    del hessians
+    W = model.blocks[0].attn.q.kernel.float().T.contiguous()
     X = torch.randn((16384, W.shape[1]), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(
                         SEED + 4))
     gauss = 2.0 * (X.T @ X) / X.shape[0]
     del X
-    full = card_vs_cpu(claq_lib, W, gauss, qcfg)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        on_cpu = pool.submit(quantize_on_cpu, W.cpu(), gauss.cpu(), qcfg,
+                             max(1, (os.cpu_count() or 1) - 2))
+        on_card = quantize_on_card(claq_lib, W, gauss, qcfg)
+        del gauss
+        quant_s, seconds, model, report, draft, drep = quantize_pipeline(
+            claq_lib, lq, model, dcfg, calib, qcfg)
+        full = card_vs_cpu(on_card, on_cpu.result())
+    finally:
+        pool.shutdown(cancel_futures=True)
     checks = {"gaussian_16384_rows": full}
-    log(f"quantize card-vs-cpu 4096x{CARD_CPU_COLS} gaussian_16384_rows "
+    log("quantize card-vs-cpu 4096x4096 gaussian_16384_rows "
         + json.dumps(full))
     assert full["codes_equal_first_512"] >= 0.99, full
     assert full["proxy_loss_rel_diff"] <= 1e-3, full
-    del gauss
-
-    # the launcher's pipeline on the card (``--bits 2.2 --spec-gamma``):
-    # one calibration, the 2-bit draft then the target, timed per matrix
-    seconds = {"draft": {}, "target": {}}
-    inner = claq_lib.quantize_matrix
     n_mats = 7 * QUANT_DEPTH
-    done = []
-
-    def timed(W, *a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = inner(W, *a, **k)
-        torch.cuda.synchronize()
-        part = "draft" if len(done) < n_mats else "target"
-        seconds[part].setdefault("x".join(map(str, W.shape)), []).append(
-            time.perf_counter() - t)
-        done.append(1)
-        return r
-
-    del hessians
-    claq_lib.quantize_matrix = timed
-    try:
-        t0 = time.perf_counter()
-        (model, report), (draft, drep) = lq.claq_quantize_with_draft(
-            model, dcfg, calib, qcfg, draft_bits=2)
-        quant_s = time.perf_counter() - t0
-    finally:
-        claq_lib.quantize_matrix = inner
-    torch.cuda.empty_cache()
-    assert len(done) == 2 * n_mats
     assert len(report.stats) == len(drep.stats) == n_mats
     assert 2.15 < report.mean_effective_bits < 2.25, report.mean_effective_bits
     assert 2.0 <= drep.mean_effective_bits < report.mean_effective_bits
@@ -1851,9 +1910,9 @@ class MoeDrops:
         self.lib, self.inner, self.calls = moe_lib, moe_lib.moe_mlp, []
 
     def __enter__(self):
-        def counted(p, x, cfg, stats=None):
+        def counted(p, x, cfg, stats=None, **kw):
             st = {}
-            out = self.inner(p, x, cfg, st)
+            out = self.inner(p, x, cfg, st, **kw)
             self.calls.append((x.shape[1] == 1, x.shape[0] * x.shape[1],
                                st["dropped"]))
             return out
@@ -3484,25 +3543,85 @@ def dequant_ms(moe_lib, model, flush, reps=5):
     return time_ms(deq, reps, flush)
 
 
-def forced_replay(eng, prompts, base):
+class Routing:
+    """While open, every call of ``moe.top_k`` (the router's choice of
+    experts) is recorded or forced.  Recording (``forced`` None): each
+    call's experts and router probabilities land in ``calls`` (on the
+    host).  Forcing (``forced``: a recording's ``calls``, made on the same
+    sequence of model calls): each call takes the recorded experts, gated
+    by this run's own probabilities, and ``diffs`` gets (``time``, the
+    recorded k-th minus (k+1)-th probability) for every row whose own
+    choice of experts differs from the recorded set; ``noise`` is the
+    largest |own - recorded| probability."""
+
+    def __init__(self, moe_lib, forced=None):
+        self.lib, self.inner, self.forced = moe_lib, moe_lib.top_k, forced
+        self.calls, self.diffs, self.noise, self.time = [], [], 0.0, 0
+
+    def __enter__(self):
+        def chosen(probs, k):
+            if self.forced is None:
+                vals, idx = self.inner(probs, k)
+                self.calls.append((idx.cpu(), probs.float().cpu()))
+                return vals, idx
+            want_idx, want_p = self.forced[len(self.calls)]
+            self.calls.append(None)
+            own = self.inner(probs, k)[1].cpu()
+            self.noise = max(self.noise, float(
+                (probs.float().cpu() - want_p).abs().max()))
+            top = torch.sort(want_p, dim=-1, descending=True).values
+            margin = top[..., k - 1] - top[..., k]
+            moved = (torch.sort(own, -1).values
+                     != torch.sort(want_idx, -1).values).any(-1)
+            self.diffs += [(self.time, float(m)) for m in margin[moved]]
+            idx = want_idx.to(probs.device)
+            return torch.gather(probs, -1, idx), idx
+        self.lib.top_k = chosen
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.top_k = self.inner
+
+
+def bf16_step_at(row) -> float:
+    """One bf16 step at a logits row's largest magnitude."""
+    return float(2.0 ** (np.floor(np.log2(float(row.abs().max()))) - 7))
+
+
+def forced_replay(eng, prompts, base, moe_lib, routing=None):
     """Serve ``prompts`` again through ``eng`` with every sampled token
     forced to the single rank's (``base``: its tokens, batch-1 prefill
-    rows and decode logits rows, on the host), so every step runs the
-    single rank's batch; returns (the largest |mesh - single| logit gap
-    over every emitted row, the rows, the rows whose argmax is not the
-    single rank's token).  The logits are all-gathered over "data" to be
-    read (one more collective a step, this replay's only)."""
+    rows and decode logits rows, on the host) and, given the single
+    rank's ``routing`` (a ``Routing`` recording of this replay on the
+    single rank), every router choice forced to its experts: every step
+    runs the single rank's batch through the single rank's experts, so
+    what is left between the two is rounding.  Without ``routing`` the
+    router choices are recorded.  Returns the largest |replay - single|
+    logit gap over every emitted row (``noise``, and in bf16 steps at the
+    row's largest logit, ``noise_steps``), the rows, the rows whose argmax
+    is not the single rank's token (``flip_deficits``: the single rank's
+    logit of its token over its logit of the replay's argmax there), each
+    MoE call's capacity drops, the router's noise and its differing
+    choices (time, the single rank's margin there; times as
+    ``first_divergences`` counts them), and the recording.  The logits are
+    all-gathered over "data" to be read (one more collective a step, this
+    replay's only)."""
     order, pending = [], list(prompts)
     index = {}
     admitted = []
-    stats = dict(noise=0.0, rows=0, flips=0)
+    st = dict(noise=0.0, noise_steps=0.0, rows=0, flip_deficits=[])
 
     def held(row, want_row, token):
         row = row.float().cpu()
-        stats["noise"] = max(stats["noise"],
-                             float((row - want_row).abs().max()))
-        stats["rows"] += 1
-        stats["flips"] += int(row.argmax()) != token
+        gap = float((row - want_row).abs().max())
+        st["noise"] = max(st["noise"], gap)
+        st["noise_steps"] = max(st["noise_steps"],
+                                gap / bf16_step_at(want_row))
+        st["rows"] += 1
+        top = int(row.argmax())
+        if top != token:
+            st["flip_deficits"].append(float(want_row[token]
+                                             - want_row[top]))
 
     def forced(logits, slot_rows=False):
         if not slot_rows:                  # a moe prefill: one request
@@ -3519,24 +3638,32 @@ def forced_replay(eng, prompts, base):
             out[req.slot] = base["tokens"][i][k]
         return out, None
 
+    steps = 0
     eng._sample = forced
     try:
-        while pending or eng.active:
-            if pending and eng.free:
-                n = min(len(pending), len(eng.free))
-                batch = [pending.pop(0) for _ in range(n)]
-                uids = list(range(eng._uid, eng._uid + n))
-                index.update({u: len(order) + j for j, u in enumerate(uids)})
-                admitted.extend(uids)
-                got = eng.add_requests(batch, max_new_tokens=MAX_NEW)
-                assert got == uids, (got, uids)
-                order += got
-            eng.step()
+        with Routing(moe_lib, routing) as route, MoeDrops(moe_lib) as drops:
+            while pending or eng.active:
+                if pending and eng.free:
+                    n = min(len(pending), len(eng.free))
+                    batch = [pending.pop(0) for _ in range(n)]
+                    uids = list(range(eng._uid, eng._uid + n))
+                    index.update({u: len(order) + j
+                                  for j, u in enumerate(uids)})
+                    admitted.extend(uids)
+                    route.time = 2 * steps + 1
+                    got = eng.add_requests(batch, max_new_tokens=MAX_NEW)
+                    assert got == uids, (got, uids)
+                    order += got
+                route.time = 2 * (steps + 1)
+                steps += bool(eng.step())
     finally:
         del eng._sample
     fin = eng.take_finished()
     assert [fin[u].tokens for u in order] == base["tokens"]
-    return stats["noise"], stats["rows"], stats["flips"]
+    assert routing is None or len(route.calls) == len(routing)
+    return dict(st, drops=[int(d) for _, _, d in drops.calls],
+                router_noise=route.noise, router_diffs=route.diffs,
+                routing=route.calls if routing is None else None)
 
 
 def moe_mesh_rank(rank, world, device, prompts, want_path, span):
@@ -3570,7 +3697,8 @@ def moe_mesh_rank(rank, world, device, prompts, want_path, span):
                 tokens, counts, step_launches, step_ms, admitted = \
                     mesh_serve(eng, prompts, dm)
             t3 = time.perf_counter()
-            noise, rows, flips = forced_replay(eng, prompts, base)
+            replay = forced_replay(eng, prompts, base, moe_lib,
+                                   routing=base["routing"])
             t4 = time.perf_counter()
             colls = OT.collective_instructions(decode_ops(eng))
             planes = sum(p.numel() * 4 for m in eng.params.modules()
@@ -3597,8 +3725,7 @@ def moe_mesh_rank(rank, world, device, prompts, want_path, span):
                 gate_rules=rep.rules_run,
                 gate_findings=[(f.rule_id, f.severity.name, f.message[:160])
                                for f in rep.findings],
-                replay_noise=noise, replay_rows=rows,
-                replay_argmax_flips=flips,
+                replay={k: v for k, v in replay.items() if k != "routing"},
                 seconds=dict(engine=t1 - t0, gate=t2 - t1, serve=t3 - t2,
                              replay=t4 - t3),
                 stats_mesh=eng.stats()["mesh"])
@@ -3616,12 +3743,13 @@ def moe_mesh_rank(rank, world, device, prompts, want_path, span):
 def first_divergences(got, want, admitted):
     """The requests of ``got`` that diverge from ``want`` first in time
     (``got`` with every other request's tokens replaced by ``want``'s, for
-    ``near_ties``), and the count of the later ones.  A request admitted
-    after k emitting steps emits token 0 from its prefill (time 2k + 1)
-    and token j at step k + j (time 2(k + j)).  Until a first divergence
-    every row of every step saw the single rank's inputs; after it, the
-    MoE's capacity couples every row of a step to the changed one, so a
-    later divergence is a consequence, not a tie to judge."""
+    ``near_ties``), the count of the later ones and the time of the first
+    (None: no divergence).  A request admitted after k emitting steps
+    emits token 0 from its prefill (time 2k + 1) and token j at step k + j
+    (time 2(k + j)).  Until a first divergence every row of every step saw
+    the single rank's inputs; after it, the MoE's capacity couples every
+    row of a step to the changed one, so a later divergence follows from
+    it (the forced replay holds every row's computation, ``judge_replay``)."""
     times = {}
     for i, (g, w) in enumerate(zip(got, want)):
         if g != w:
@@ -3629,11 +3757,40 @@ def first_divergences(got, want, admitted):
             times[i] = 2 * admitted[i] + 1 if j == 0 \
                 else 2 * (admitted[i] + j)
     if not times:
-        return got, 0
+        return got, 0, None
     t0 = min(times.values())
     first = [g if times.get(i) == t0 else w
              for i, (g, w) in enumerate(zip(got, want))]
-    return first, sum(t > t0 for t in times.values())
+    return first, sum(t > t0 for t in times.values()), t0
+
+
+def judge_replay(rp, single, tag):
+    """Hold a rank's forced replay (``forced_replay`` with the single
+    rank's routing) to the single rank's (``single``: its own replay):
+    every MoE call's capacity drops exactly the single rank's (the same
+    experts chosen, the same groups and capacity); the logit noise at most
+    ``REPLAY_NOISE_STEPS`` bf16 steps at each row's largest logit, the
+    router's at most ``REPLAY_ROUTER_NOISE``, and at most
+    ``REPLAY_FLIPS`` argmax flips (ceilings from sound runs).  A flip, or
+    a router choice that differs, is then a near tie: the single rank's
+    deficit (margin) there is below twice the noise.  Returns the
+    readings, logged."""
+    out = dict(rows=rp["rows"], noise=rp["noise"],
+               noise_steps=rp["noise_steps"], flips=len(rp["flip_deficits"]),
+               largest_flip_deficit=max(rp["flip_deficits"], default=0.0),
+               router_noise=rp["router_noise"],
+               router_differences=len(rp["router_diffs"]),
+               largest_router_margin=max(
+                   (m for _, m in rp["router_diffs"]), default=0.0),
+               drops=sum(rp["drops"]), moe_calls=len(rp["drops"]))
+    log(f"{tag} forced replay " + json.dumps(out))
+    assert rp["rows"] == single["rows"], (tag, rp["rows"], single["rows"])
+    assert rp["drops"] == single["drops"], (tag, rp["drops"],
+                                            single["drops"])
+    assert rp["noise_steps"] <= REPLAY_NOISE_STEPS, (tag, rp)
+    assert rp["router_noise"] <= REPLAY_ROUTER_NOISE, (tag, rp)
+    assert len(rp["flip_deficits"]) <= REPLAY_FLIPS, (tag, rp)
+    return out
 
 
 def phase_moe_mesh(api, dm, ServingEngine, prompts):
@@ -3664,13 +3821,19 @@ def phase_moe_mesh(api, dm, ServingEngine, prompts):
         base[arch].update(capacity_drops=drops.summary(cfg)["decode"],
                           dequantize_ms_per_layer=dequant_ms(
                               moe_lib, eng.params, flush))
-        torch.save({"tokens": base[arch]["tokens"],
-                    "prefill_logits": [r.float().cpu() for r in
-                                       base[arch]["prefill_logits"]],
-                    "decode_logits": [{k: r.float().cpu()
-                                       for k, r in rows.items()}
-                                      for rows in base[arch]["decode_logits"]]},
-                   build / f"phase16_{arch}.pt")
+        host = {"tokens": base[arch]["tokens"],
+                "prefill_logits": [r.float().cpu() for r in
+                                   base[arch]["prefill_logits"]],
+                "decode_logits": [{k: r.float().cpu()
+                                   for k, r in rows.items()}
+                                  for rows in base[arch]["decode_logits"]]}
+        # the single rank replayed on its own tokens, its router choices
+        # recorded: the replay the ranks are forced through
+        replay = forced_replay(eng, prompts, host, moe_lib)
+        host["routing"] = replay.pop("routing")
+        base[arch]["replay"] = replay
+        assert replay["noise"] == 0 and not replay["flip_deficits"], replay
+        torch.save(host, build / f"phase16_{arch}.pt")
         del eng
         torch.cuda.empty_cache()
     t_base = time.perf_counter() - t0
@@ -3693,7 +3856,7 @@ def phase_moe_mesh(api, dm, ServingEngine, prompts):
             (build / f"phase16_{arch}.pt").unlink(missing_ok=True)
     res = {f"single_rank_{a}": {k: v for k, v in base[a].items()
                                 if k not in ("tokens", "decode_logits",
-                                             "prefill_logits")}
+                                             "prefill_logits", "replay")}
            for a in MOE_MESH_ARCHS}
     # 16a/b: tokens under the near-tie rule, launches, the gate
     for arch in MOE_MESH_ARCHS:
@@ -3702,18 +3865,23 @@ def phase_moe_mesh(api, dm, ServingEngine, prompts):
             tag = f"{arch}_{shape[0]}x{shape[1]}"
             for r, out in enumerate(ranks):
                 rec = out[tag]
-                # the forced replay runs the single rank's batches: a
-                # broken placement would move every row; rounding (a data
-                # rank decodes 2 rows of 4, a model shard sums another
-                # way) flips few, a router near tie moving a row further
-                assert rec["replay_argmax_flips"] <= 0.1 * rec[
-                    "replay_rows"], rec
-                limit = 2 * rec["replay_noise"]
-                first, coupled = first_divergences(rec["tokens"],
-                                                   one["tokens"],
-                                                   rec["admitted"])
-                ties = near_ties(first, one, limit, f"{tag} rank {r}",
-                                 ulps=2)
+                # the forced replay: the single rank's tokens and router
+                # choices, so only rounding is left (its ceilings measured
+                # on sound runs)
+                rp = rec["replay"]
+                judged = judge_replay(rp, one["replay"], f"{tag} rank {r}")
+                # the served tokens: until the first router choice that
+                # differs (at a router near tie) the served run IS the
+                # replay, so a first divergence before it is a logit near
+                # tie at the replay's own noise; one after it may follow
+                # from the other expert
+                limit = 2 * rp["noise"]
+                first, coupled, t_first = first_divergences(
+                    rec["tokens"], one["tokens"], rec["admitted"])
+                routed = t_first is not None and any(
+                    t <= t_first for t, _ in rp["router_diffs"])
+                ties = [] if routed else near_ties(
+                    first, one, limit, f"{tag} rank {r}", ulps=2)
                 assert rec["stats_mesh"] == {"data": shape[0],
                                              "model": shape[1]}
                 assert rec["launches_per_step"] == [
@@ -3726,7 +3894,9 @@ def phase_moe_mesh(api, dm, ServingEngine, prompts):
                             if f[0] in ("HLO-AG1", "HLO-CB1")], rec
                 rec = {k: v for k, v in rec.items()
                        if k not in ("tokens", "admitted")}
-                rec.update(near_tie_limit=limit, near_ties=len(ties),
+                rec.update(replay=judged, near_tie_limit=limit,
+                           near_ties=len(ties),
+                           first_divergence_after_a_router_tie=routed,
                            coupled_divergences=coupled,
                            tokens_equal=out[tag]["tokens"] == one["tokens"],
                            single_rank=dict(

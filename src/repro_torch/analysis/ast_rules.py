@@ -53,21 +53,22 @@ STEP_BODIES: Dict[str, Tuple[str, ...]] = {
         "paged_write_ids", "pool_write", "pool_view", "_span_write",
         "gqa_attention", "_decode_attention", "_decode_rows",
         "_span_decode_attention", "swiglu_mlp", "gelu_mlp"),
-    "repro_torch/models/modules.py": ("dense", "materialize_kernel",
-                                      "rms_norm", "layer_norm", "embed"),
+    "repro_torch/models/modules.py": ("dense", "out_block", "gather_out",
+                                      "materialize_kernel", "rms_norm",
+                                      "layer_norm", "embed"),
     "repro_torch/models/mla.py": (
         "_project_q", "_latent_kv", "mla_attention", "head_block",
         "_output", "_expanded", "_absorbed_weights", "_absorbed_rows",
         "_absorbed_decode", "_absorbed_span"),
     "repro_torch/models/moe.py": ("expert_weight", "top_k", "capacity",
-                                  "_placed", "_gathered", "_dp_rows",
-                                  "moe_mlp", "_routed"),
+                                  "_dp_rows", "moe_mlp", "_routed"),
     "repro_torch/models/rwkv6.py": ("_token_shift", "_wkv_chunked",
                                     "time_mix", "channel_mix"),
     "repro_torch/models/mamba2.py": ("_conv_apply", "_ssd_chunked",
                                      "mamba_block"),
     "repro_torch/kernels/ops.py": ("quantize_activations", "group_calls",
-                                   "prepared_qmatmul", "qmatmul"),
+                                   "gather_shards", "prepared_qmatmul",
+                                   "qmatmul"),
     "repro_torch/kernels/dequant_matmul.py": ("dequant_matmul", "take_fill",
                                               "dequant_matmul_plain"),
     "repro_torch/serve/engine.py": ("_decode_batch", "_sample", "to_host",

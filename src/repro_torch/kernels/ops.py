@@ -120,14 +120,16 @@ def group_calls(x2: torch.Tensor, pqt: PreparedQuantizedTensor,
                          "(expected 'kernel' or 'xla')")
 
 
-def _gather_shards(y: torch.Tensor, pqt: PreparedQuantizedTensor
-                   ) -> torch.Tensor:
-    """(M, n_padded) of the plan's own rows -> (M, rows) of its matrix:
-    the shard-local blocks all-gathered over "model" (a whole plan: its
-    padding dropped)."""
+def gather_shards(y: torch.Tensor, pqt) -> torch.Tensor:
+    """(..., n) of the plan's own rows -> (..., rows) of its matrix: a
+    shard-local block (padded to ``n_padded`` where a dequantized block
+    stops at its last real row) all-gathered over "model"; a whole plan's
+    padding dropped."""
     if pqt.shard is None:
-        return y[:, :pqt.rows]
-    return collectives.all_gather(y, dim=-1)[:, :pqt.shard.rows]
+        return y[..., :pqt.rows]
+    if y.shape[-1] < pqt.n_padded:
+        y = torch.nn.functional.pad(y, (0, pqt.n_padded - y.shape[-1]))
+    return collectives.all_gather(y, dim=-1)[..., :pqt.shard.rows]
 
 
 def prepared_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor, *,
@@ -154,7 +156,7 @@ def prepared_qmatmul(x: torch.Tensor, pqt: PreparedQuantizedTensor, *,
                                   **kw)
     if scale is not None and gather == "xla":
         y = y * scale
-    y = _gather_shards(y, pqt)
+    y = gather_shards(y, pqt)
     return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
 
 

@@ -206,25 +206,16 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg, cache=None,
 def head_block(p: MLA, cfg) -> Optional[slice]:
     """This rank's heads where ``kv_up`` is placed over "model" (its out
     block, which must be whole heads), else None (every head)."""
-    k = p.kv_up.kernel
+    blk = M.out_block(p.kv_up.kernel)
+    if blk is None:
+        return None
     width = cfg.head_dim + cfg.v_head_dim
-    if isinstance(k, M._QUANTIZED):
-        sh = getattr(k, "shard", None)
-        if sh is None:
-            return None
-        n, index = k.n_padded, sh.index
-        whole = n * sh.parts == sh.rows and n % width == 0
-    else:
-        sh = coll.model_shard(k)
-        if sh is None:
-            return None
-        n, index = k.shape[1], sh[2]
-        whole = n % width == 0
-    if not whole:
+    n = blk.width
+    if n * blk.parts != blk.total or n % width:
         raise NotImplementedError(
             f"kv_up's placed block of {n} rows is not whole heads of "
             f"{width}: place it on a model axis that divides the heads")
-    return slice(index * n // width, (index + 1) * n // width)
+    return slice(blk.index * n // width, (blk.index + 1) * n // width)
 
 
 def _output(p: MLA, out, heads, B, S, width):

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -210,11 +210,11 @@ def dense(p: Dense, x: torch.Tensor, tap: Optional[str] = None
     if isinstance(kernel, _QUANTIZED):
         y = kops.qmatmul(x, kernel, use_kernel=True,
                          act_dtype=QuantMode.act_dtype)
-    elif coll.model_shard(kernel) is not None:
+    elif out_block(kernel) is not None:
         _maybe_record(p if tap is None else tap, x)
         # this rank's output columns (placement never splits the input
         # dim: see dist.sharding.place_model), all-gathered
-        y = coll.all_gather(coll.replicated(x) @ kernel.to(x.dtype), dim=-1)
+        y = gather_out(coll.replicated(x) @ kernel.to(x.dtype), kernel)
     else:
         _maybe_record(p if tap is None else tap, x)
         y = x @ kernel.to(x.dtype)
@@ -222,6 +222,43 @@ def dense(p: Dense, x: torch.Tensor, tap: Optional[str] = None
         y = coll.elementwise(y, p.bias,
                              lambda a, b: a + b.to(a.dtype))
     return y
+
+
+class OutBlock(NamedTuple):
+    """A placed kernel's out block: its ``width`` (a CLAQ plan's padded
+    rows), ``parts`` and ``index`` along "model", and the ``total`` out
+    dim of the whole kernel."""
+    width: int
+    parts: int
+    index: int
+    total: int
+
+
+def out_block(kernel) -> Optional[OutBlock]:
+    """This rank's out block of a kernel placed over "model" (a
+    shard-local CLAQ plan or stack, or a dense ``(..., in, out)`` tensor
+    split on ``out``: placement never splits a contraction dim), else
+    None."""
+    if isinstance(kernel, _QUANTIZED):
+        sh = getattr(kernel, "shard", None)
+        return None if sh is None else OutBlock(kernel.n_padded, sh.parts,
+                                                sh.index, sh.rows)
+    sh = coll.model_shard(kernel)
+    if sh is None:
+        return None
+    n = kernel.shape[-1]
+    return OutBlock(n, sh[1], sh[2], n * sh[1])
+
+
+def gather_out(y: torch.Tensor, kernel) -> torch.Tensor:
+    """``y`` (..., out block), a product of a placed kernel's own out
+    block, all-gathered over "model" into the kernel's whole out dim (a
+    CLAQ plan's padding dropped); ``y`` itself for a whole kernel."""
+    if out_block(kernel) is None:
+        return y
+    if isinstance(kernel, _QUANTIZED):
+        return kops.gather_shards(y, kernel)
+    return coll.all_gather(y, dim=-1)
 
 
 def materialize_kernel(p: Dense) -> torch.Tensor:

@@ -29,10 +29,11 @@ reference routes the global batch in ``cfg.moe_groups`` groups, so where
 the rows are this data rank's block (``dctx.rows_split``: a decode step,
 a train step) the port routes the same problem: locally when the rank's
 rows are whole groups (``moe_groups`` a multiple of the data size), the
-aux loss's two means averaged over "dp" before their product where a
-gradient is taken (serving never reads aux); otherwise it all-gathers
-the rows over "dp", routes every row and keeps its own, the gather's
-backward summing over "dp".
+aux loss's two means averaged over "dp" before their product; otherwise
+it all-gathers the rows over "dp", routes every row and keeps its own,
+the gather's backward summing over "dp".  A caller that never reads the
+aux loss (a cached forward: serving, the dry run's decode) asks for none
+and spends no collective on it.
 """
 from __future__ import annotations
 
@@ -105,29 +106,6 @@ def capacity(tg: int, cfg) -> int:
     return max(int(slots), 1)  # contract: ok — host numbers, not a tensor
 
 
-def _placed(w: M.Dense) -> bool:
-    """Whether an expert stack holds this rank's out block only."""
-    k = w.kernel
-    if isinstance(k, M._QUANTIZED):
-        return getattr(k, "shard", None) is not None
-    return coll.model_shard(k) is not None
-
-
-def _gathered(y: torch.Tensor, w: M.Dense) -> torch.Tensor:
-    """An expert product's out block (``y``'s last dim, from ``w``'s
-    weight), all-gathered over "model" when ``w`` is placed (a plan's
-    padding rows dropped), else ``y``."""
-    k = w.kernel
-    if isinstance(k, M._QUANTIZED):
-        sh = getattr(k, "shard", None)
-        if sh is None:
-            return y
-        if y.shape[-1] < k.n_padded:
-            y = F.pad(y, (0, k.n_padded - y.shape[-1]))
-        return coll.all_gather(y, dim=-1)[..., :sh.rows]
-    return y if coll.model_shard(k) is None else coll.all_gather(y, dim=-1)
-
-
 def _dp_rows(x: torch.Tensor, mesh, axes):
     """(every data rank's rows of ``x`` in rank order over "dp", this
     rank's block index); the gather's backward sums over "dp"."""
@@ -140,11 +118,12 @@ def _dp_rows(x: torch.Tensor, mesh, axes):
     return x, index
 
 
-def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None,
+            aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y, aux loss).  Routing is per token, top_k experts.
     ``stats`` (a dict), when given, gets ``dropped``: the (device) count of
-    assignments past capacity (over every data rank's rows)."""
+    assignments past capacity (over every data rank's rows).  ``aux``
+    False: the caller never reads the aux loss, returned as 0."""
     E, G = cfg.n_experts, cfg.moe_groups
     mesh = dctx.get_mesh()
     axes = (dctx.physical_axes(mesh, "dp")
@@ -169,15 +148,16 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg, stats: Optional[dict] = None
     # ---- shared experts + aux loss ------------------------------------------
     if p.shared is not None:
         y = y + L.swiglu_mlp(p.shared, x)
+    if not aux:
+        return y.to(x.dtype), torch.zeros((), device=x.device)
     frac_tokens, frac_probs = fracs
-    if local and torch.is_grad_enabled():
+    if local:
         both = torch.stack([frac_tokens, frac_probs])
         for a in axes:
             both = coll.all_sum(both, a, mesh)
         frac_tokens, frac_probs = both / dp
     # load-balance loss (Switch): E * sum_e f_e * p_e
-    aux = E * torch.sum(frac_tokens * frac_probs)
-    return y.to(x.dtype), aux
+    return y.to(x.dtype), E * torch.sum(frac_tokens * frac_probs)
 
 
 def _routed(p: MoE, x: torch.Tensor, cfg, G: int, drops: bool):
@@ -224,17 +204,19 @@ def _routed(p: MoE, x: torch.Tensor, cfg, G: int, drops: bool):
     # ---- expert FFN: placed stacks multiply their own out block ------------
     M.record_expert_inputs(p, "expert_in", dispatched)
     # w_gate and w_up have one shape (and one tile): they place alike
-    xin = coll.replicated(dispatched) if _placed(p.w_gate) else dispatched
+    placed = M.out_block(p.w_gate.kernel) is not None
+    xin = coll.replicated(dispatched) if placed else dispatched
     h_g = torch.einsum("gecd,edf->gecf", xin,
                        expert_weight(p.w_gate, x.dtype))
     h_u = torch.einsum("gecd,edf->gecf", xin,
                        expert_weight(p.w_up, x.dtype))
-    h = _gathered(F.silu(h_g) * h_u, p.w_gate)
+    h = M.gather_out(F.silu(h_g) * h_u, p.w_gate.kernel)
     M.record_expert_inputs(p, "expert_mid", h)
-    if _placed(p.w_down):
+    if M.out_block(p.w_down.kernel) is not None:
         h = coll.replicated(h)
-    out = _gathered(torch.einsum("gecf,efd->gecd", h,
-                                 expert_weight(p.w_down, x.dtype)), p.w_down)
+    out = M.gather_out(torch.einsum("gecf,efd->gecd", h,
+                                    expert_weight(p.w_down, x.dtype)),
+                       p.w_down.kernel)
 
     # ---- combine: each token's k gated slots, summed in k order -------------
     gates_flat = torch.where(keep, gate_vals.reshape(G, Tg * K), 0.0)

@@ -11,7 +11,8 @@ whose every element has ``.length``: one cache per layer (``KVCache`` /
 ``PagedKVCache``, MLA ``MLACache`` / ``PagedMLACache``, ``RWKVCache``,
 ``MambaCache``), the hybrid's layer caches followed by one ring
 ``KVCache`` a shared-attention site (the reference's ``{"mamba",
-"attn"}``).  ``forward`` returns the MoE aux loss summed over layers.
+"attn"}``).  ``forward`` returns the MoE aux loss summed over layers (0
+from a cached forward: serving never reads it).
 With ``cfg.remat`` and grad enabled each block is recomputed in the
 backward pass (``torch.utils.checkpoint``), as the reference remats its
 scan body.  Entry points: init_params, forward, lm_loss, init_cache,
@@ -224,7 +225,8 @@ def block_apply(p: nn.Module, x: torch.Tensor, cfg, cache=None,
     h = M.rms_norm(p.ln2, x, cfg.norm_eps)
     aux = zero
     if cfg.family == "moe":
-        m, aux = moe_lib.moe_mlp(p.mlp, h, cfg)
+        # a cached forward (serving) never reads the aux loss
+        m, aux = moe_lib.moe_mlp(p.mlp, h, cfg, aux=cache is None)
     elif cfg.mlp_type == "gelu":
         m = L.gelu_mlp(p.mlp, h)
     else:

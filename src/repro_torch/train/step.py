@@ -17,7 +17,10 @@ is summed over "dp" in f32 and divided by its size (a plain all-reduce,
 as GSPMD's).  The gradients through the sharded layers come from the
 differentiable collectives (``dist.collectives``); the loss runs under
 ``dist.context.rows_over_dp``, so the MoE routes the global batch (see
-``models.moe``).  The dense and moe families (GQA or MLA attention)
+``models.moe``).  Microbatches are cut from the global batch before a
+data rank takes its block of each, so microbatch i holds the reference's
+rows [i B/n, (i+1) B/n) on every mesh: the MoE's capacity couples a
+microbatch's rows.  The dense and moe families (GQA or MLA attention)
 train on a multi-rank mesh; any other raises ``TypeError``, as the
 engine does.
 """
@@ -97,20 +100,19 @@ def make_train_step(cfg, optim_cfg: OptimConfig, n_microbatches: int = 1):
     metrics), updating the model's tensors in place.
 
     batch leaves have leading dim global_batch (moved to the model's
-    device); with n_microbatches > 1 the (rank's) batch is split on axis
-    0, the gradients are summed in f32 and divided by the count, as is
-    the loss.  Metrics: loss (the mean over the global batch on a mesh),
+    device); with n_microbatches > 1 the global batch is split on axis
+    0 (on a mesh, a data rank then takes its block of each microbatch),
+    the gradients are summed in f32 and divided by the count, as is the
+    loss.  Metrics: loss (the mean over the global batch on a mesh),
     grad_norm, lr (tensors on the device)."""
 
     def single(model, batch):
         loss, _, grads = loss_and_grads(model, cfg, batch)
         return loss, grads
 
-    def accumulated(model, batch):
+    def accumulated(model, micro):
         acc, loss_sum = None, None
-        for i in range(n_microbatches):
-            mb = {k: v.reshape((n_microbatches, v.shape[0] // n_microbatches)
-                               + v.shape[1:])[i] for k, v in batch.items()}
+        for mb in micro:
             loss, _, grads = loss_and_grads(model, cfg, mb)
             if acc is None:
                 acc = tree_lib.tree_map(lambda g: g.float(), grads)
@@ -129,14 +131,20 @@ def make_train_step(cfg, optim_cfg: OptimConfig, n_microbatches: int = 1):
         ranks = check_mesh_family(cfg, mesh)
         dev = model.embedding.device
         batch = {k: v.to(dev) for k, v in batch.items()}
-        split = ranks > 1 and shd.MeshAxes(mesh).dp_size > 1
+        n = n_microbatches
+        micro = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                  for k, v in batch.items()} for i in range(n)]
+        rows = next(iter(micro[0].values())).shape[0]
         if ranks > 1:
-            batch = local_batch(batch, cfg, mesh)
+            micro = [local_batch(mb, cfg, mesh) for mb in micro]
+        # a data rank holds a block of each microbatch's rows (the batch
+        # spec replicates rows that do not divide over "dp")
+        split = next(iter(micro[0].values())).shape[0] < rows
         with dctx.rows_over_dp(split):
-            if n_microbatches > 1:
-                loss, grads = accumulated(model, batch)
+            if n > 1:
+                loss, grads = accumulated(model, micro)
             else:
-                loss, grads = single(model, batch)
+                loss, grads = single(model, micro[0])
         if split:
             grads = tree_lib.unflatten_tensors(
                 grads, [dp_mean(g, mesh) for g in tree_lib.tensors(grads)])

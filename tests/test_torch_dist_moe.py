@@ -18,11 +18,13 @@ and a (2, 2, 1) mesh.  Held:
     its own whole groups), each exactly the single device's at the same
     ``moe_groups``; each rank holds half the plane bytes of every unit
     and the contract gate finds no weight all-gather;
-  * training, 3 AdamW steps (lr 1e-3): every loss and grad norm within
-    rtol 1e-5 of the single-device port's (f32 sums in another order;
-    measured gaps below 1e-6), the aux loss of the initial params within
-    1e-6 of the single device's, the gathered params within 1e-3 of each
-    leaf's largest magnitude (as ``tests/test_torch_dist_train.py``),
+  * training, 3 AdamW steps (lr 1e-3), in one batch and (on (2, 1), both
+    routes) in 2 microbatches: every loss and grad norm within rtol 1e-5
+    of the single-device port's (f32 sums in another order; measured gaps
+    below 1e-6), the aux loss of the initial params, with a gradient and
+    from a no-grad loss, within 1e-6 of the single device's, the gathered
+    params within 1e-3 of each leaf's largest magnitude (as
+    ``tests/test_torch_dist_train.py``),
     and the step-0 loss within 1e-5 of the reference's single-device
     loss on the same numpy tokens;
   * the dry run's collectives (kind and bytes, in order) of a (2, 2)
@@ -120,10 +122,11 @@ def _submesh(shape):
     return mesh["data", "model"]
 
 
-def _train(tree, arch, mesh=None, groups=1):
-    """STEPS train steps from the numpy tree on ``mesh`` (or one device):
-    losses, grad norms, the initial params' aux loss and the whole params
-    after the last step."""
+def _train(tree, arch, mesh=None, groups=1, microbatches=1):
+    """STEPS train steps from the numpy tree on ``mesh`` (or one device),
+    in ``microbatches``: losses, grad norms, the initial params' aux loss
+    (with a gradient, and from a no-grad loss) and the whole params after
+    the last step."""
     from repro_torch.launch.train import gathered_state
     from repro_torch.optim import OptimConfig, init_opt_state
     from repro_torch.train import make_train_step
@@ -134,15 +137,17 @@ def _train(tree, arch, mesh=None, groups=1):
         shd.place_model(model, cfg, mesh)
     ocfg = OptimConfig(**OPT)
     opt = init_opt_state(param_tree(model, cfg), ocfg)
-    step = make_train_step(cfg, ocfg)
+    step = make_train_step(cfg, ocfg, microbatches)
     losses, norms = [], []
     with dctx.use_mesh(mesh):
         batch = {"tokens": torch.from_numpy(_tokens()[0])}
         split = mesh is not None and mesh.shape[0] > 1
+        if split:
+            batch = local_batch(batch, cfg, mesh)
         with dctx.rows_over_dp(split):
-            _, met, _ = loss_and_grads(
-                model, cfg, local_batch(batch, cfg, mesh) if split
-                else batch)
+            _, met, _ = loss_and_grads(model, cfg, batch)
+            with torch.no_grad():
+                aux_eval = float(tapi.loss_fn(model, cfg, batch)[1]["aux"])
         aux = float(met["aux"])
         for t in _tokens():
             model, opt, met = step(model, opt, {"tokens": torch.from_numpy(t)})
@@ -150,7 +155,7 @@ def _train(tree, arch, mesh=None, groups=1):
             norms.append(float(met["grad_norm"]))
         params = (param_tree(model, cfg) if mesh is None
                   else gathered_state(model, cfg, opt, mesh)["params"])
-    return dict(losses=losses, norms=norms, aux=aux,
+    return dict(losses=losses, norms=norms, aux=aux, aux_eval=aux_eval,
                 params=[t.numpy().copy() for t in tree_lib.tensors(params)])
 
 
@@ -206,6 +211,9 @@ def _rank_main(rank, world, dev, fp_trees, q_trees):
         mesh = _submesh((2, 1))
         out[(arch, "groups2")] = _serve(_engine(q_trees[arch], arch, mesh,
                                                 groups=2))
+        for groups in (1, 2):
+            out[(arch, "train_micro", groups)] = _train(
+                fp_trees[arch], arch, mesh, groups=groups, microbatches=2)
         out[(arch, "train_groups2")] = _train(fp_trees[arch], arch, mesh,
                                               groups=2)
         mesh = _submesh((2, 2))
@@ -272,6 +280,9 @@ def runs():
             single[(arch, "train")] = _train(fp_trees[arch], arch)
             single[(arch, "train_groups2")] = _train(fp_trees[arch], arch,
                                                      groups=2)
+            for groups in (1, 2):
+                single[(arch, "train_micro", groups)] = _train(
+                    fp_trees[arch], arch, groups=groups, microbatches=2)
     finally:
         spawn.join()
     assert "ranks" in box, "a rank failed (its error is above)"
@@ -342,6 +353,7 @@ def _close(got, want, tag):
     np.testing.assert_allclose(got["norms"], want["norms"], rtol=LOSS_RTOL,
                                atol=0, err_msg=tag)
     assert abs(got["aux"] - want["aux"]) < AUX_ATOL, tag
+    assert abs(got["aux_eval"] - want["aux"]) < AUX_ATOL, tag
     assert len(got["params"]) == len(want["params"])
     for a, b in zip(got["params"], want["params"]):
         assert a.shape == b.shape, tag
@@ -367,10 +379,25 @@ def test_mesh_training_equals_single_device(runs, arch, shape):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_local_route_trains_as_single_device(runs, arch):
     """moe_groups 2 on (2, 1): the aux loss's means averaged over "data"
-    before their product give the single device's aux and steps."""
+    before their product give the single device's aux (with a gradient
+    and from a no-grad loss) and steps."""
     want = runs["single"][(arch, "train_groups2")]
     for r, out in enumerate(runs["ranks"]):
         _close(out[(arch, "train_groups2")], want, f"{arch} rank {r}")
+
+
+@pytest.mark.parametrize("groups", (1, 2))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_microbatches_on_a_data_mesh_route_the_reference_rows(runs, arch,
+                                                              groups):
+    """2 microbatches on (2, 1), on both MoE routes: microbatch i is the
+    global rows [4i, 4i + 4) that the single device (and the reference)
+    routes together, a data rank holding 2 of them, so capacity drops,
+    losses, the aux loss and the params are the single device's."""
+    want = runs["single"][(arch, "train_micro", groups)]
+    for r, out in enumerate(runs["ranks"]):
+        _close(out[(arch, "train_micro", groups)], want,
+               f"{arch} groups {groups} rank {r}")
 
 
 # ------------------------------------------------------------- dry run
