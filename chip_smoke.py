@@ -231,12 +231,40 @@ Phases (any failure raises and ends the run with a non-zero exit):
      deepseek_v2_236b decode_32k and qwen3_moe_30b_a3b train_4k on the
      single production mesh (a model of 256 cards, not a measurement).
      The phase's time is printed.
+  17. rwkv and the hybrid on a mesh (run after phase 16): two spawned
+     ranks sharing the card over gloo, meshes (1, 2) and (2, 1): (a)
+     rwkv6_7b at full width, ``RWKV_MESH_DEPTH`` = 2 layers, and (b)
+     zamba2_1p2b at full width, ``ZAMBA_MESH_DEPTH`` = 7 layers (sites
+     before layers 0 and 6, two ring caches with KV heads over "model"),
+     synthetic AP+OR weights from the seed, phase 4's prompts, 4 slots:
+     each request's served tokens equal the single rank's up to its first
+     divergence, which must be a near tie within twice
+     ``RECURRENT_REPLAY_NOISE_STEPS`` bf16 steps at the row's largest
+     logit and an argmax flip of the forced replay at the same position
+     (past it the recurrent state carries the other token); a forced
+     replay of the single rank's tokens on each rank holds every prefill
+     and decode row within ``RECURRENT_REPLAY_NOISE_STEPS`` bf16 steps of
+     the single rank's and at most ``RECURRENT_REPLAY_FLIPS`` argmax
+     flips (per family, ceilings from sound runs); per rank the plane
+     bytes (half of every plan whose tiles split on (1, 2)), the recurrent
+     state and ring bytes (half on (2, 1)), K1 launches, decode ms a step,
+     peak memory, a decode step's collectives (count, bytes) equal to the
+     dry run's (plus the engine's one all-gather of the sampled tokens on
+     a data axis), and the gate's HLO-AG1 / HLO-CB1 with no finding; K1
+     against its plain version on both blocks of every shard-local plan
+     the ranks ran, at every M they gave it; (c) rwkv6_7b at full width,
+     1 layer, trained ``RECURRENT_TRAIN_STEPS`` = 3 steps on each mesh
+     under 15a's rules, its steps' collectives equal to the dry run's;
+     then ``run_cell``'s roofline for rwkv6_7b and zamba2_1p2b decode_32k
+     (sites and Mamba2 layers counted apart) on the single production
+     mesh.  The phase's time is printed.
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -309,6 +337,21 @@ REPLAY_ROUTER_NOISE = 4e-3         # its largest router probability gap
 #                                    (sound runs: <= 2.19e-3)
 REPLAY_FLIPS = 8                   # its argmax flips in 128 rows (sound
 #                                    runs: <= 4)
+RWKV_MESH_DEPTH = 2                # layers of phase 17a's rwkv6_7b
+ZAMBA_MESH_DEPTH = 7               # layers of 17b's zamba2_1p2b: sites
+#                                    before layers 0 and 6, two ring caches
+RECURRENT_MESH_ARCHS = ("rwkv", "zamba2")      # 17a, 17b
+RECURRENT_TRAIN_STEPS = 3          # 17c's steps on each mesh
+# 17's forced replay, per family: the largest logit gap in bf16 steps at
+# the row's largest logit, and the argmax flips in its 128 rows; each
+# ceiling is twice the largest of the sound runs (NVIDIA H100 80GB HBM3
+# at 700 W): ``tools/chip_phase17.py`` on prompt seeds 0, 7, 3 and 5 read
+# at most 4.0 steps and 10 flips (seed 5) for rwkv, 17.5 steps and 12
+# flips for zamba2; this script on phase 4's prompts 2.125 / 4 and
+# 31.3125 / 4.  A flip needs a row whose top two logits lie within the
+# noise, so the count follows the prompts.
+RECURRENT_REPLAY_NOISE_STEPS = {"rwkv": 8.0, "zamba2": 64.0}
+RECURRENT_REPLAY_FLIPS = {"rwkv": 20, "zamba2": 24}
 MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
                  v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
@@ -1884,16 +1927,20 @@ def phase_substrate(api, dm, ops, ServingEngine, SpecConfig, gen):
 # ------------------------------------------------------------ phase 11
 
 class KernelShapes:
-    """While open, record the M of every prepared matmul by its (out, in)
-    shape: the (shape, M) pairs a run gave K1."""
+    """While open, record the M of every prepared matmul by ``key(plan)``
+    (default its (out, in) shape; a plan whose key is None is skipped):
+    the (shape, M) pairs a run gave K1."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, key=lambda pqt: tuple(pqt.shape)):
         self.ops, self.inner, self.seen = ops, ops.prepared_qmatmul, {}
+        self.key = key
 
     def __enter__(self):
         def recorded(x, pqt, **kw):
-            self.seen.setdefault(tuple(pqt.shape), set()).add(
-                int(np.prod(x.shape[:-1])))
+            k = self.key(pqt)
+            if k is not None:
+                self.seen.setdefault(k, set()).add(
+                    int(np.prod(x.shape[:-1])))
             return self.inner(x, pqt, **kw)
         self.ops.prepared_qmatmul = recorded
         return self
@@ -2061,17 +2108,18 @@ def phase_deepseek(api, dm, ops, ServingEngine, cfg, prompts, gen, host_gen):
 
 def phase_new_shapes(dm, ops, served, shapes, gen, act):
     """K1 (act "f32") or K1e ("int8") against its plain version on each
-    served bf16 plan of the moe/MLA configs at every M the serves gave
-    that shape (gathered: AP columns are permuted), each launch on the
-    same inputs; device ms from a CUDA graph beside ``torch.matmul`` on
-    the dequantized weight and the bound.  Returns the records and the
-    largest error."""
+    served bf16 plan (``served[key]``: a whole plan, or a shard-local one)
+    at every M of ``shapes[key]`` (gathered: AP columns are permuted),
+    each launch on the same inputs; device ms from a CUDA graph beside
+    ``torch.matmul`` on the dequantized weight and the bound.  Returns the
+    records and the largest error."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     cases, max_err = [], 0.0
-    for (rows, cols) in sorted(shapes):
-        pqt = served[(rows, cols)]
+    for key in sorted(shapes):
+        pqt = served[key]
+        rows, cols = pqt.shape
         w = pqt.dequantize(torch.bfloat16)
-        for m in sorted(shapes[(rows, cols)]):
+        for m in sorted(shapes[key]):
             x = torch.randn((m, cols), generator=gen,
                             device="cuda").to(torch.bfloat16)
             xk, scale = (ops.quantize_activations(x) if act == "int8"
@@ -2103,6 +2151,9 @@ def phase_new_shapes(dm, ops, served, shapes, gen, act):
                 nb += scale.numel() * scale.element_size()
             bound_ms, by = bound_of(nb, fl, torch.bfloat16)
             rec = dict(shape=f"{rows}x{cols}", m=m, act=act,
+                       block=(None if pqt.shard is None else
+                              f"{pqt.shard.index} of {pqt.shard.parts} "
+                              f"({pqt.shard.rows} rows)"),
                        launches=len(calls), max_abs_err=err,
                        device_ms=graph_ms(run, 5, flush),
                        library_device_ms=graph_ms(
@@ -3588,7 +3639,7 @@ def bf16_step_at(row) -> float:
     return float(2.0 ** (np.floor(np.log2(float(row.abs().max()))) - 7))
 
 
-def forced_replay(eng, prompts, base, moe_lib, routing=None):
+def forced_replay(eng, prompts, base, moe_lib=None, routing=None):
     """Serve ``prompts`` again through ``eng`` with every sampled token
     forced to the single rank's (``base``: its tokens, batch-1 prefill
     rows and decode logits rows, on the host) and, given the single
@@ -3596,22 +3647,24 @@ def forced_replay(eng, prompts, base, moe_lib, routing=None):
     single rank), every router choice forced to its experts: every step
     runs the single rank's batch through the single rank's experts, so
     what is left between the two is rounding.  Without ``routing`` the
-    router choices are recorded.  Returns the largest |replay - single|
-    logit gap over every emitted row (``noise``, and in bf16 steps at the
-    row's largest logit, ``noise_steps``), the rows, the rows whose argmax
-    is not the single rank's token (``flip_deficits``: the single rank's
-    logit of its token over its logit of the replay's argmax there), each
-    MoE call's capacity drops, the router's noise and its differing
-    choices (time, the single rank's margin there; times as
-    ``first_divergences`` counts them), and the recording.  The logits are
-    all-gathered over "data" to be read (one more collective a step, this
-    replay's only)."""
+    router choices are recorded (a family without experts, ``moe_lib``
+    None: neither routing nor drops).  Returns the largest |replay -
+    single| logit gap over every emitted row (``noise``, and in bf16 steps
+    at the row's largest logit, ``noise_steps``), the rows, the rows whose
+    argmax is not the single rank's token (``flip_deficits``: the single
+    rank's logit of its token over its logit of the replay's argmax there;
+    ``flips_at``: their (request, token position)), each MoE call's
+    capacity drops, the router's noise and its differing choices (time, the
+    single rank's margin there; times as ``first_divergences`` counts
+    them), and the recording.  The logits are all-gathered over "data" to
+    be read (one more collective a step, this replay's only)."""
     order, pending = [], list(prompts)
     index = {}
     admitted = []
-    st = dict(noise=0.0, noise_steps=0.0, rows=0, flip_deficits=[])
+    st = dict(noise=0.0, noise_steps=0.0, rows=0, flip_deficits=[],
+              flips_at=[])
 
-    def held(row, want_row, token):
+    def held(row, want_row, token, at):
         row = row.float().cpu()
         gap = float((row - want_row).abs().max())
         st["noise"] = max(st["noise"], gap)
@@ -3622,26 +3675,32 @@ def forced_replay(eng, prompts, base, moe_lib, routing=None):
         if top != token:
             st["flip_deficits"].append(float(want_row[token]
                                              - want_row[top]))
+            st["flips_at"].append(at)
 
     def forced(logits, slot_rows=False):
-        if not slot_rows:                  # a moe prefill: one request
+        if not slot_rows:   # a moe prefill, or one of distinct length
             assert logits.shape[0] == 1, logits.shape
             i = index[admitted.pop(0)]
-            held(logits[0], base["prefill_logits"][i], base["tokens"][i][0])
+            held(logits[0], base["prefill_logits"][i], base["tokens"][i][0],
+                 (i, 0))
             return np.array([base["tokens"][i][0]]), None
         rows = eng._gather_rows(logits)
         out = np.zeros((eng.n_slots,), np.int64)
         for uid, req in eng.active.items():
             i, k = index[uid], len(req.tokens)
             held(rows[req.slot], base["decode_logits"][i][k],
-                 base["tokens"][i][k])
+                 base["tokens"][i][k], (i, k))
             out[req.slot] = base["tokens"][i][k]
         return out, None
 
     steps = 0
     eng._sample = forced
     try:
-        with Routing(moe_lib, routing) as route, MoeDrops(moe_lib) as drops:
+        with contextlib.ExitStack() as stack:
+            route = drops = None
+            if moe_lib is not None:
+                route = stack.enter_context(Routing(moe_lib, routing))
+                drops = stack.enter_context(MoeDrops(moe_lib))
             while pending or eng.active:
                 if pending and eng.free:
                     n = min(len(pending), len(eng.free))
@@ -3650,16 +3709,20 @@ def forced_replay(eng, prompts, base, moe_lib, routing=None):
                     index.update({u: len(order) + j
                                   for j, u in enumerate(uids)})
                     admitted.extend(uids)
-                    route.time = 2 * steps + 1
+                    if route is not None:
+                        route.time = 2 * steps + 1
                     got = eng.add_requests(batch, max_new_tokens=MAX_NEW)
                     assert got == uids, (got, uids)
                     order += got
-                route.time = 2 * (steps + 1)
+                if route is not None:
+                    route.time = 2 * (steps + 1)
                 steps += bool(eng.step())
     finally:
         del eng._sample
     fin = eng.take_finished()
     assert [fin[u].tokens for u in order] == base["tokens"]
+    if route is None:
+        return st
     assert routing is None or len(route.calls) == len(routing)
     return dict(st, drops=[int(d) for _, _, d in drops.calls],
                 router_noise=route.noise, router_diffs=route.diffs,
@@ -3955,6 +4018,366 @@ def phase_moe_mesh(api, dm, ServingEngine, prompts):
     return res
 
 
+# ------------------------------------------------------ recurrent on a mesh
+
+def recurrent_mesh_cfg(arch):
+    """17a's rwkv6_7b at full width, ``RWKV_MESH_DEPTH`` layers; 17b's
+    zamba2_1p2b at full width, ``ZAMBA_MESH_DEPTH`` layers (two sites)."""
+    from repro_torch.configs import get_config
+    if arch == "rwkv":
+        return dataclasses.replace(get_config("rwkv6_7b"),
+                                   n_layers=RWKV_MESH_DEPTH)
+    return dataclasses.replace(get_config("zamba2_1p2b"),
+                               n_layers=ZAMBA_MESH_DEPTH)
+
+
+def recurrent_mesh_model(arch, device):
+    """17a/b's model: synthetic AP+OR weights from the seed (the same on
+    every rank and in the parent)."""
+    return synthetic_model(recurrent_mesh_cfg(arch),
+                           torch.Generator(device=device).manual_seed(SEED),
+                           torch.Generator().manual_seed(SEED), device)
+
+
+def rwkv_train_setup():
+    """17c's model config, optimizer config and batches: rwkv6_7b at full
+    width cut to 1 layer (bf16 params, f32 moments), phase 10's schedule,
+    ``RECURRENT_TRAIN_STEPS`` batches of B ``TRAIN_B`` x S ``TRAIN_S``
+    from ``SyntheticCorpus``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.optim import OptimConfig
+    cfg = dataclasses.replace(get_config("rwkv6_7b"), n_layers=1)
+    ocfg = OptimConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                      batch=TRAIN_B, seed=SEED))
+    return cfg, ocfg, [data.batch_at(s)
+                       for s in range(RECURRENT_TRAIN_STEPS)]
+
+
+def shard_key(pqt):
+    """(the whole plan's rows, cols, parts, this block's index) of a
+    shard-local plan, None for a whole one: ``KernelShapes``' key for the
+    shard-local (shape, M) pairs a run gave K1."""
+    sh = pqt.shard
+    return None if sh is None else (sh.rows, pqt.cols, sh.parts, sh.index)
+
+
+HOLDINGS = ("plane_bytes", "shard_local_plans", "whole_plans", "state_bytes",
+            "ring_bytes")
+
+
+def holdings(eng):
+    """Bytes a rank holds: the CLAQ plans' planes (and how many plans are
+    shard-local), the recurrent state (rwkv ``state``/``prev_tm``/
+    ``prev_cm``/``length``, Mamba2 ``conv``/``ssm``/``length``) and the
+    hybrid's ring caches' k and v."""
+    from repro_torch.kernels.plan import PreparedQuantizedTensor
+    from repro_torch.models.layers import KVCache
+    plans = [m.kernel for m in eng.params.modules()
+             if isinstance(getattr(m, "kernel", None),
+                           PreparedQuantizedTensor)]
+    state = ring = 0
+    for c in eng.cache:
+        if isinstance(c, KVCache):
+            ring += sum(t.numel() * t.element_size() for t in (c.k, c.v))
+        else:
+            state += sum(t.numel() * t.element_size() for t in c)
+    return dict(zip(HOLDINGS, (
+        sum(p.numel() * 4 for k in plans for g in k.groups for p in g.planes),
+        sum(k.shard is not None for k in plans),
+        sum(k.shard is None for k in plans), state, ring)))
+
+
+def recurrent_mesh_rank(rank, world, device, prompts, want_path, span):
+    """17a-c on one of the two spawned ranks: per model and mesh of
+    ``MESH_SHAPES`` the served record (tokens, launch counts, the
+    shard-local (shape, M) pairs, the bytes held, decode ms, peak memory,
+    a decode step's collectives, the gate, a forced replay of the single
+    rank's tokens), then 17c's train records."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.analysis.artifacts import decode_ops, verify_engine
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import ServingEngine
+    out = {}
+    for arch in RECURRENT_MESH_ARCHS:
+        cfg = recurrent_mesh_cfg(arch)
+        base = torch.load(REPO / "build" / f"phase17_{arch}.pt")
+        whole = recurrent_mesh_model(arch, device)
+        for shape in MESH_SHAPES:
+            tag = f"{arch}_{shape[0]}x{shape[1]}"
+            mesh = mesh_lib.make_debug_mesh(shape, device_type="cuda")
+            t0 = time.perf_counter()
+            eng = ServingEngine(copy.deepcopy(whole), cfg, n_slots=4,
+                                max_len=256, dtype=torch.bfloat16,
+                                device=device, mesh=mesh)
+            t1 = time.perf_counter()
+            rep = verify_engine(eng, raise_on_error=False)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with KernelShapes(ops, shard_key) as seen:
+                tokens, counts, step_launches, step_ms, admitted = \
+                    mesh_serve(eng, prompts, dm)
+            peak = torch.cuda.max_memory_allocated()
+            t3 = time.perf_counter()
+            replay = forced_replay(eng, prompts, base)
+            t4 = time.perf_counter()
+            colls = OT.collective_instructions(decode_ops(eng))
+            out[tag] = dict(
+                tokens=tokens, admitted=admitted, counts=counts,
+                shard_local_m={k: sorted(v) for k, v in seen.seen.items()},
+                launches_per_step=sorted(set(step_launches)),
+                decode_ms_per_step=float(np.mean(step_ms)),
+                decode_ms_per_step_min=float(np.min(step_ms)),
+                max_memory_allocated_gb=peak / 1e9,
+                collectives_per_step=collective_counts(colls),
+                gate_rules=rep.rules_run,
+                gate_findings=[(f.rule_id, f.severity.name, f.message[:160])
+                               for f in rep.findings],
+                replay=replay,
+                seconds=dict(engine=t1 - t0, gate=t2 - t1, serve=t3 - t2,
+                             replay=t4 - t3),
+                stats_mesh=eng.stats()["mesh"], **holdings(eng))
+            del eng
+            torch.cuda.empty_cache()
+        del whole, base
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out.update(mesh_train_rank(rank, world, device, want_path, span,
+                               setup=rwkv_train_setup))
+    out["mesh_train_s"] = time.perf_counter() - t0
+    return out
+
+
+def judge_recurrent_replay(rp, single, arch, tag):
+    """Hold a rank's forced replay of the single rank's tokens (a
+    recurrent family: no routing) to ``arch``'s fixed ceilings from sound
+    runs: the same rows as the single rank's own replay, every row's
+    logit noise at most ``RECURRENT_REPLAY_NOISE_STEPS`` bf16 steps at its
+    largest logit, at most ``RECURRENT_REPLAY_FLIPS`` argmax flips.
+    Returns the readings, logged."""
+    out = dict(rows=rp["rows"], noise=rp["noise"],
+               noise_steps=rp["noise_steps"], flips=len(rp["flip_deficits"]),
+               largest_flip_deficit=max(rp["flip_deficits"], default=0.0),
+               noise_steps_ceiling=RECURRENT_REPLAY_NOISE_STEPS[arch],
+               flips_ceiling=RECURRENT_REPLAY_FLIPS[arch])
+    log(f"{tag} forced replay " + json.dumps(out))
+    assert rp["rows"] == single["rows"], (tag, rp["rows"], single["rows"])
+    assert rp["noise_steps"] <= RECURRENT_REPLAY_NOISE_STEPS[arch], (tag,
+                                                                     out)
+    assert len(rp["flip_deficits"]) <= RECURRENT_REPLAY_FLIPS[arch], (tag,
+                                                                      out)
+    return out
+
+
+def phase_recurrent_mesh(api, dm, ops, plan, ServingEngine, prompts, gen):
+    """17. rwkv6_7b and zamba2_1p2b on (1, 2) and (2, 1) meshes of two
+    ranks sharing the card: serving and training against one rank, K1 on
+    every shard-local plan the ranks ran against its plain version, and
+    the dry run against the ranks' collectives."""
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist.standin import StandInMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    # the single-rank engines: the baseline tokens, decode and prefill
+    # logits, the bytes held; one whole plan of each shape, for 17's K1
+    # checks on their shard-local blocks
+    base, served = {}, {}
+    for arch in RECURRENT_MESH_ARCHS:
+        cfg = recurrent_mesh_cfg(arch)
+        eng = ServingEngine(recurrent_mesh_model(arch, "cuda"), cfg,
+                            n_slots=4, max_len=256, dtype=torch.bfloat16,
+                            device="cuda")
+        base[arch] = drive(eng, prompts, dm, api, cfg,
+                           f"recurrent_mesh_single_{arch}", prefill_rows=True)
+        base[arch].update(holdings(eng))
+        host = {"tokens": base[arch]["tokens"],
+                "prefill_logits": [r.float().cpu() for r in
+                                   base[arch]["prefill_logits"]],
+                "decode_logits": [{k: r.float().cpu()
+                                   for k, r in rows.items()}
+                                  for rows in base[arch]["decode_logits"]]}
+        # the single rank replayed on its own tokens: the replay the ranks
+        # are forced through
+        replay = forced_replay(eng, prompts, host)
+        base[arch]["replay"] = replay
+        assert replay["noise"] == 0 and not replay["flip_deficits"], replay
+        torch.save(host, build / f"phase17_{arch}.pt")
+        served_plans(eng.params, served)
+        del eng
+        torch.cuda.empty_cache()
+    t_base = time.perf_counter() - t0
+    # 17c's single rank and its two-microbatch twin
+    want_path = build / "phase17_params.pt"
+    single_train, span = train_baseline(dm, rwkv_train_setup, want_path)
+    log("rwkv train single rank " + json.dumps(single_train))
+    t_train = time.perf_counter() - t0 - t_base
+    try:
+        ranks = mesh_lib.run_local(recurrent_mesh_rank, 2, prompts,
+                                   str(want_path), span, backend="gloo",
+                                   device="cuda", workdir=str(build))
+        log(f"phase 17: single-rank engines {t_base:.1f} s, single-rank "
+            f"training {t_train:.1f} s, the ranks "
+            f"{time.perf_counter() - t0 - t_base - t_train:.1f} s (their "
+            f"training {ranks[0]['mesh_train_s']:.1f} s)")
+    finally:
+        want_path.unlink(missing_ok=True)
+        for arch in RECURRENT_MESH_ARCHS:
+            (build / f"phase17_{arch}.pt").unlink(missing_ok=True)
+    res = {f"single_rank_{a}": {k: v for k, v in base[a].items()
+                                if k not in ("tokens", "decode_logits",
+                                             "prefill_logits")}
+           for a in RECURRENT_MESH_ARCHS}
+    # the dry run's decode step of each engine: the model's collectives,
+    # plus, on a data axis, the engine's one all-gather of the sampled
+    # tokens (n_slots int64) before the step's host transfer
+    predicted = {}
+    for arch in RECURRENT_MESH_ARCHS:
+        for shape in MESH_SHAPES:
+            traced = dryrun.trace_cell(
+                recurrent_mesh_cfg(arch),
+                ShapeCell("recurrent_decode", 256, 4, "decode"),
+                StandInMesh({"data": shape[0], "model": shape[1]}),
+                quant="2.12")
+            colls = OT.collective_instructions(traced["trace"])
+            if shape[0] > 1:
+                colls.append(("all-gather", 4 * 8))
+            predicted[f"{arch}_decode_{shape[0]}x{shape[1]}"] = \
+                collective_counts(colls)
+    # 17a/b: tokens (a first divergence a near tie at the replay's fixed
+    # ceiling), the forced replay, launches, the bytes held, the gate
+    shard_m = {}
+    for arch in RECURRENT_MESH_ARCHS:
+        one = base[arch]
+        for shape in MESH_SHAPES:
+            tag = f"{arch}_{shape[0]}x{shape[1]}"
+            want = predicted[f"{arch}_decode_{shape[0]}x{shape[1]}"]
+            for r, out in enumerate(ranks):
+                rec = out[tag]
+                judged = judge_recurrent_replay(rec["replay"], one["replay"],
+                                                arch, f"{tag} rank {r}")
+                # each request's tokens equal the single rank's up to its
+                # first divergence, which must be a near tie within twice
+                # the replay's ceiling (in bf16 steps at the row's largest
+                # logit); past it the request's recurrent state carries
+                # the other token, and the replay holds the computation.
+                # Until a request diverges its rows are the replay's own
+                # (the same history, slot and batch; no row of a
+                # recurrent step reads another), so the divergence is
+                # one of the replay's flips, at the same position
+                ties = near_ties(rec["tokens"], one, 0.0, f"{tag} rank {r}",
+                                 ulps=2 * RECURRENT_REPLAY_NOISE_STEPS[arch])
+                flips = {tuple(f) for f in rec["replay"]["flips_at"]}
+                assert all((t["request"], t["position"]) in flips
+                           for t in ties), (tag, r, ties, sorted(flips))
+                assert rec["stats_mesh"] == {"data": shape[0],
+                                             "model": shape[1]}
+                assert rec["launches_per_step"] == [
+                    one["launches_per_decode_step"]], rec["launches_per_step"]
+                assert rec["counts"]["launches"] > 0
+                assert rec["collectives_per_step"] == want, (
+                    tag, r, rec["collectives_per_step"], want)
+                assert (shape[1] == 1 or ("HLO-AG1" in rec["gate_rules"]
+                                          and "HLO-CB1" in rec["gate_rules"])
+                        ), rec["gate_rules"]
+                assert not [f for f in rec["gate_findings"]
+                            if f[0] in ("HLO-AG1", "HLO-CB1")], rec
+                # half the planes on (1, 2) (the plans whose tiles split),
+                # half the recurrent state and ring rows on (2, 1)
+                if shape[1] == 2:
+                    assert rec["shard_local_plans"] > 0, rec
+                    assert rec["plane_bytes"] < one["plane_bytes"], rec
+                    assert rec["state_bytes"] == one["state_bytes"], rec
+                    assert 2 * rec["ring_bytes"] == one["ring_bytes"], rec
+                else:
+                    assert rec["shard_local_plans"] == 0, rec
+                    assert rec["plane_bytes"] == one["plane_bytes"], rec
+                    assert 2 * rec["state_bytes"] == one["state_bytes"], rec
+                    assert 2 * rec["ring_bytes"] == one["ring_bytes"], rec
+                for k, ms in rec["shard_local_m"].items():
+                    shard_m.setdefault((arch,) + k, set()).update(ms)
+                rec = {k: v for k, v in rec.items()
+                       if k not in ("tokens", "admitted", "replay",
+                                    "shard_local_m")}
+                rec.update(replay=judged, near_ties=len(ties),
+                           tokens_equal=out[tag]["tokens"] == one["tokens"],
+                           dry_run_collectives=want,
+                           single_rank=dict(
+                               decode_ms_per_step=one["decode_ms_per_step"],
+                               launches_per_decode_step=one[
+                                   "launches_per_decode_step"],
+                               max_memory_allocated_gb=one[
+                                   "max_memory_allocated_gb"],
+                               **{k: one[k] for k in HOLDINGS}))
+                res[f"{tag}_rank{r}"] = rec
+                log(f"{tag} rank {r} " + json.dumps(rec))
+    # K1 on every shard-local plan the ranks ran, both blocks, at every M
+    # they gave it, against its plain version
+    local, shapes = {}, {}
+    for (arch, rows, cols, parts, index), ms in sorted(shard_m.items()):
+        key = (rows, cols, parts, index)
+        local[key] = plan.local_plan(served[(rows, cols)], parts, index)
+        shapes.setdefault(key, set()).update(ms)
+    assert {k[3] for k in shapes} == {0, 1}, sorted(shapes)
+    cases, max_err = phase_new_shapes(dm, ops, local, shapes, gen, "f32")
+    res["shard_local_k1"] = dict(
+        cases=len(cases), max_abs_err=max_err,
+        checked_m={f"{r}x{c} block {i} of {p}": sorted(v)
+                   for (r, c, p, i), v in sorted(shapes.items())},
+        decode_cases=[{f: c[f] for f in ("shape", "block", "m", "device_ms",
+                                         "library_device_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")}
+                      for c in cases if c["m"] == 4])
+    log("recurrent shard-local K1 " + json.dumps(
+        {k: v for k, v in res["shard_local_k1"].items()
+         if k != "decode_cases"}))
+    del local, served
+    torch.cuda.empty_cache()
+    # 17c: 15a's rules
+    res["train_single_rank"] = single_train
+    res["largest_loss_gap"] = check_train_ranks(single_train, ranks, res,
+                                                "rwkv mesh train")
+    tcfg, _, _ = rwkv_train_setup()
+    for shape in MESH_SHAPES:
+        tag = f"train_{shape[0]}x{shape[1]}"
+        traced = dryrun.trace_cell(
+            tcfg, ShapeCell(tag, TRAIN_S, TRAIN_B, "train"),
+            StandInMesh({"data": shape[0], "model": shape[1]}))
+        predicted[tag] = collective_counts(
+            OT.collective_instructions(traced["trace"]))
+        for r in range(len(ranks)):
+            got = res[f"{tag}_rank{r}"]["collectives_per_step"]
+            assert got == predicted[tag], (tag, r, got, predicted[tag])
+    res["dry_run_predicted"] = predicted
+    log("recurrent dry run predicted = measured " + json.dumps(predicted))
+    t_roof = time.perf_counter()
+    roof = {}
+    for arch, shape in (("rwkv6_7b", "decode_32k"),
+                        ("zamba2_1p2b", "decode_32k")):
+        cell = dryrun.run_cell(arch, shape, False)
+        assert cell["status"] == "ok", cell
+        roof[f"{arch}|{shape}"] = dict(
+            roofline=cell["roofline"],
+            collectives=cell["per_device"]["collectives"],
+            trace_s=cell["compile_s"])
+    res["roofline_single_production_mesh"] = roof
+    log("dry-run roofline on the single production mesh (16x16 = 256 "
+        "cards; a model on the H100 data sheet's figures, not a "
+        f"measurement; the hybrid's sites and Mamba2 layers counted apart; "
+        f"{time.perf_counter() - t_roof:.1f} s) " + json.dumps(roof))
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 17 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not __debug__:
         print("chip_smoke: run without -O; its checks are asserts",
@@ -4124,6 +4547,15 @@ def main() -> int:
     # rank, the dry run's collectives to the measured ones
     moe_mesh = phase_moe_mesh(api, dm, ServingEngine, prompts)
     lap("phase 16")
+
+    # 17. rwkv6_7b and zamba2_1p2b on (1, 2) and (2, 1) meshes of two
+    # ranks sharing the card: serving (a forced replay of one rank's
+    # tokens) and rwkv training held to one rank, K1 on every shard-local
+    # plan they ran, the dry run's collectives to the measured ones
+    recurrent_mesh = phase_recurrent_mesh(api, dm, ops, plan, ServingEngine,
+                                          prompts, gen)
+    max_err = max(max_err, recurrent_mesh["shard_local_k1"]["max_abs_err"])
+    lap("phase 17")
 
     # 7. K1e vs plain version at every M phase 6 gave it
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
@@ -4353,14 +4785,27 @@ def main() -> int:
         **{f"moe_mesh_{tag}": {k: v for k, v in run["counts"].items()
                                if k != "int8"}
            for tag, run in moe_mesh.items()
-           if tag.startswith(MOE_MESH_ARCHS) and "counts" in run})
+           if tag.startswith(MOE_MESH_ARCHS) and "counts" in run},
+        **{f"recurrent_mesh_single_{a}": split(
+            recurrent_mesh[f"single_rank_{a}"])
+           for a in RECURRENT_MESH_ARCHS},
+        **{f"recurrent_mesh_{tag}": {k: v for k, v in run["counts"].items()
+                                     if k != "int8"}
+           for tag, run in recurrent_mesh.items()
+           if tag.startswith(RECURRENT_MESH_ARCHS) and "counts" in run})
     kernels[0]["shard_local"] = dist_runs["shard_local"]
+    kernels[0]["shard_local_recurrent"] = recurrent_mesh["shard_local_k1"]
+    kernels[0]["checked_cases"] += recurrent_mesh["shard_local_k1"]["cases"]
     # phase 15's paths train in fp: no K1 or K1e launch, counted
     fp_training = dict(
-        note="phases 15 and 16c train in fp: no quantized matmul, no launch",
+        note="phases 15, 16c and 17c train in fp: no quantized matmul, no "
+             "launch",
         **{tag: run["k1_launches"] for tag, run in mesh_train_runs.items()
            if isinstance(run, dict) and "k1_launches" in run},
         **{f"moe_{tag}": run["k1_launches"] for tag, run in moe_mesh.items()
+           if isinstance(run, dict) and "k1_launches" in run},
+        **{f"rwkv_{tag}": run["k1_launches"]
+           for tag, run in recurrent_mesh.items()
            if isinstance(run, dict) and "k1_launches" in run})
     kernels[0]["launches_fp_training"] = fp_training
     kernels[1]["launches_fp_training"] = fp_training

@@ -42,16 +42,30 @@ from . import context as dctx
 _UNITS = (QuantizedTensor, PreparedQuantizedTensor)
 
 # the families whose layers take placed weights on a multi-rank mesh (GQA
-# or MLA attention, SwiGLU or expert MLPs)
-MESH_FAMILIES = ("dense", "moe")
+# or MLA attention, SwiGLU or expert MLPs, RWKV6 time/channel mix, Mamba2
+# with the hybrid's shared attention)
+MESH_FAMILIES = ("dense", "moe", "rwkv", "hybrid")
+
+# small buffers of the recurrent families that their code reads whole: the
+# token-shift mixes and the wkv's decay bias and bonus (rwkv), the causal
+# conv and the SSD's per-head vectors (Mamba2).  The wkv and SSD scans and
+# the conv run whole on every model rank (their state is not split over
+# "model"), so these stay whole where the rule would split them.
+WHOLE_BUFFERS = ("mix", "w_bias", "u_bonus", "conv_w", "conv_b", "a_log",
+                 "dt_bias", "d_skip")
+
+# buffers read as the kernel of a product (``modules.linear``): split on
+# their out dim, as a ``Dense`` kernel is (the hybrid's site LoRAs)
+_KERNEL_BUFFERS = ("kernel", "lora_a", "lora_b")
 
 
 def unported_family(cfg) -> Optional[str]:
     """Why ``cfg`` cannot run on a multi-rank mesh yet, or None."""
     if cfg.family in MESH_FAMILIES:
         return None
-    return (f"the {cfg.family} family on a multi-rank mesh (recurrent "
-            f"state, the encoder-decoder) is queued in ROADMAP.md, Queue 1")
+    return (f"the {cfg.family} family on a multi-rank mesh (encoder "
+            f"frames, the cross-attention banks) is queued in ROADMAP.md, "
+            f"Queue 1")
 
 
 class PartitionSpec(tuple):
@@ -333,14 +347,16 @@ def place_model(model, cfg, mesh) -> Dict[str, int]:
     ``_model_shard = (dim, parts, index)``, which the sharded layers read
     (``dist.collectives``).  Returns {"tensors": n, "units": n} placed.
 
-    One departure from the rule, so that no product sums partial products
+    Two departures from the rule, so that no product sums partial products
     across ranks (tokens stay bitwise the single device's) and no weight
     moves at use: a dense kernel ((in, out), or an (E, in, out) expert
-    stack) the rule splits on any dim but its out dim (the contraction
-    dim, which the largest-dim pick takes for a square or a wide-input
-    matrix; an expert stack's E) is split on its out dim instead, or kept
-    whole when that dim does not divide; a tied embedding split on its
-    model dim (contracted by the logits) is split on vocab instead.
+    stack; the hybrid's site LoRAs) the rule splits on any dim but its out
+    dim (the contraction dim, which the largest-dim pick takes for a
+    square or a wide-input matrix; an expert stack's E) is split on its
+    out dim instead, or kept whole when that dim does not divide; a tied
+    embedding split on its model dim (contracted by the logits) is split
+    on vocab instead.  And the ``WHOLE_BUFFERS`` of the recurrent families
+    stay whole.
     The reference's stacked layer axis is never split by the serve rule
     for a served config; a spec that splits it is refused.  Tensors and
     plans placed already are left as they are."""
@@ -373,14 +389,15 @@ def place_model(model, cfg, mesh) -> Dict[str, int]:
     for m in model.modules():
         for bname, t in list(m._buffers.items()):
             split = None if t is None else tensor_split.get(id(t))
-            if split is None or hasattr(t, "_model_shard"):
+            if (split is None or hasattr(t, "_model_shard")
+                    or bname in WHOLE_BUFFERS):
                 continue
             dim, parts = split
             # a kernel splits on its out dim (never a contraction dim or
             # an expert stack's E), a tied embedding on vocab, or the
             # tensor stays whole
-            want = {"kernel": t.dim() - 1,
-                    "embedding": 0 if tied else dim}.get(bname, dim)
+            want = (t.dim() - 1 if bname in _KERNEL_BUFFERS else
+                    {"embedding": 0 if tied else dim}.get(bname, dim))
             if want != dim:
                 dim = want
                 if not _shardable(t.shape[dim], parts):

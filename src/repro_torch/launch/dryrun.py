@@ -26,9 +26,9 @@ cannot see K1 on meta tensors, which the op stream charges), and
 ``temp_bytes`` is None (meta tensors have no allocator).  A moe cell
 takes ``moe_groups`` = the data shards (halved until the tokens divide),
 as the reference's does, so a data rank routes whole groups of its own
-rows.  A family the port does not shard yet (rwkv, the hybrid, encdec)
-gets ``"status": "not_ported"`` with the reason: counted in the final
-line, neither an error nor a skip.
+rows.  A family the port does not shard yet (encdec) gets ``"status":
+"not_ported"`` with the reason: counted in the final line, neither an
+error nor a skip.
 """
 from __future__ import annotations
 
@@ -283,20 +283,27 @@ def _plan_struct(qt, bn: int):
 
 def install_standins(model, cfg, qcfg, plan_bn: int) -> None:
     """Set every block matrix the quantizer would quantize (its
-    ``block_matrices``) and every expert stack to a stand-in plan (a
-    stack's: stacked on E, as ``launch.quantize`` stacks the experts)."""
+    ``block_matrices``: the hybrid's shared block's too, which
+    ``launch.quantize`` quantizes once for every site) and every expert
+    stack to a stand-in plan (a stack's: stacked on E, as
+    ``launch.quantize`` stacks the experts).  The reference's
+    ``quantize_param_sds`` walks the layer stacks only, so its hybrid
+    cells trace the shared block in fp."""
     from repro_torch.launch.quantize import block_matrices
     from repro_torch.models.moe import MoE
-    for key in ("blocks", "enc_blocks", "dec_blocks"):
-        for block in getattr(model, key, None) or ():
-            mats = list(block_matrices(block))
-            if isinstance(getattr(block, "mlp", None), MoE):
-                mats += [(n, getattr(block.mlp, n))
-                         for n in ("w_gate", "w_up", "w_down")]
-            for _, m in mats:
-                *stack, d_in, d_out = m.kernel.shape
-                m.set_kernel(_plan_struct(_qt_struct(
-                    1, d_out, d_in, qcfg, stack=tuple(stack))[0], plan_bn))
+    blocks = [b for key in ("blocks", "enc_blocks", "dec_blocks")
+              for b in getattr(model, key, None) or ()]
+    if getattr(model, "shared_attn", None) is not None:
+        blocks.append(model.shared_attn)
+    for block in blocks:
+        mats = list(block_matrices(block))
+        if isinstance(getattr(block, "mlp", None), MoE):
+            mats += [(n, getattr(block.mlp, n))
+                     for n in ("w_gate", "w_up", "w_down")]
+        for _, m in mats:
+            *stack, d_in, d_out = m.kernel.shape
+            m.set_kernel(_plan_struct(_qt_struct(
+                1, d_out, d_in, qcfg, stack=tuple(stack))[0], plan_bn))
 
 
 # ---------------------------------------------------------------------------
@@ -390,17 +397,44 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     traces the serving path with CLAQ stand-in plans (AP+OR at that
     bit-width), the paper's deployment format in the dry run.
 
-    A dense model's layers are identical, so the cell is traced at 1 and
-    2 layers and every figure is extrapolated to ``n_layers`` as
+    A model's layers are identical, so the cell is traced at 1 and 2
+    layers and every figure is extrapolated to ``n_layers`` as
     ``f(1) + (n_layers - 1) * (f(2) - f(1))``, as the reference's analyzer
     charges its scanned layer body once per trip (tracing all 32 layers
-    of a train_4k step op by op takes minutes on the host)."""
+    of a train_4k step op by op takes minutes on the host).  The hybrid's
+    are not: a shared-attention site runs before every ``attn_every``-th
+    Mamba2 layer, and the 1- and 2-layer traces hold one site each.  A
+    third trace, of 2 layers with a site before each, gives a site's
+    figures, so Mamba2 layers and sites are counted apart:
+    ``+ (n_sites - 1) * (f(2 layers, 2 sites) - f(2 layers, 1 site))``."""
     cfg, mesh, cell = prepare_cell(arch, shape_name, multi_pod)
+    return cell_figures(cfg, cell, mesh, quant), (cfg, mesh, cell)
+
+
+def cell_figures(cfg, cell, mesh, quant: Optional[str] = None, *,
+                 plan_bn: int = None) -> dict:
+    """The figures of ``cfg``'s cell on ``mesh``, extrapolated from 1- and
+    2-layer traces (and, for the hybrid, a 2-site one) as
+    ``lower_cell`` says."""
+    def traced(**kw):
+        return figures(trace_cell(dataclasses.replace(cfg, **kw), cell, mesh,
+                                  quant, plan_bn=plan_bn))
+
     if cfg.n_layers <= 2:
-        return figures(trace_cell(cfg, cell, mesh, quant)), (cfg, mesh, cell)
-    f1, f2 = (figures(trace_cell(dataclasses.replace(cfg, n_layers=n), cell,
-                                 mesh, quant)) for n in (1, 2))
-    return extrapolate(f1, f2, cfg.n_layers), (cfg, mesh, cell)
+        return traced()
+    f1, f2 = traced(n_layers=1), traced(n_layers=2)
+    out = extrapolate(f1, f2, cfg.n_layers)
+    if cfg.family == "hybrid" and cfg.attn_every > 1:
+        site = _plus(out, f2, traced(n_layers=2, attn_every=1))
+        out = extrapolate(out, site, cfg.n_sites)
+    return out
+
+
+def _plus(base: dict, lo: dict, hi: dict) -> dict:
+    """``base + (hi - lo)`` key by key (a missing key counts 0)."""
+    keys = sorted(set(base) | set(lo) | set(hi))
+    return {k: base.get(k, 0.0) + hi.get(k, 0.0) - lo.get(k, 0.0)
+            for k in keys}
 
 
 def extrapolate(f1: dict, f2: dict, n_layers: int) -> dict:

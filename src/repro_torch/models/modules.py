@@ -24,11 +24,12 @@ block along "model" (``_model_shard``); the primitives below then return
 the replicated result through all-gathers, never through a sum of partial
 products: a kernel (split on its output dim) multiplies locally and
 gathers the columns, a vector (norm scale, bias) applies to this rank's
-slice of the activation, and a vocab-split embedding looks up its own
-rows and sums over ranks with one non-zero term.  Under a gradient the
-same calls differentiate (``dist.collectives``): the replicated input of
-each sharded product goes through ``collectives.replicated``, whose
-backward sums the ranks' partial input gradients over "model".
+slice of the activation (a layer norm's scale and bias together), and a
+vocab-split embedding looks up its own rows and sums over ranks with one
+non-zero term.  Under a gradient the same calls differentiate
+(``dist.collectives``): the replicated input of each sharded product
+goes through ``collectives.replicated``, whose backward sums the ranks'
+partial input gradients over "model".
 """
 from __future__ import annotations
 
@@ -210,18 +211,22 @@ def dense(p: Dense, x: torch.Tensor, tap: Optional[str] = None
     if isinstance(kernel, _QUANTIZED):
         y = kops.qmatmul(x, kernel, use_kernel=True,
                          act_dtype=QuantMode.act_dtype)
-    elif out_block(kernel) is not None:
-        _maybe_record(p if tap is None else tap, x)
-        # this rank's output columns (placement never splits the input
-        # dim: see dist.sharding.place_model), all-gathered
-        y = gather_out(coll.replicated(x) @ kernel.to(x.dtype), kernel)
     else:
         _maybe_record(p if tap is None else tap, x)
-        y = x @ kernel.to(x.dtype)
+        y = linear(x, kernel)
     if p.bias is not None:
         y = coll.elementwise(y, p.bias,
                              lambda a, b: a + b.to(a.dtype))
     return y
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a dense (in, out) ``w``: a placed ``w`` gives this
+    rank's output columns (placement never splits the input dim: see
+    ``dist.sharding.place_model``), all-gathered."""
+    if out_block(w) is None:
+        return x @ w.to(x.dtype)
+    return gather_out(coll.replicated(x) @ w.to(x.dtype), w)
 
 
 class OutBlock(NamedTuple):
@@ -296,7 +301,10 @@ def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    # a placed scale and bias are the same block of the feature axis
+    assert coll.model_shard(scale) == coll.model_shard(bias)
+    return coll.elementwise(
+        y, scale, lambda a, s: a * s.float() + bias.float()).to(x.dtype)
 
 
 def embed(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -243,7 +243,7 @@ def _shared_attention(model: Transformer, x, cfg, site: int, cache):
     lora = model.site_lora[site]
     with M.tap_scope(f"shared_attn.site{site}"):
         out, new_cache = L.gqa_attention(sp, h, cfg, cache)
-        delta = (h @ lora.lora_a.to(h.dtype)) @ lora.lora_b.to(h.dtype)
+        delta = M.linear(M.linear(h, lora.lora_a), lora.lora_b)
         out = out + M.dense(sp.o, delta, tap="o_lora")
         x = x + out
         h2 = M.rms_norm(sp.ln2, x, cfg.norm_eps)

@@ -158,11 +158,16 @@ term, so on the CPU a sharded engine's tokens are bitwise the single
 device's.  Wall-clock decisions (deadlines, the controller) read rank
 0's clock, broadcast (``_RankZeroClock``), so every rank decides alike.
 A decode step's rows are the data rank's slots (``dctx.rows_over_dp``:
-the MoE routes the global batch from them, see ``models.moe``).  A
-one-rank mesh is accepted for every family; more ranks for the dense and
-moe families with GQA or MLA attention (f32 or int8 activations,
-contiguous or paged, with or without speculation where the family takes
-it).  ``stats()["mesh"]`` is the mesh's {"data": dp, "model": tp}.
+the MoE routes the global batch from them, see ``models.moe``).  The
+recurrent families keep their state leaves (rwkv ``state``/``prev_tm``/
+``prev_cm``, Mamba2 ``conv``/``ssm``) slot rows over "data" with every
+head and channel on every model rank, and the hybrid's ring caches split
+their KV heads over "model" as dense caches do; the insert, a preempted
+slot's clear and a resume's insert act on the data rank's own rows.  A
+one-rank mesh is accepted for every family; more ranks for the dense,
+moe, rwkv and hybrid families (f32 or int8 activations, contiguous or
+paged, with or without speculation where the family takes it).
+``stats()["mesh"]`` is the mesh's {"data": dp, "model": tp}.
 """
 from __future__ import annotations
 

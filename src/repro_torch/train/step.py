@@ -20,9 +20,8 @@ differentiable collectives (``dist.collectives``); the loss runs under
 ``models.moe``).  Microbatches are cut from the global batch before a
 data rank takes its block of each, so microbatch i holds the reference's
 rows [i B/n, (i+1) B/n) on every mesh: the MoE's capacity couples a
-microbatch's rows.  The dense and moe families (GQA or MLA attention)
-train on a multi-rank mesh; any other raises ``TypeError``, as the
-engine does.
+microbatch's rows.  The dense, moe, rwkv and hybrid families train on a
+multi-rank mesh; encdec raises ``TypeError``, as the engine does.
 """
 from __future__ import annotations
 

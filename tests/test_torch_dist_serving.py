@@ -277,9 +277,38 @@ def test_one_rank_mesh_serves_every_family_as_no_mesh(one_rank_world, arch):
     assert st["mesh"] == {"data": 1, "model": 1}
 
 
-@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b"])
-def test_multi_rank_mesh_refuses_unported_families(arch):
+RECURRENT_SERVE = ["--smoke", "--requests", "3", "--max-new", "4",
+                   "--max-len", "32", "--device", "cpu"]
+
+
+def _recurrent_rank(rank, world, dev):
+    from repro_torch.launch import serve
+    return {arch: serve.main(["--arch", arch, "--mesh-shape", "1x2",
+                              "--backend", "gloo"] + RECURRENT_SERVE)
+            ["tokens"] for arch in ("rwkv6_7b", "zamba2_1p2b")}
+
+
+@pytest.fixture(scope="module")
+def recurrent_ranks():
+    import test_torch_dist_serving as me
+    return mesh_lib.run_local(me._recurrent_rank, 2)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
+                                  "seamless_m4t_medium"])
+def test_multi_rank_mesh_refuses_unported_families(request, arch):
+    """encdec is refused on a multi-rank mesh, naming ROADMAP; rwkv and
+    the hybrid serve there: the serve launcher on (1, 2) emits its
+    single-device tokens."""
     cfg = t_smoke(arch)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        ServingEngine(None, cfg, device="cpu",
-                      mesh=SimpleNamespace(shape={"data": 1, "model": 2}))
+    mesh = SimpleNamespace(shape={"data": 1, "model": 2})
+    if cfg.family == "encdec":
+        with pytest.raises(TypeError, match="ROADMAP"):
+            ServingEngine._check_mesh(mesh, cfg)
+        return
+    assert ServingEngine._check_mesh(mesh, cfg) == 2
+    from repro_torch.launch import serve
+    want = serve.main(["--arch", arch] + RECURRENT_SERVE)["tokens"]
+    assert len(want) == 3 and all(len(t) == 4 for t in want)
+    for r in request.getfixturevalue("recurrent_ranks"):
+        assert r[arch] == want

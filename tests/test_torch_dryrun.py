@@ -20,8 +20,9 @@ the reference's analytic functions and to a real 4-rank gloo run.
   * a dense model's figures extrapolated from 1 and 2 layers equal a
     4-layer trace's;
   * ``run_cell`` on the single production mesh gives "ok" for
-    ``llama1_7b|train_4k`` and ``qwen3_moe_30b_a3b|train_4k``,
-    "not_ported" for an rwkv cell; ``main`` caches finished cells.
+    ``llama1_7b|train_4k``, ``qwen3_moe_30b_a3b|train_4k``,
+    ``rwkv6_7b|decode_32k`` and ``zamba2_1p2b|long_500k``, "not_ported"
+    for an encdec cell; ``main`` caches finished cells.
 
 The reference's ``launch/dryrun.py`` forces 512 host devices through
 ``XLA_FLAGS`` at import: it is imported after JAX's backend is up and the
@@ -311,7 +312,12 @@ def test_run_cell_on_the_production_mesh():
     res = dryrun.run_cell("qwen3_moe_30b_a3b", "train_4k", False)
     assert res["status"] == "ok", res.get("traceback")
     assert res["per_device"]["collectives"]["all-gather"] > 0
-    res = dryrun.run_cell("rwkv6_7b", "train_4k", False)
+    for arch, shape in (("rwkv6_7b", "decode_32k"),
+                        ("zamba2_1p2b", "long_500k")):
+        res = dryrun.run_cell(arch, shape, False)
+        assert res["status"] == "ok", (arch, res.get("traceback"))
+        assert res["per_device"]["collectives"]["all-gather"] > 0
+    res = dryrun.run_cell("seamless_m4t_medium", "train_4k", False)
     assert res["status"] == "not_ported" and "ROADMAP" in res["reason"]
     assert dryrun.run_cell("llama1_7b", "long_500k", False)["status"] == \
         "skipped"
@@ -319,7 +325,7 @@ def test_run_cell_on_the_production_mesh():
 
 def test_main_caches_finished_cells(tmp_path, capsys):
     out = str(tmp_path / "dry.json")
-    argv = ["--arch", "qwen2_1p5b,rwkv6_7b", "--shape",
+    argv = ["--arch", "qwen2_1p5b,seamless_m4t_medium", "--shape",
             "decode_32k", "--mesh", "single", "--out", out]
     assert dryrun.main(argv) == 0
     first = capsys.readouterr().out

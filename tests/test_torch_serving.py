@@ -177,14 +177,15 @@ def test_run_to_completion_surfaces_unfinished_work(quantized):
 
 def test_engine_knobs_not_ported_are_rejected(quantized):
     """A mesh is accepted (``mesh=None`` here; multi-rank meshes in
-    ``test_torch_dist_serving.py``), and a multi-rank mesh on a family not
-    ported to it (rwkv) raises; the control plane's knobs and the contract
-    gate are accepted."""
+    ``test_torch_dist_serving.py``), and the mesh check refuses a
+    multi-rank mesh for the one family not ported to it (encdec) and
+    admits rwkv; the control plane's knobs and the contract gate are
+    accepted."""
     _, tcfg, _, tm = quantized
-    rwkv = t_smoke("rwkv6_7b")
+    mesh = SimpleNamespace(shape={"data": 1, "model": 2})
     with pytest.raises(TypeError, match="ROADMAP"):
-        ServingEngine(tm, rwkv, n_slots=2, max_len=16, device="cpu",
-                      mesh=SimpleNamespace(shape={"data": 1, "model": 2}))
+        ServingEngine._check_mesh(mesh, t_smoke("seamless_m4t_medium"))
+    assert ServingEngine._check_mesh(mesh, t_smoke("rwkv6_7b")) == 2
     eng = ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
                         guards=True, on_pressure="truncate",
                         chunked_prefill=8, telemetry=None, queue_depth=4,
