@@ -74,7 +74,11 @@ Phases (any failure raises and ends the run with a non-zero exit):
      refused (moe); latent cache bytes a token against a full K/V's.
      Then K1 and K1e against their plain versions at each of the 10 new
      (out, in) shapes and every M 11/11b gave it (device ms beside
-     ``torch.matmul`` and the bound);
+     ``torch.matmul`` and the bound).  Phases 11-11b run in a process of
+     their own, started after phase 10 beside the mesh phases (their
+     ranks leave the host's other cores and most of the card idle) and
+     ended before phase 16's ranks train, so their times and those of
+     phases 14-15 are shared-card readings;
   12. rwkv6_7b at full width (d 4096, 64 heads of 64, d_ff 14336, vocab
      65536, bf16), ``RWKV_DEPTH`` of its 32 layers, synthetic AP+OR
      weights, phase 4's prompts through ``ServingEngine`` (4 slots,
@@ -96,9 +100,10 @@ Phases (any failure raises and ends the run with a non-zero exit):
      launch counts; then in f32 activations the decode logits against a
      teacher-forced ``decode_blocks`` forward.  K1 and K1e are then held
      to their plain versions at the 11 (out, in) shapes of 12-12c and
-     every M they gave K1;
-  10. train, then checkpoint: llama1_7b at full width (cut in depth to
-     ``QUANT_DEPTH``), bf16 params and f32 AdamW moments, 20 steps of
+     every M they gave K1.  Phases 12-12c run in a process of their own
+     beside the mesh phases, as 11-11b do, collected after phase 17;
+  10. train, then checkpoint (run after phase 13, before phase 14):
+     llama1_7b at full width (cut in depth to ``QUANT_DEPTH``), bf16 params and f32 AdamW moments, 20 steps of
      ``train.make_train_step`` on ``data.SyntheticCorpus`` (B 4, S 512,
      warmup 5, cosine; one step in 2 microbatches) under deterministic
      algorithms: the loss falls; the state is saved asynchronously after
@@ -111,8 +116,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
      draft from one calibration
      (``launch.quantize.claq_quantize_with_draft``, the recipe of
      ``launch.serve --bits 2.2 --spec-gamma``), one 4096x4096 matrix also
-     quantized on the CPU (in a process of its own, beside the card's
-     quantization) and held against the card's (with a full-rank
+     quantized on the CPU (in a process of its own on
+     ``CPU_CHECK_THREADS`` threads, started after phase 10 and run beside
+     the mesh phases) and held against the card's (with a full-rank
      Hessian); perplexity on 2 eval
      batches (B 4, S 512) of fp, RTN uniform 2-bit, the draft and the
      target (the last two through K1 blocked at M = 2048, launches
@@ -125,7 +131,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
      paper's orderings of ``tests/test_pipeline_e2e.py`` on its
      perplexities; the AP+OR target served with its 2-bit draft at gamma
      4 (acceptance, near-tie divergences), every plan it served held to
-     the plain K1;
+     the plain K1; in a process of its own beside the mesh phases, as
+     11-11b and 12-12c are, collected after phase 17 (before phase 7's
+     kernel timings);
   9. the serving control plane on phase 4's model (run after 4c, before
      phase 5): (a) phase 4's prompts through ``submit()`` under a
      StepClock and a seeded pressure-only fault plan — at least 2
@@ -199,8 +207,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
      256 cards on the data sheet's figures, not a measurement).
   16. the moe family and MLA with experts on a mesh (run after phase
      15): two spawned ranks sharing the card over gloo, meshes (1, 2) and
-     (2, 1): (a) qwen3_moe_30b_a3b at full width, ``MOE_MESH_DEPTH`` = 2
-     layers, synthetic AP+OR weights and expert stacks from the seed,
+     (2, 1): (a) qwen3_moe_30b_a3b at full width, ``MOE_MESH_DEPTH`` = 1
+     layer, synthetic AP+OR weights and expert stacks from the seed,
      phase 4's prompts, 4 slots (a data rank's decode gathers the MoE
      rows over "data" and routes the global batch; a placed expert stack
      dequantizes its own rows): a forced replay on each rank (the
@@ -268,9 +276,9 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import multiprocessing
-import os
 import socket
 import subprocess
 import sys
@@ -314,6 +322,8 @@ CKPT_STEP = 10                     # the async save, and the resume point
 MICRO_STEP = 15                    # the one step at n_microbatches=2
 PROFILE_TRAIN_STEP = 3             # two train steps from the 4th profiled
 EVAL_BATCHES = 2                   # phase 8's perplexity batches
+CPU_CHECK_THREADS = 3              # phase 8's CPU quantization, run beside
+#                                    the mesh phases' ranks
 MOE_DEPTH = 4                      # layers of phase 11's qwen3_moe_30b_a3b
 RWKV_DEPTH = 8                     # layers of phase 12's rwkv6_7b
 RWKV_CHECK_LEN = 100               # 12's chunked prefill vs recurrent decode
@@ -327,7 +337,7 @@ MESH_SHAPES = ((1, 2), (2, 1))     # 14b's (data, model) meshes, 2 ranks
 ROWSHARD_N = 512                   # 14d's matrix (rows = cols)
 MESH_TRAIN_STEPS = 3               # 15a's steps on each mesh
 MESH_TRAIN_TRACE = 2               # the step whose op trace 15a records
-MOE_MESH_DEPTH = 2                 # layers of phase 16a's qwen3_moe_30b_a3b
+MOE_MESH_DEPTH = 1                 # layers of phase 16a's qwen3_moe_30b_a3b
 MOE_MESH_ARCHS = ("qwen3_moe", "deepseek")   # 16a, 16b
 MOE_TRAIN_STEPS = 3                # 16c's steps on each mesh
 REPLAY_NOISE_STEPS = 4.0           # 16's forced replay: the largest logit
@@ -1390,8 +1400,8 @@ def codes_of(qt):
 
 def quantize_on_cpu(W, H, qcfg, threads):
     """Phase 8's CPU side of the card-vs-CPU check, run in a process of
-    its own beside the card's quantization: W and H (CPU tensors)
-    quantized on ``threads`` threads.  Returns (column bits, reserve
+    its own beside the mesh phases: W and H (CPU tensors) quantized on
+    ``threads`` threads.  Returns (column bits, reserve
     counts, codes in original column order as uint8, proxy loss,
     seconds)."""
     sys.path.insert(0, str(REPO / "src"))
@@ -1470,24 +1480,50 @@ def quantize_pipeline(claq_lib, lq, model, dcfg, calib, qcfg):
     return quant_s, seconds, model, report, draft, drep
 
 
+def phase8_qcfg():
+    """Phase 8's recipe (``--bits 2.2``): K-Means, 6 iterations, GPTQ
+    blocks of 32, AP 2.2 over 2-4 bits."""
+    from repro_torch.core import APConfig, CLAQConfig
+    return CLAQConfig(bits=2, method="kmeans", kmeans_iters=6,
+                      gptq_blocksize=32, ap=APConfig(2.2, 2, 4))
+
+
+def start_card_vs_cpu(pool, model):
+    """Phase 8's card-vs-CPU matrix, made as soon as phase 10 has trained
+    ``model``: its first q matrix and a full-rank Hessian (Gaussian
+    activations, 16384 rows) on the card, and the CPU's quantization of
+    them submitted to ``pool`` on ``CPU_CHECK_THREADS`` threads (it runs
+    beside the mesh phases, which leave the host's other cores idle).
+    Returns (W, H, the CPU's future)."""
+    W = model.blocks[0].attn.q.kernel.float().T.contiguous()
+    X = torch.randn((16384, W.shape[1]), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 4))
+    gauss = 2.0 * (X.T @ X) / X.shape[0]
+    del X
+    return W, gauss, pool.submit(quantize_on_cpu, W.cpu(), gauss.cpu(),
+                                 phase8_qcfg(), CPU_CHECK_THREADS)
+
+
 def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
-                         model):
+                         model, card_vs_cpu_inputs):
     """Quantize phase 10's trained full-width llama1_7b (``QUANT_DEPTH``
     layers) on the card with the launcher's recipe for ``--bits 2.2
     --spec-gamma``: one calibration, a 2-bit draft and the AP target
     (``claq_quantize_with_draft``); hold one 4096x4096 matrix against the
-    CPU; print perplexity on ``EVAL_BATCHES`` batches (B ``TRAIN_B``, S
-    ``TRAIN_S``) for fp, RTN uniform 2-bit (dense), the draft and the
-    target (K1 blocked at M = B * S, launches counted); serve the target
-    with int8 activations, then the pair speculatively (tokens held to the
-    target's under the near-tie rule).  Returns the record."""
-    from repro_torch.core import APConfig, CLAQConfig, rtn_quantize_matrix
+    CPU (``card_vs_cpu_inputs``: ``start_card_vs_cpu``'s W, H and the
+    CPU's future); print perplexity on ``EVAL_BATCHES`` batches (B
+    ``TRAIN_B``, S ``TRAIN_S``) for fp, RTN uniform 2-bit (dense), the
+    draft and the target (K1 blocked at M = B * S, launches counted);
+    serve the target with int8 activations, then the pair speculatively
+    (tokens held to the target's under the near-tie rule).  Returns the
+    record."""
+    from repro_torch.core import rtn_quantize_matrix
     from repro_torch.core import claq as claq_lib
     from repro_torch.data import DataConfig, SyntheticCorpus, calibration_set
     from repro_torch.launch import quantize as lq
 
-    qcfg = CLAQConfig(bits=2, method="kmeans", kmeans_iters=6,
-                      gptq_blocksize=32, ap=APConfig(2.2, 2, 4))
+    qcfg = phase8_qcfg()
     dcfg = dataclasses.replace(cfg, n_layers=QUANT_DEPTH)
     assert len(model.blocks) == QUANT_DEPTH
     evals = [SyntheticCorpus(DataConfig(dcfg.vocab, TRAIN_S, TRAIN_B,
@@ -1516,28 +1552,15 @@ def phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg, prompts,
     # 16384 rows).  (Layer 0's calibration Hessians have rank <= the
     # number of distinct tokens and agree less; PERF.md keeps their
     # reading, which is left out here for the script's time.)  The CPU's
-    # side runs in a process of its own while the card quantizes (the
-    # card's quantizer is host-bound on one thread: the CPU's threads
-    # leave it two cores).
+    # side has run in a process of its own since phase 10
+    # (``start_card_vs_cpu``).
     del hessians
-    W = model.blocks[0].attn.q.kernel.float().T.contiguous()
-    X = torch.randn((16384, W.shape[1]), device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(
-                        SEED + 4))
-    gauss = 2.0 * (X.T @ X) / X.shape[0]
-    del X
-    pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        on_cpu = pool.submit(quantize_on_cpu, W.cpu(), gauss.cpu(), qcfg,
-                             max(1, (os.cpu_count() or 1) - 2))
-        on_card = quantize_on_card(claq_lib, W, gauss, qcfg)
-        del gauss
-        quant_s, seconds, model, report, draft, drep = quantize_pipeline(
-            claq_lib, lq, model, dcfg, calib, qcfg)
-        full = card_vs_cpu(on_card, on_cpu.result())
-    finally:
-        pool.shutdown(cancel_futures=True)
+    W, gauss, on_cpu = card_vs_cpu_inputs
+    on_card = quantize_on_card(claq_lib, W, gauss, qcfg)
+    del W, gauss, card_vs_cpu_inputs
+    quant_s, seconds, model, report, draft, drep = quantize_pipeline(
+        claq_lib, lq, model, dcfg, calib, qcfg)
+    full = card_vs_cpu(on_card, on_cpu.result())
     checks = {"gaussian_16384_rows": full}
     log("quantize card-vs-cpu 4096x4096 gaussian_16384_rows "
         + json.dumps(full))
@@ -4378,6 +4401,125 @@ def phase_recurrent_mesh(api, dm, ops, plan, ServingEngine, prompts, gen):
     return res
 
 
+def phases_moe_families(api, dm, ops, ServingEngine, prompts, gen,
+                        host_gen):
+    """11. qwen3_moe_30b_a3b at full width (``MOE_DEPTH`` layers): routed
+    experts dequantized + einsum, every other quantized matmul on K1;
+    11b. deepseek_v2_236b at full width, 1 layer: MLA + moe + shared;
+    then K1 and K1e against their plain versions at every (shape, M) they
+    gave K1.  Returns the records."""
+    from repro_torch.configs import get_config
+    mcfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b"),
+                               n_layers=MOE_DEPTH)
+    assert (mcfg.d_model, mcfg.n_heads, mcfg.n_kv_heads, mcfg.n_experts,
+            mcfg.top_k, mcfg.d_ff_expert, mcfg.vocab, mcfg.dtype) == (
+        2048, 32, 4, 128, 8, 768, 151936, "bfloat16")
+    moe_runs, served_new, shapes_new = phase_family(
+        api, dm, ops, ServingEngine, mcfg, prompts, gen, host_gen, "qwen3_moe",
+        (("contiguous", {}),))
+    dcfg = dataclasses.replace(get_config("deepseek_v2_236b"), n_layers=1)
+    assert (dcfg.d_model, dcfg.n_heads, dcfg.q_lora, dcfg.kv_lora,
+            dcfg.rope_head_dim, dcfg.v_head_dim, dcfg.n_experts,
+            dcfg.n_shared_experts, dcfg.top_k, dcfg.d_ff_expert,
+            dcfg.vocab) == (5120, 128, 1536, 512, 64, 128, 160, 2, 6, 1536,
+                            102400)
+    ds_runs, served_d, shapes_d = phase_deepseek(api, dm, ops, ServingEngine,
+                                                 dcfg, prompts, gen, host_gen)
+    served_new.update(served_d)
+    for k, v in shapes_d.items():
+        shapes_new.setdefault(k, set()).update(v)
+    assert len(shapes_new) == 10, sorted(shapes_new)
+    cases, max_err = phase_new_shapes(dm, ops, served_new, shapes_new, gen,
+                                      "f32")
+    cases8, max_err8 = phase_new_shapes(dm, ops, served_new, shapes_new, gen,
+                                        "int8")
+    return dict(moe_runs=moe_runs, ds_runs=ds_runs, shapes=shapes_new,
+                cases=cases, cases8=cases8, max_err=max_err,
+                max_err8=max_err8)
+
+
+def phases_recurrent_families(api, dm, ops, ServingEngine, prompts, gen,
+                              host_gen):
+    """12. rwkv6_7b at full width (``RWKV_DEPTH`` layers); 12b.
+    zamba2_1p2b at full width and depth, its ring cache wrapped by a
+    4200-token prompt; 12c. seamless_m4t_medium at full width and depth
+    through models.api; then K1 and K1e against their plain versions at
+    every (shape, M) they gave K1.  Returns the records."""
+    from repro_torch.configs import get_config
+    rcfg = dataclasses.replace(get_config("rwkv6_7b"), n_layers=RWKV_DEPTH)
+    assert (rcfg.d_model, rcfg.n_heads, rcfg.rwkv_head_dim, rcfg.d_ff,
+            rcfg.vocab, rcfg.dtype) == (4096, 64, 64, 14336, 65536,
+                                        "bfloat16")
+    rwkv_run, served_f, shapes_f = phase_rwkv(api, dm, ops, ServingEngine,
+                                              rcfg, prompts, gen, host_gen)
+    zcfg = get_config("zamba2_1p2b")
+    assert (zcfg.n_layers, zcfg.n_sites, zcfg.d_model, zcfg.ssm_state,
+            zcfg.attn_window, zcfg.d_ff, zcfg.dtype) == (
+        38, 7, 2048, 64, 4096, 8192, "bfloat16")
+    zamba_run, served_z, shapes_z = phase_zamba2(
+        api, dm, ops, ServingEngine, zcfg, prompts, gen, host_gen)
+    ecfg = get_config("seamless_m4t_medium")
+    assert (ecfg.enc_layers, ecfg.dec_layers, ecfg.d_model, ecfg.d_ff,
+            ecfg.vocab, ecfg.dtype) == (12, 12, 1024, 4096, 256224,
+                                        "bfloat16")
+    encdec_run, served_e, shapes_e = phase_encdec(api, dm, ops, ServingEngine,
+                                                  ecfg, gen, host_gen)
+    for served_x, shapes_x in ((served_z, shapes_z), (served_e, shapes_e)):
+        served_f.update(served_x)
+        for k, v in shapes_x.items():
+            shapes_f.setdefault(k, set()).update(v)
+    assert len(shapes_f) == 11, sorted(shapes_f)
+    cases, max_err = phase_new_shapes(dm, ops, served_f, shapes_f, gen,
+                                      "f32")
+    cases8, max_err8 = phase_new_shapes(dm, ops, served_f, shapes_f, gen,
+                                        "int8")
+    return dict(rwkv_run=rwkv_run, zamba_run=zamba_run,
+                encdec_run=encdec_run, shapes=shapes_f, cases=cases,
+                cases8=cases8, max_err=max_err, max_err8=max_err8)
+
+
+def without_tensors(obj):
+    """``obj`` with every tensor in its dicts, lists and tuples replaced by
+    None: what a side process hands back (its tensors die with it)."""
+    if isinstance(obj, torch.Tensor):
+        return None
+    if isinstance(obj, dict):
+        return {k: without_tensors(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(without_tensors(v) for v in obj)
+    return obj
+
+
+def side_process(phases, *args):
+    """``phases`` (``phases_moe_families``, ``phases_recurrent_families``
+    or ``phase_substrate``) in a process of its own, spawned beside the
+    mesh phases: K1 loaded, TF32 off, generators from the seed and the
+    phase's name.  Returns its record without tensors."""
+    sys.path.insert(0, str(REPO / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import cuda_build, ops
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.models import api
+    from repro_torch.serve import ServingEngine, SpecConfig
+    cuda_build.load("dequant_matmul.cu")
+    seed = SEED + sum(map(ord, phases.__name__))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    if phases is phase_substrate:
+        res = phase_substrate(api, dm, ops, ServingEngine, SpecConfig, gen)
+    else:
+        res = phases(api, dm, ops, ServingEngine, *args, gen,
+                     torch.Generator().manual_seed(seed))
+    log(f"{phases.__name__} took {time.perf_counter() - t0:.1f} s (in a "
+        "process of its own, beside the mesh phases)")
+    out = without_tensors(res)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()     # the worker may take the next phases
+    return out
+
+
 def main() -> int:
     if not __debug__:
         print("chip_smoke: run without -O; its checks are asserts",
@@ -4525,6 +4667,23 @@ def main() -> int:
     gate_s = time.perf_counter() - t13
     lap("phase 13")
 
+    # 10. train llama1_7b at full width (QUANT_DEPTH layers), checkpoint
+    # asynchronously mid-run, restore into a fresh state, resume
+    train, trained = phase_train(api, cfg)
+    lap("phase 10")
+    # phases 11-11b, 12-12c and 10b on two spawned workers, and the CPU's
+    # side of phase 8's card-vs-CPU matrix on a third, beside the mesh
+    # phases (their ranks leave the host's other cores and most of the
+    # card idle); all collected before phase 7's kernel timings
+    spawn = multiprocessing.get_context("spawn")
+    side = concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn)
+    moe_job = side.submit(side_process, phases_moe_families, prompts)
+    families_job = side.submit(side_process, phases_recurrent_families,
+                               prompts)
+    substrate_job = side.submit(side_process, phase_substrate)
+    cpu_side = concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn)
+    card_vs_cpu_inputs = start_card_vs_cpu(cpu_side, trained)
+
     # 14a. phase 4's model and prompts on a one-rank nccl mesh
     mesh_1x1 = phase_mesh_one_rank(api, dm, ServingEngine, cfg, model,
                                    prompts, serve)
@@ -4542,6 +4701,11 @@ def main() -> int:
     mesh_train_runs = phase_mesh_train(dm, dist_runs)
     lap("phase 15")
 
+    # phases 11-11b (deepseek's engine holds 18.5 GB) end before phase 16's
+    # ranks train
+    moe_fam = moe_job.result()
+    lap("the wait for phases 11-11b")
+
     # 16. the moe family and MLA with experts on (1, 2) and (2, 1) meshes
     # of two ranks sharing the card: serving and training held to one
     # rank, the dry run's collectives to the measured ones
@@ -4556,84 +4720,30 @@ def main() -> int:
                                           prompts, gen)
     max_err = max(max_err, recurrent_mesh["shard_local_k1"]["max_abs_err"])
     lap("phase 17")
+    rec_fam = families_job.result()
+    substrate = substrate_job.result()
+    card_vs_cpu_inputs[2].result()
+    side.shutdown()
+    cpu_side.shutdown()
+    lap("the wait for phases 12-12c, 10b and phase 8's CPU side")
+    moe_runs, ds_runs = moe_fam["moe_runs"], moe_fam["ds_runs"]
+    rwkv_run, zamba_run, encdec_run = (rec_fam["rwkv_run"],
+                                       rec_fam["zamba_run"],
+                                       rec_fam["encdec_run"])
+    shapes_new, shapes_f = moe_fam["shapes"], rec_fam["shapes"]
+    cases_ns, cases8_ns = moe_fam["cases"], moe_fam["cases8"]
+    cases_fam, cases8_fam = rec_fam["cases"], rec_fam["cases8"]
+    max_err = max(max_err, substrate["plan_max_abs_err"], moe_fam["max_err"],
+                  rec_fam["max_err"])
 
     # 7. K1e vs plain version at every M phase 6 gave it
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
                                      serve8["kernel_m"], gen, host_gen,
                                      act="int8")
+    max_err8 = max(max_err8, moe_fam["max_err8"], rec_fam["max_err8"])
     torch.cuda.empty_cache()
     lap("phase 7")
 
-    # 11. qwen3_moe_30b_a3b at full width (MOE_DEPTH layers): routed
-    # experts dequantized + einsum, every other quantized matmul on K1
-    mcfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b"),
-                               n_layers=MOE_DEPTH)
-    assert (mcfg.d_model, mcfg.n_heads, mcfg.n_kv_heads, mcfg.n_experts,
-            mcfg.top_k, mcfg.d_ff_expert, mcfg.vocab, mcfg.dtype) == (
-        2048, 32, 4, 128, 8, 768, 151936, "bfloat16")
-    moe_runs, served_new, shapes_new = phase_family(
-        api, dm, ops, ServingEngine, mcfg, prompts, gen, host_gen, "qwen3_moe",
-        (("contiguous", {}),))
-    # 11b. deepseek_v2_236b at full width, 1 layer: MLA + moe + shared
-    dcfg = dataclasses.replace(get_config("deepseek_v2_236b"), n_layers=1)
-    assert (dcfg.d_model, dcfg.n_heads, dcfg.q_lora, dcfg.kv_lora,
-            dcfg.rope_head_dim, dcfg.v_head_dim, dcfg.n_experts,
-            dcfg.n_shared_experts, dcfg.top_k, dcfg.d_ff_expert,
-            dcfg.vocab) == (5120, 128, 1536, 512, 64, 128, 160, 2, 6, 1536,
-                            102400)
-    ds_runs, served_d, shapes_d = phase_deepseek(api, dm, ops, ServingEngine,
-                                                 dcfg, prompts, gen, host_gen)
-    served_new.update(served_d)
-    for k, v in shapes_d.items():
-        shapes_new.setdefault(k, set()).update(v)
-    assert len(shapes_new) == 10, sorted(shapes_new)
-    # 5/7 at the new shapes: K1 and K1e at every (shape, M) of 11/11b
-    cases_ns, max_err_ns = phase_new_shapes(dm, ops, served_new, shapes_new,
-                                            gen, "f32")
-    cases8_ns, max_err8_ns = phase_new_shapes(dm, ops, served_new, shapes_new,
-                                              gen, "int8")
-    max_err, max_err8 = max(max_err, max_err_ns), max(max_err8, max_err8_ns)
-    del served_new, served_d
-    torch.cuda.empty_cache()
-    lap("phases 11-11b and their kernel checks")
-
-    # 12. rwkv6_7b at full width (RWKV_DEPTH layers); 12b. zamba2_1p2b at
-    # full width and depth, its ring cache wrapped by a 4200-token prompt;
-    # 12c. seamless_m4t_medium at full width and depth through models.api
-    rcfg = dataclasses.replace(get_config("rwkv6_7b"), n_layers=RWKV_DEPTH)
-    assert (rcfg.d_model, rcfg.n_heads, rcfg.rwkv_head_dim, rcfg.d_ff,
-            rcfg.vocab, rcfg.dtype) == (4096, 64, 64, 14336, 65536,
-                                        "bfloat16")
-    rwkv_run, served_f, shapes_f = phase_rwkv(api, dm, ops, ServingEngine,
-                                              rcfg, prompts, gen, host_gen)
-    zcfg = get_config("zamba2_1p2b")
-    assert (zcfg.n_layers, zcfg.n_sites, zcfg.d_model, zcfg.ssm_state,
-            zcfg.attn_window, zcfg.d_ff, zcfg.dtype) == (
-        38, 7, 2048, 64, 4096, 8192, "bfloat16")
-    zamba_run, served_z, shapes_z = phase_zamba2(
-        api, dm, ops, ServingEngine, zcfg, prompts, gen, host_gen)
-    ecfg = get_config("seamless_m4t_medium")
-    assert (ecfg.enc_layers, ecfg.dec_layers, ecfg.d_model, ecfg.d_ff,
-            ecfg.vocab, ecfg.dtype) == (12, 12, 1024, 4096, 256224,
-                                        "bfloat16")
-    encdec_run, served_e, shapes_e = phase_encdec(api, dm, ops, ServingEngine,
-                                                  ecfg, gen, host_gen)
-    for served_x, shapes_x in ((served_z, shapes_z), (served_e, shapes_e)):
-        served_f.update(served_x)
-        for k, v in shapes_x.items():
-            shapes_f.setdefault(k, set()).update(v)
-    assert len(shapes_f) == 11, sorted(shapes_f)
-    # 5/7 at the families' shapes: K1 and K1e at every (shape, M) 12-12c
-    # gave K1
-    cases_fam, max_err_fam = phase_new_shapes(dm, ops, served_f, shapes_f,
-                                              gen, "f32")
-    cases8_fam, max_err8_fam = phase_new_shapes(dm, ops, served_f, shapes_f,
-                                                gen, "int8")
-    max_err, max_err8 = max(max_err, max_err_fam), max(max_err8,
-                                                       max_err8_fam)
-    del served_f, served_z, served_e
-    torch.cuda.empty_cache()
-    lap("phases 12-12c and their kernel checks")
     contracts.update(qwen3_moe=moe_runs["contiguous"]["contracts"],
                      rwkv6_7b=rwkv_run["contracts"],
                      zamba2_1p2b=zamba_run["contracts"])
@@ -4645,17 +4755,12 @@ def main() -> int:
                     for k, c in contracts.items() if k != "refusal"},
         "refusal": contracts["refusal"], "phase_s": gate_s}))
 
-    # 10. train llama1_7b at full width (QUANT_DEPTH layers), checkpoint
-    # asynchronously mid-run, restore into a fresh state, resume
-    train, trained = phase_train(api, cfg)
-    lap("phase 10")
-
     # 8. quantize the trained model's target + draft on the card, their
     # perplexities through K1, then serve with int8 activations, vanilla
     # and speculative
     qserve = phase_quantize_serve(api, dm, ServingEngine, SpecConfig, cfg,
-                                  prompts, trained)
-    del trained
+                                  prompts, trained, card_vs_cpu_inputs)
+    del trained, card_vs_cpu_inputs
     lap("phase 8")
 
     # 7b. K1e at the M values only phase 8's speculation gave it (the
@@ -4685,12 +4790,6 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     lap("phase 7b and the M = 2048 checks")
-
-    # 10b. the reference benchmarks' trained substrate on the card: the
-    # paper's orderings, then speculation with its 2-bit draft
-    substrate = phase_substrate(api, dm, ops, ServingEngine, SpecConfig, gen)
-    max_err = max(max_err, substrate["plan_max_abs_err"])
-    lap("phase 10b")
 
     def record(name, replaces, run, case, err, case_cases, what):
         return {

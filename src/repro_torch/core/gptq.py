@@ -15,7 +15,9 @@ in order with lazy blocked error compensation, as in GPTQ:
 
 The reference's two ``fori_loop``s are Python loops here, over blocks and
 over the columns of a block; every per-column step stays on the device of
-W (no host synchronisation inside the loop).
+W.  On the card the column loop of a block (K-Means, live codebooks,
+whole rows) is one CUDA graph, replayed for every block
+(``_BlockGraph``).
 
 Row-sharded (``group``, a ``torch.distributed`` process group over which
 W's rows are split): each column is gathered whole before its codebook
@@ -122,6 +124,103 @@ def _gather_column(w: torch.Tensor, weight: torch.Tensor, group):
     return full[0], full[1]
 
 
+def _quantize_block(Wb, Ub, kvs, weights, reserved, Qb, Eb, codes_b, cb_b,
+                    *, k_max, method, kmeans_iters, codebook_mode,
+                    frozen_b=None, group=None):
+    """The columns of one block in order: each column's codebook and codes,
+    its error, and the eager compensation of the block's later columns
+    (``Wb`` updated in place).  ``kvs[i]``: column i's valid centroids (an
+    int, or a 0-d device tensor for the K-Means fit); the results go into
+    ``Qb``, ``Eb`` (rows, B), ``codes_b`` (rows, B) and ``cb_b`` (B,
+    k_max)."""
+    for i in range(Wb.shape[1]):
+        w = Wb[:, i]
+        kv = kvs[i]
+        weight = weights[:, i]
+        if codebook_mode == "frozen":
+            cb = frozen_b[i]
+            codes = kmeans_lib._assign(w, cb)
+        elif group is not None:
+            wf, weight_f = _gather_column(w, weight, group)
+            if method == "kmeans":
+                cb, _ = kmeans_lib.kmeans_1d(wf, k_max, kv, kmeans_iters,
+                                             weight_f)
+            else:
+                cb = _uniform_codebook(wf, k_max, kv, weight_f)
+            codes = kmeans_lib._assign(w, cb)
+        elif method == "kmeans":
+            cb, codes = kmeans_lib.kmeans_1d(w, k_max, kv, kmeans_iters,
+                                             weight)
+        else:
+            cb = _uniform_codebook(w, k_max, kv, weight)
+            codes = kmeans_lib._assign(w, cb)
+        safe = torch.where(torch.isfinite(cb), cb, 0.0)
+        q = torch.where(reserved[:, i], w, safe[codes])
+        err = (w - q) / torch.clamp(Ub[i, i], min=1e-12)
+        # columns <= i get no update (the reference masks them to 0)
+        Wb[:, i + 1:] -= torch.outer(err, Ub[i, i + 1:])
+        Qb[:, i] = q
+        Eb[:, i] = err
+        codes_b[:, i] = codes.to(torch.int32)
+        cb_b[i] = cb
+
+
+class _BlockGraph:
+    """``_quantize_block`` for K-Means with live codebooks on whole rows,
+    captured once as a CUDA graph over fixed buffers and replayed for
+    every block of the matrix.  A column launches some 140 small kernels;
+    run eagerly, the card waits on the host to launch them.  The graph
+    replays the same kernels on the same shapes, so its results are the
+    eager loop's bit for bit."""
+
+    def __init__(self, rows, blocksize, k_max, kmeans_iters, device):
+        f32 = dict(dtype=torch.float32, device=device)
+        self.W = torch.zeros((rows, blocksize), **f32)
+        self.U = torch.zeros((blocksize, blocksize), **f32)
+        self.kv = torch.ones((blocksize,), dtype=torch.int32, device=device)
+        self.weight = torch.zeros((rows, blocksize), **f32)
+        self.reserved = torch.zeros((rows, blocksize), dtype=torch.bool,
+                                    device=device)
+        self.Q = torch.zeros((rows, blocksize), **f32)
+        self.E = torch.zeros((rows, blocksize), **f32)
+        self.codes = torch.zeros((rows, blocksize), dtype=torch.int32,
+                                 device=device)
+        self.cb = torch.zeros((blocksize, k_max), **f32)
+        self.kw = dict(k_max=k_max, method="kmeans",
+                       kmeans_iters=kmeans_iters, codebook_mode="live")
+        self.graph = None
+
+    def _body(self):
+        _quantize_block(self.W, self.U, list(self.kv), self.weight,
+                        self.reserved, self.Q, self.E, self.codes, self.cb,
+                        **self.kw)
+
+    def _load(self, Wb, Ub, kv, weight, reserved):
+        for dst, src in ((self.W, Wb), (self.U, Ub), (self.kv, kv),
+                         (self.weight, weight), (self.reserved, reserved)):
+            dst.copy_(src)
+
+    def run(self, Wb, Ub, kv, weight, reserved):
+        """One block: returns (Q, E, codes, codebooks), the fixed buffers
+        (valid until the next ``run``)."""
+        if self.graph is None:
+            # a warm-up run first (lazy library set-up must not happen
+            # under capture), on a side stream as capture wants
+            self._load(Wb, Ub, kv, weight, reserved)
+            side = torch.cuda.Stream(self.W.device)
+            side.wait_stream(torch.cuda.current_stream(self.W.device))
+            with torch.cuda.stream(side):
+                self._body()
+            torch.cuda.current_stream(self.W.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self._body()
+        self._load(Wb, Ub, kv, weight, reserved)
+        self.graph.replay()
+        return self.Q, self.E, self.codes, self.cb
+
+
 def gptq_quantize_matrix(
     W: torch.Tensor,
     U: torch.Tensor,
@@ -135,6 +234,7 @@ def gptq_quantize_matrix(
     codebook_mode: str = "live",
     frozen_codebooks: Optional[torch.Tensor] = None,
     group=None,
+    cuda_graph: bool = True,
 ) -> QuantizeResult:
     """Quantize W (rows, cols) column by column with OBS compensation.
 
@@ -146,6 +246,9 @@ def gptq_quantize_matrix(
     column; 'frozen' uses ``frozen_codebooks`` fitted on the original
     weights.  ``group``: W is this rank's block of rows of a matrix split
     over the group (see the module docstring); the result is the block's.
+    ``cuda_graph``: on the card, run K-Means with live codebooks on whole
+    rows through ``_BlockGraph`` (the same bits, without the host's launch
+    time); False runs the loop eagerly.
     """
     rows, cols = W.shape
     if cols % blocksize:
@@ -163,43 +266,34 @@ def gptq_quantize_matrix(
     codes_all = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
     cb_all = torch.full((cols, k_max), torch.inf, device=dev)
 
+    graphed = (W.is_cuda and cuda_graph and method == "kmeans"
+               and codebook_mode == "live" and group is None)
+    block = kv_all = None
+    if graphed:
+        block = _BlockGraph(rows, blocksize, k_max, kmeans_iters, dev)
+        kv_all = torch.as_tensor(1 << bits, dtype=torch.int32, device=dev)
     for j0 in range(0, cols, blocksize):
         j1 = j0 + blocksize
-        Wb = W[:, j0:j1].clone()
         Ub = U[j0:j1, j0:j1]
-        Qb = torch.zeros_like(Wb)
-        Eb = torch.zeros_like(Wb)
-        for i in range(blocksize):
-            j = j0 + i
-            w = Wb[:, i]
-            kv = 1 << int(bits[j])
-            weight = weight_all[:, j]
-            if codebook_mode == "frozen":
-                cb = frozen_codebooks[j]
-                codes = kmeans_lib._assign(w, cb)
-            elif group is not None:
-                wf, weight_f = _gather_column(w, weight, group)
-                if method == "kmeans":
-                    cb, _ = kmeans_lib.kmeans_1d(wf, k_max, kv, kmeans_iters,
-                                                 weight_f)
-                else:
-                    cb = _uniform_codebook(wf, k_max, kv, weight_f)
-                codes = kmeans_lib._assign(w, cb)
-            elif method == "kmeans":
-                cb, codes = kmeans_lib.kmeans_1d(w, k_max, kv, kmeans_iters,
-                                                 weight)
-            else:
-                cb = _uniform_codebook(w, k_max, kv, weight)
-                codes = kmeans_lib._assign(w, cb)
-            safe = torch.where(torch.isfinite(cb), cb, 0.0)
-            q = torch.where(reserved_mask[:, j], w, safe[codes])
-            err = (w - q) / torch.clamp(Ub[i, i], min=1e-12)
-            # columns <= i get no update (the reference masks them to 0)
-            Wb[:, i + 1:] -= torch.outer(err, Ub[i, i + 1:])
-            Qb[:, i] = q
-            Eb[:, i] = err
-            codes_all[:, j] = codes.to(torch.int32)
-            cb_all[j] = cb
+        if block is not None:
+            Qb, Eb, codes_b, cb_b = block.run(
+                W[:, j0:j1], Ub, kv_all[j0:j1], weight_all[:, j0:j1],
+                reserved_mask[:, j0:j1])
+            codes_all[:, j0:j1] = codes_b
+            cb_all[j0:j1] = cb_b
+        else:
+            Wb = W[:, j0:j1].clone()
+            Qb = torch.zeros_like(Wb)
+            Eb = torch.zeros_like(Wb)
+            _quantize_block(
+                Wb, Ub, [1 << int(b) for b in bits[j0:j1]],
+                weight_all[:, j0:j1], reserved_mask[:, j0:j1], Qb, Eb,
+                codes_all[:, j0:j1], cb_all[j0:j1], k_max=k_max,
+                method=method, kmeans_iters=kmeans_iters,
+                codebook_mode=codebook_mode,
+                frozen_b=(frozen_codebooks[j0:j1]
+                          if codebook_mode == "frozen" else None),
+                group=group)
         # lazy update of all later columns: one rank-1 update a column
         # of the block, in column order, so every element's sum is taken
         # in the same order however many rows W holds (a row-sharded

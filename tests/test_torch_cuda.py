@@ -8,8 +8,10 @@ slots; and the split-K / tensor-core design at its edges: M at every tile
 edge, K in one, many and a ragged last slice, outliers on tile edges in the
 last slice, more outlier slots than a stage holds, acc and x_scale with
 several slices, two calls bitwise equal, split-K launches on two streams at
-once, a chain replayed from a CUDA graph equal to the eager one, and the
-launch plan's shared memory and residency against the CUDA runtime's;
+once, a chain replayed from a CUDA graph equal to the eager one, the
+quantizer's GPTQ column loop replayed from its CUDA graph equal to its
+eager loop, and the launch plan's shared memory and residency against the
+CUDA runtime's;
 and, for the moe/MLA families, K1/K1e at their 10 full-width matrix
 shapes, stacked experts dequantized on the card as on the CPU, and a
 smoke deepseek_v2_236b serving with repeatable tokens.  Sums
@@ -375,6 +377,29 @@ def test_cuda_graph_equals_eager(card, m, act):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(y, eager)
+
+
+@pytest.mark.parametrize("rows,cols", [(96, 128), (4608, 64)])
+def test_gptq_block_graph_equals_eager(card, rows, cols):
+    """The GPTQ column loop replayed from its CUDA graph gives the eager
+    loop's codes, codebooks and dequantized matrix bit for bit (4608 rows:
+    a column longer than one sort block)."""
+    from repro_torch.core import gptq
+    rng = np.random.default_rng(21)
+    W = torch.as_tensor(rng.normal(size=(rows, cols)).astype(np.float32),
+                        device=card)
+    X = torch.as_tensor(rng.normal(size=(4 * cols, cols)).astype(np.float32),
+                        device=card)
+    U = gptq.prepare_hinv_cholesky(2.0 * X.T @ X / X.shape[0])
+    bits = rng.choice([2, 3, 4], size=cols, p=[0.8, 0.1, 0.1])
+    reserved = torch.as_tensor(rng.random((rows, cols)) < 0.01, device=card)
+    kw = dict(k_max=16, blocksize=32, method="kmeans", kmeans_iters=6)
+    eager = gptq.gptq_quantize_matrix(W, U, bits, reserved,
+                                      cuda_graph=False, **kw)
+    graphed = gptq.gptq_quantize_matrix(W, U, bits, reserved, **kw)
+    assert torch.equal(graphed.codes, eager.codes)
+    assert torch.equal(graphed.codebooks, eager.codebooks)
+    assert torch.equal(graphed.Q, eager.Q)
 
 
 @pytest.mark.parametrize("bits", [2, 4])
