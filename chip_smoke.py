@@ -184,7 +184,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
      blocks' outputs to the whole launch's columns; (d) the same two
      ranks quantize a 512 x 512 matrix row-sharded, held to the
      single-rank result (Q to rtol 1e-4 / atol 1e-5, the proxy loss to
-     1e-3).
+     1e-3); (e) the same two ranks as two pods of a (pod 2, data 1,
+     model 1) mesh (slots over "dp" = pod x data, the sampled tokens
+     gathered over both) emit (b)'s (2, 1) tokens bit for bit.
   15. training on a mesh and the dry run (run after phase 14): (a) two
      spawned ranks sharing the card over gloo train llama1_7b at full
      width, ``QUANT_DEPTH`` = 1 layer (bf16 params, f32 moments, phase
@@ -266,6 +268,32 @@ Phases (any failure raises and ends the run with a non-zero exit):
      then ``run_cell``'s roofline for rwkv6_7b and zamba2_1p2b decode_32k
      (sites and Mamba2 layers counted apart) on the single production
      mesh.  The phase's time is printed.
+  18. encdec on a mesh (run after phase 17): two spawned ranks sharing
+     the card over gloo, meshes (1, 2) and (2, 1): (a) seamless_m4t_medium
+     at full width and ``ENCDEC_MESH_DEPTH`` = all 12 + 12 layers,
+     synthetic AP+OR weights from the seed prepared into plans, phase
+     12c's inputs (4 x 200 seeded frames, 8-token prompts) through
+     ``models.api``: prefill and ``MAX_NEW`` decode steps over a placed
+     cache (the cross-attention banks' KV heads over "model", their rows
+     over "data"; each data rank on its rows); each request's tokens
+     equal the single rank's up to a first divergence that is a near tie
+     within twice ``ENCDEC_REPLAY_NOISE_STEPS`` bf16 steps and an argmax
+     flip of a replay forced to the single rank's tokens, whose every row
+     stays within ``ENCDEC_REPLAY_NOISE_STEPS`` bf16 steps of the single
+     rank's with at most ``ENCDEC_REPLAY_FLIPS`` flips (fixed ceilings
+     from sound runs); per rank the cross-bank bytes (half the single
+     rank's on both meshes), the plane bytes, K1 launches, a decode
+     step's collectives (count, bytes) equal to the dry run's, decode ms
+     a step (median, min) and peak memory; K1 and K1e against their plain
+     versions on both blocks of every shard-local plan the ranks ran, at
+     every M they gave K1; (b) seamless_m4t_medium at full width, 1
+     encoder + 1 decoder layer, B 4 x S ``ENCDEC_TRAIN_S`` (frames and
+     tokens), ``ENCDEC_TRAIN_STEPS`` = 3 steps on each mesh under 15a's
+     rules, its steps' collectives equal to the dry run's; (c)
+     ``run_cell`` of its train_4k, prefill_32k and decode_32k cells on
+     the single and the multi-pod production mesh, each "ok", and
+     long_500k "skipped" (a model, not a measurement; traced on meta in a
+     CPU process started after phase 6).  The phase's time is printed.
 It prints a JSON line of kernel records, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -362,6 +390,18 @@ RECURRENT_TRAIN_STEPS = 3          # 17c's steps on each mesh
 # noise, so the count follows the prompts.
 RECURRENT_REPLAY_NOISE_STEPS = {"rwkv": 8.0, "zamba2": 64.0}
 RECURRENT_REPLAY_FLIPS = {"rwkv": 20, "zamba2": 24}
+ENCDEC_MESH_DEPTH = (12, 12)       # phase 18a's (encoder, decoder) layers
+#                                    of seamless_m4t_medium: all of them
+ENCDEC_TRAIN_STEPS = 3             # 18b's steps on each mesh
+ENCDEC_TRAIN_S = TRAIN_S           # 18b's frames and tokens a row
+# 18a's forced replay: the largest logit gap in bf16 steps at the row's
+# largest logit, and the argmax flips in a rank's rows (68 on (1, 2), 34
+# on (2, 1): 4 requests x 17 tokens); each ceiling is twice the largest
+# of five sound runs (NVIDIA H100 80GB HBM3 at 700 W):
+# ``tools/chip_phase18.py`` on seeds 0-4 read 2.84, 3.19, 2.63, 2.72 and
+# 2.78 steps and at most 1, 1, 2, 3 and 2 flips
+ENCDEC_REPLAY_NOISE_STEPS = 6.375
+ENCDEC_REPLAY_FLIPS = 6
 MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
                  v_head_dim=16, head_dim=16)   # phase 3's dense use_mla
 
@@ -3147,6 +3187,22 @@ def mesh_rank(rank, world, device, prompts, base_tokens, W, H):
         del eng
         torch.cuda.empty_cache()
     del single
+    # 14e: the (2, 1) mesh's data ranks as two pods of a (pod, data,
+    # model) mesh: slots over "dp" = pod x data, the sampled tokens
+    # gathered over both
+    mesh = mesh_lib.make_debug_mesh((2, 1, 1), ("pod", "data", "model"),
+                                    device_type="cuda")
+    eng = ServingEngine(mesh_model(device), cfg, n_slots=4, max_len=256,
+                        dtype=torch.bfloat16, device=device, mesh=mesh)
+    tokens, counts, step_launches, step_ms, _ = mesh_serve(eng, prompts, dm)
+    out["mesh_pod_2x1x1"] = dict(
+        tokens=tokens, counts=counts,
+        launches_per_step=sorted(set(step_launches)),
+        decode_ms_per_step=float(np.mean(step_ms)),
+        decode_ms_per_step_min=float(np.min(step_ms)),
+        stats_mesh=eng.stats()["mesh"])
+    del eng
+    torch.cuda.empty_cache()
     # 14d: the row-sharded quantizer over the model axis of a (1, 2) mesh
     mesh = mesh_lib.make_debug_mesh((1, 2), device_type="cuda")
     qcfg = CLAQConfig(bits=3, method="kmeans", kmeans_iters=5,
@@ -3281,6 +3337,17 @@ def phase_distribution(api, dm, ops, plan, ServingEngine, prompts, gen,
                        tokens_equal=out[tag]["tokens"] == base["tokens"])
             res[f"{tag}_rank{r}"] = rec
             log(f"{tag} rank {r} " + json.dumps(rec))
+    # 14e: two pods emit the (2, 1) mesh's tokens, bit for bit
+    for r, out in enumerate(ranks):
+        rec = dict(out["mesh_pod_2x1x1"])
+        assert rec.pop("tokens") == out["mesh_2x1"]["tokens"], r
+        assert rec["stats_mesh"] == {"pod": 2, "data": 1, "model": 1}
+        assert rec["launches_per_step"] == [
+            base["launches_per_decode_step"]], rec["launches_per_step"]
+        assert rec["counts"]["launches"] > 0
+        res[f"mesh_pod_2x1x1_rank{r}"] = rec
+        log(f"mesh_pod_2x1x1 rank {r} (tokens exactly the (2, 1) mesh's) "
+            + json.dumps(rec))
     for r, out in enumerate(ranks):
         q = out["rowsharded"]
         np.testing.assert_allclose(q["Q"], Q1, rtol=1e-4, atol=1e-5)
@@ -3334,7 +3401,9 @@ def collective_counts(colls):
 
 
 def mesh_train(device, mesh, dm, n_microbatches=1, setup=None):
-    """15a (16c: ``setup`` ``moe_train_setup``) on one rank (``mesh``
+    """15a (16c, 17c, 18b: ``setup`` ``moe_train_setup``,
+    ``rwkv_train_setup``, ``encdec_train_setup``, whose batches are
+    tokens or, for encdec, dicts with frames) on one rank (``mesh``
     None: the single-rank baseline): the setup's steps from the seed under
     deterministic algorithms, step ``MESH_TRAIN_TRACE`` under the op
     recorder.  Returns (record, the whole params after the last step: a
@@ -3363,9 +3432,10 @@ def mesh_train(device, mesh, dm, n_microbatches=1, setup=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with dctx.use_mesh(mesh):
-            for s, tokens in enumerate(batches):
-                def one(tokens=tokens):
-                    return step(model, opt, {"tokens": tokens})
+            for s, batch in enumerate(batches):
+                def one(batch=batch):
+                    return step(model, opt, batch if isinstance(batch, dict)
+                                else {"tokens": batch})
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if s == MESH_TRAIN_TRACE:
@@ -3380,7 +3450,7 @@ def mesh_train(device, mesh, dm, n_microbatches=1, setup=None):
                     step_ms.append((time.perf_counter() - t0) * 1e3)
             peak = torch.cuda.max_memory_allocated()
             params = (convert.param_tree(model, cfg) if mesh is None
-                      else gathered_state(model, cfg, opt, mesh)["params"])
+                      else gathered_state(model, cfg, None, mesh)["params"])
         counts = read_counts(dm)
     finally:
         torch.use_deterministic_algorithms(det)
@@ -4401,6 +4471,449 @@ def phase_recurrent_mesh(api, dm, ops, plan, ServingEngine, prompts, gen):
     return res
 
 
+# ---------------------------------------------------------- encdec on a mesh
+
+def encdec_mesh_cfg():
+    """18a's seamless_m4t_medium at full width, ``ENCDEC_MESH_DEPTH``
+    (encoder, decoder) layers."""
+    from repro_torch.configs import get_config
+    enc, dec = ENCDEC_MESH_DEPTH
+    return dataclasses.replace(get_config("seamless_m4t_medium"),
+                               enc_layers=enc, dec_layers=dec,
+                               n_layers=enc + dec)
+
+
+def encdec_mesh_model(device):
+    """18a's model: synthetic AP+OR weights from the seed (the same on
+    every rank and in the parent), prepared into plans."""
+    from repro_torch.kernels.plan import prepare_tree
+    return prepare_tree(synthetic_model(
+        encdec_mesh_cfg(), torch.Generator(device=device).manual_seed(SEED),
+        torch.Generator().manual_seed(SEED), device))
+
+
+def encdec_train_setup():
+    """18b's model config, optimizer config and batches: seamless_m4t_medium
+    at full width cut to 1 encoder and 1 decoder layer (bf16 params, f32
+    moments), phase 10's schedule, ``ENCDEC_TRAIN_STEPS`` batches of B
+    ``TRAIN_B``: tokens of ``ENCDEC_TRAIN_S`` from ``SyntheticCorpus``
+    and seeded frames of as many rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.optim import OptimConfig
+    cfg = dataclasses.replace(get_config("seamless_m4t_medium"),
+                              enc_layers=1, dec_layers=1, n_layers=2)
+    ocfg = OptimConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=ENCDEC_TRAIN_S,
+                                      batch=TRAIN_B, seed=SEED))
+    host = torch.Generator().manual_seed(SEED + 18)
+    return cfg, ocfg, [
+        {"tokens": data.batch_at(s),
+         "frames": torch.randn((TRAIN_B, ENCDEC_TRAIN_S, cfg.d_model),
+                               generator=host).to(torch.bfloat16)}
+        for s in range(ENCDEC_TRAIN_STEPS)]
+
+
+def encdec_rows(mesh):
+    """This data rank's block of 18a's ``ENCDEC_FRAMES`` rows (every row
+    without a mesh)."""
+    from repro_torch.dist import sharding as shd
+    B = ENCDEC_FRAMES[0]
+    if mesh is None:
+        return slice(0, B)
+    parts, index = shd.entry_block(shd.MeshAxes(mesh).dp, mesh,
+                                   shd.mesh_coords(mesh))
+    return slice(index * B // parts, (index + 1) * B // parts)
+
+
+def encdec_generate(api, dm, model, cfg, frames, toks, mesh=None,
+                    forced=None, trace_step=None):
+    """``api.prefill_step`` over ``frames``/``toks`` and ``MAX_NEW``
+    ``api.decode_step``s on ``mesh`` (a placed model; each data rank on
+    its rows of the batch and of a placed cache, under
+    ``dctx.rows_over_dp``), the launch counts set to 0 just before and
+    read just after.  Each step feeds the argmax (all-gathered over
+    "data": every rank holds every row's tokens), or with ``forced`` (B,
+    MAX_NEW + 1) those tokens.  Returns the tokens (B rows of MAX_NEW + 1),
+    this rank's logits rows (rows, MAX_NEW + 1, V) on the host, the
+    counts, each decode step's synchronized ms and K1 launches, peak
+    memory, and the op trace of decode step ``trace_step`` (not timed)."""
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import sharding as shd
+    B, Ss = frames.shape[:2]
+    rows = encdec_rows(mesh)
+    cache = api.make_cache(cfg, B, toks.shape[1] + MAX_NEW + 1,
+                           torch.bfloat16, frames.device, src_len=Ss)
+    if mesh is not None:
+        cache = shd.place_cache(cache, cfg, mesh)
+    split = mesh is not None and rows.stop - rows.start < B
+    batch = {"frames": frames[rows], "tokens": toks[rows]}
+    logits, out, step_ms, step_launches, trace = [], [], [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(dm)
+    with torch.no_grad(), dctx.use_mesh(mesh), dctx.rows_over_dp(split):
+        lg, cache = api.prefill_step(model, cfg, batch, cache)
+        for j in range(MAX_NEW + 1):
+            logits.append(lg.float().cpu())
+            tok = lg.argmax(dim=-1)
+            if split:
+                tok = coll.all_gather(tok, dim=0, axis="data", mesh=mesh)
+            out.append(tok.cpu())
+            if j == MAX_NEW:
+                break
+            feed = (tok if forced is None
+                    else forced[:, j].to(frames.device))[rows]
+
+            def step(feed=feed, cache=cache):
+                return api.decode_step(model, cfg, feed, cache)
+            if j == trace_step:
+                (lg, cache), trace = OT.capture(step, frames.device)
+                continue
+            before = dm.launch_count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_launches.append(dm.launch_count - before)
+    counts = read_counts(dm)
+    return dict(tokens=torch.stack(out, dim=1).tolist(),
+                logits=torch.stack(logits, dim=1), counts=counts,
+                step_ms=step_ms, step_launches=step_launches,
+                peak=torch.cuda.max_memory_allocated(), trace=trace,
+                cache_bytes={f: sum(t.numel() * t.element_size() for t in (
+                    [getattr(cache, f)] if f != "self_kv" else
+                    [x for c in cache.self_kv for x in (c.k, c.v)]))
+                    for f in ("cross_k", "cross_v", "self_kv")})
+
+
+def encdec_replay(got, base, rows):
+    """A forced run's logits (``got``: this rank's rows of ``rows``,
+    forced to the single rank's tokens) held to the single rank's
+    (``base``): the largest |gap| (and in bf16 steps at the row's largest
+    logit), the rows, and where its argmax is not the single rank's token
+    (the single rank's deficit there, and (request, position))."""
+    st = dict(noise=0.0, noise_steps=0.0, rows=0, flip_deficits=[],
+              flips_at=[])
+    for a, i in enumerate(range(rows.start, rows.stop)):
+        for j in range(MAX_NEW + 1):
+            row, want = got[a, j], base["logits"][i, j]
+            gap = float((row - want).abs().max())
+            st["noise"] = max(st["noise"], gap)
+            st["noise_steps"] = max(st["noise_steps"],
+                                    gap / bf16_step_at(want))
+            st["rows"] += 1
+            top, token = int(row.argmax()), base["tokens"][i][j]
+            if top != token:
+                st["flip_deficits"].append(float(want[token] - want[top]))
+                st["flips_at"].append((i, j))
+    return st
+
+
+def encdec_holdings(model):
+    """The CLAQ plans' plane bytes a rank holds, and how many plans are
+    shard-local."""
+    from repro_torch.kernels.plan import PreparedQuantizedTensor
+    plans = [m.kernel for m in model.modules()
+             if isinstance(getattr(m, "kernel", None),
+                           PreparedQuantizedTensor)]
+    return dict(plane_bytes=sum(p.numel() * 4 for k in plans
+                                for g in k.groups for p in g.planes),
+                shard_local_plans=sum(k.shard is not None for k in plans))
+
+
+def encdec_mesh_rank(rank, world, device, want_path, span):
+    """18a-b on one of the two spawned ranks: per mesh of ``MESH_SHAPES``
+    the generation record (tokens, launches, the shard-local (shape, M)
+    pairs, the bytes held, decode ms, peak memory, a decode step's
+    collectives, a forced replay of the single rank's tokens), then 18b's
+    train records."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import api
+    cfg = encdec_mesh_cfg()
+    base = torch.load(REPO / "build" / "phase18.pt")
+    frames, toks = base["frames"].to(device), base["toks"].to(device)
+    forced = torch.tensor(base["tokens"])
+    whole = encdec_mesh_model(device)
+    out = {}
+    for shape in MESH_SHAPES:
+        tag = f"encdec_{shape[0]}x{shape[1]}"
+        mesh = mesh_lib.make_debug_mesh(shape, device_type="cuda")
+        model = copy.deepcopy(whole)
+        shd.place_model(model, cfg, mesh)
+        t0 = time.perf_counter()
+        with KernelShapes(ops, shard_key) as seen:
+            run = encdec_generate(api, dm, model, cfg, frames, toks, mesh,
+                                  trace_step=2)
+        t1 = time.perf_counter()
+        replay = encdec_generate(api, dm, model, cfg, frames, toks, mesh,
+                                 forced=forced)
+        t2 = time.perf_counter()
+        rows = encdec_rows(mesh)
+        out[tag] = dict(
+            tokens=run["tokens"], counts=run["counts"],
+            shard_local_m={k: sorted(v) for k, v in seen.seen.items()},
+            launches_per_step=sorted(set(run["step_launches"])),
+            decode_ms_per_step=float(np.median(run["step_ms"])),
+            decode_ms_per_step_min=float(np.min(run["step_ms"])),
+            max_memory_allocated_gb=run["peak"] / 1e9,
+            collectives_per_step=collective_counts(
+                OT.collective_instructions(run["trace"])),
+            cross_bank_bytes=(run["cache_bytes"]["cross_k"]
+                              + run["cache_bytes"]["cross_v"]),
+            self_kv_bytes=run["cache_bytes"]["self_kv"],
+            replay=encdec_replay(replay["logits"], base, rows),
+            rows=[rows.start, rows.stop],
+            seconds=dict(serve=t1 - t0, replay=t2 - t1),
+            **encdec_holdings(model))
+        del model, run, replay
+        torch.cuda.empty_cache()
+    del whole
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out.update(mesh_train_rank(rank, world, device, want_path, span,
+                               setup=encdec_train_setup))
+    out["mesh_train_s"] = time.perf_counter() - t0
+    return out
+
+
+def encdec_production_cells():
+    """18c's production cells: ``run_cell`` of seamless_m4t_medium's
+    train_4k, prefill_32k and decode_32k on the single and the multi-pod
+    production mesh, and long_500k (skipped) on the single one (meta
+    tensors only: run in a CPU process of its own)."""
+    sys.path.insert(0, str(REPO / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    out = {}
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        for multi in ((False, True) if shape != "long_500k" else (False,)):
+            cell = dryrun.run_cell("seamless_m4t_medium", shape, multi)
+            out[f"{shape}|{'multi' if multi else 'single'}"] = (
+                {k: cell[k] for k in ("status", "reason")}
+                if cell["status"] == "skipped" else
+                {k: cell.get(k) for k in ("status", "error", "compile_s",
+                                          "roofline", "chips")}
+                | {"collectives": cell.get("per_device", {})
+                   .get("collectives")})
+    return out
+
+
+def start_encdec_cells():
+    """18c's production cells started in a CPU process of their own (a
+    few minutes of host time on meta tensors, spent beside the card's
+    phases): (the pool, the job)."""
+    spawn = multiprocessing.get_context("spawn")
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn)
+    return pool, pool.submit(encdec_production_cells)
+
+
+def phase_encdec_mesh(api, dm, ops, plan, gen, cells=None):
+    """18. seamless_m4t_medium on (1, 2) and (2, 1) meshes of two ranks
+    sharing the card: prefill and decode through ``models.api`` over
+    placed cross-attention banks and training, against one rank; K1 and
+    K1e on every shard-local plan the ranks ran against their plain
+    versions; the dry run's collectives against the ranks'; the
+    production cells (``cells``: ``start_encdec_cells``' pool and job,
+    started here when None; False leaves them out)."""
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist.standin import StandInMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    if cells is None:
+        cells = start_encdec_cells()
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    cfg = encdec_mesh_cfg()
+    B, Ss = ENCDEC_FRAMES
+    frames = torch.randn((B, Ss, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    toks = torch.randint(1, cfg.vocab, (B, ENCDEC_PROMPT), generator=gen,
+                         device="cuda")
+    # the single rank: the baseline tokens and logits, its own replay
+    # (exact), the bytes held; one whole plan of each shape
+    model = encdec_mesh_model("cuda")
+    t_model = time.perf_counter() - t0
+    one = encdec_generate(api, dm, model, cfg, frames, toks)
+    own = encdec_generate(api, dm, model, cfg, frames, toks,
+                          forced=torch.tensor(one["tokens"]))
+    replay = encdec_replay(own["logits"], one, slice(0, B))
+    assert replay["noise"] == 0 and not replay["flip_deficits"], replay
+    served = {}
+    served_plans(model, served)
+    single = dict(decode_ms_per_step=float(np.median(one["step_ms"])),
+                  decode_ms_per_step_min=float(np.min(one["step_ms"])),
+                  launches_per_decode_step=sorted(set(one["step_launches"])),
+                  max_memory_allocated_gb=one["peak"] / 1e9,
+                  cross_bank_bytes=(one["cache_bytes"]["cross_k"]
+                                    + one["cache_bytes"]["cross_v"]),
+                  self_kv_bytes=one["cache_bytes"]["self_kv"],
+                  counts=one["counts"], replay=replay,
+                  **encdec_holdings(model))
+    torch.save(dict(frames=frames.cpu(), toks=toks.cpu(),
+                    tokens=one["tokens"], logits=one["logits"]),
+               build / "phase18.pt")
+    del model, own
+    torch.cuda.empty_cache()
+    t_base = time.perf_counter() - t0
+    # 18b's single rank and its two-microbatch twin
+    want_path = build / "phase18_params.pt"
+    single_train, span = train_baseline(dm, encdec_train_setup, want_path)
+    log("encdec train single rank " + json.dumps(single_train))
+    t_train = time.perf_counter() - t0 - t_base
+    try:
+        ranks = mesh_lib.run_local(encdec_mesh_rank, 2, str(want_path), span,
+                                   backend="gloo", device="cuda",
+                                   workdir=str(build))
+        log(f"phase 18: the single-rank model {t_model:.1f} s, single-rank "
+            f"generation {t_base - t_model:.1f} s, single-rank training "
+            f"{t_train:.1f} s, the ranks "
+            f"{time.perf_counter() - t0 - t_base - t_train:.1f} s (their "
+            f"training {ranks[0]['mesh_train_s']:.1f} s)")
+    finally:
+        want_path.unlink(missing_ok=True)
+        (build / "phase18.pt").unlink(missing_ok=True)
+    res = {"single_rank": single}
+    log("encdec single rank " + json.dumps(single))
+    # the single rank's record as ``near_ties`` reads it: per request its
+    # tokens, the prefill row of token 0 and decode step j's row of token j
+    base = dict(tokens=one["tokens"],
+                prefill_logits=[one["logits"][i, 0] for i in range(B)],
+                decode_logits=[{j: one["logits"][i, j]
+                                for j in range(1, MAX_NEW + 1)}
+                               for i in range(B)])
+    # (c) the dry run of (a)'s decode step on each mesh
+    predicted = {}
+    for shape in MESH_SHAPES:
+        traced = dryrun.trace_cell(
+            cfg, ShapeCell("encdec_decode", 256, B, "decode"),
+            StandInMesh({"data": shape[0], "model": shape[1]}),
+            quant="2.12")
+        predicted[f"decode_{shape[0]}x{shape[1]}"] = collective_counts(
+            OT.collective_instructions(traced["trace"]))
+    # (a): tokens (a first divergence a near tie at twice the replay's
+    # ceiling and an argmax flip of the replay there), the replay under
+    # its ceilings, launches, the bytes held, collectives = the dry run's
+    shard_m = {}
+    for shape in MESH_SHAPES:
+        tag = f"encdec_{shape[0]}x{shape[1]}"
+        flips = {tuple(f) for out in ranks
+                 for f in out[tag]["replay"]["flips_at"]}
+        for r, out in enumerate(ranks):
+            rec = out[tag]
+            rp = rec["replay"]
+            judged = dict(rows=rp["rows"], noise=rp["noise"],
+                          noise_steps=rp["noise_steps"],
+                          flips=len(rp["flip_deficits"]),
+                          largest_flip_deficit=max(rp["flip_deficits"],
+                                                   default=0.0),
+                          noise_steps_ceiling=ENCDEC_REPLAY_NOISE_STEPS,
+                          flips_ceiling=ENCDEC_REPLAY_FLIPS)
+            log(f"{tag} rank {r} forced replay " + json.dumps(judged))
+            assert rp["rows"] == (MAX_NEW + 1) * B // shape[0], rp["rows"]
+            assert rp["noise_steps"] <= ENCDEC_REPLAY_NOISE_STEPS, (tag, r,
+                                                                    judged)
+            assert len(rp["flip_deficits"]) <= ENCDEC_REPLAY_FLIPS, (
+                tag, r, judged)
+            ties = near_ties(rec["tokens"], base, 0.0, f"{tag} rank {r}",
+                             ulps=2 * ENCDEC_REPLAY_NOISE_STEPS)
+            assert all((t["request"], t["position"]) in flips
+                       for t in ties), (tag, r, ties, sorted(flips))
+            want = predicted[f"decode_{shape[0]}x{shape[1]}"]
+            assert rec["collectives_per_step"] == want, (
+                tag, r, rec["collectives_per_step"], want)
+            assert rec["launches_per_step"] == single[
+                "launches_per_decode_step"], rec["launches_per_step"]
+            assert rec["counts"]["launches"] > 0
+            # half the cross banks a rank on both meshes (their heads on
+            # (1, 2), their rows on (2, 1)); half the planes on (1, 2)
+            assert 2 * rec["cross_bank_bytes"] == single[
+                "cross_bank_bytes"], rec
+            if shape[1] == 2:
+                assert rec["shard_local_plans"] > 0, rec
+                assert rec["plane_bytes"] < single["plane_bytes"], rec
+            else:
+                assert rec["shard_local_plans"] == 0, rec
+                assert rec["plane_bytes"] == single["plane_bytes"], rec
+            for k, ms in rec["shard_local_m"].items():
+                shard_m.setdefault(k, set()).update(ms)
+            rec = {k: v for k, v in rec.items()
+                   if k not in ("tokens", "replay", "shard_local_m")}
+            rec.update(replay=judged, near_ties=len(ties),
+                       tokens_equal=out[tag]["tokens"] == one["tokens"],
+                       dry_run_collectives=want)
+            res[f"{tag}_rank{r}"] = rec
+            log(f"{tag} rank {r} " + json.dumps(rec))
+    # K1 and K1e on every shard-local plan the ranks ran, both blocks, at
+    # every M they gave K1, against their plain versions
+    local, shapes = {}, {}
+    for (rows_, cols, parts, index), ms in sorted(shard_m.items()):
+        key = (rows_, cols, parts, index)
+        local[key] = plan.local_plan(served[(rows_, cols)], parts, index)
+        shapes.setdefault(key, set()).update(ms)
+    assert {k[3] for k in shapes} == {0, 1}, sorted(shapes)
+    cases, max_err = phase_new_shapes(dm, ops, local, shapes, gen, "f32")
+    cases8, max_err8 = phase_new_shapes(dm, ops, local, shapes, gen, "int8")
+    res["shard_local_k1"] = dict(
+        cases=len(cases), cases8=len(cases8), max_abs_err=max_err,
+        max_abs_err8=max_err8,
+        checked_m={f"{r}x{c} block {i} of {p}": sorted(v)
+                   for (r, c, p, i), v in sorted(shapes.items())},
+        decode_cases=[{f: c[f] for f in ("shape", "block", "m", "act",
+                                         "device_ms", "library_device_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err")}
+                      for c in cases + cases8 if c["m"] == B])
+    log("encdec shard-local K1 " + json.dumps(
+        {k: v for k, v in res["shard_local_k1"].items()
+         if k != "decode_cases"}))
+    del local, served
+    torch.cuda.empty_cache()
+    # (b): 15a's rules; the steps' collectives = the dry run's
+    res["train_single_rank"] = single_train
+    res["largest_loss_gap"] = check_train_ranks(single_train, ranks, res,
+                                                "encdec mesh train")
+    tcfg, _, _ = encdec_train_setup()
+    for shape in MESH_SHAPES:
+        tag = f"train_{shape[0]}x{shape[1]}"
+        traced = dryrun.trace_cell(
+            tcfg, ShapeCell(tag, ENCDEC_TRAIN_S, TRAIN_B, "train"),
+            StandInMesh({"data": shape[0], "model": shape[1]}))
+        predicted[tag] = collective_counts(
+            OT.collective_instructions(traced["trace"]))
+        for r in range(len(ranks)):
+            got = res[f"{tag}_rank{r}"]["collectives_per_step"]
+            assert got == predicted[tag], (tag, r, got, predicted[tag])
+    res["dry_run_predicted"] = predicted
+    log("encdec dry run predicted = measured " + json.dumps(predicted))
+    # (c): the production cells
+    if cells:
+        t_cells = time.perf_counter()
+        pool, job = cells
+        cells = job.result()
+        pool.shutdown()
+        assert [k for k, c in cells.items() if c["status"] != "ok"] == [
+            "long_500k|single"], cells
+        assert cells["long_500k|single"]["status"] == "skipped", cells
+        res["production_cells"] = cells
+        log("encdec production cells (a model on the H100 data sheet's "
+            "figures, not a measurement; waited "
+            f"{time.perf_counter() - t_cells:.1f} s) " + json.dumps(cells))
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 18 took {res['phase_s']:.1f} s")
+    return res
+
+
 def phases_moe_families(api, dm, ops, ServingEngine, prompts, gen,
                         host_gen):
     """11. qwen3_moe_30b_a3b at full width (``MOE_DEPTH`` layers): routed
@@ -4653,6 +5166,9 @@ def main() -> int:
     # 6. the same model and prompts with int8 activations (K1e)
     serve8 = phase_serve_int8(api, dm, ServingEngine, cfg, model, prompts)
     lap("phase 6")
+    # 18c's production cells: host work on meta tensors, beside the rest
+    # (after phases 5 and 6, whose eager timings read the host)
+    encdec_cells = start_encdec_cells()
 
     # 13. the contract gate on the card over phase 4's model, contiguous
     # and on int8 pages (the moe, rwkv and hybrid engines get theirs in
@@ -4720,6 +5236,15 @@ def main() -> int:
                                           prompts, gen)
     max_err = max(max_err, recurrent_mesh["shard_local_k1"]["max_abs_err"])
     lap("phase 17")
+
+    # 18. seamless_m4t_medium on (1, 2) and (2, 1) meshes of two ranks
+    # sharing the card: prefill and decode through models.api over placed
+    # cross-attention banks, and training, held to one rank; K1 and K1e on
+    # every shard-local plan they ran; the dry run's collectives to the
+    # measured ones; the production cells
+    encdec_mesh = phase_encdec_mesh(api, dm, ops, plan, gen, encdec_cells)
+    max_err = max(max_err, encdec_mesh["shard_local_k1"]["max_abs_err"])
+    lap("phase 18")
     rec_fam = families_job.result()
     substrate = substrate_job.result()
     card_vs_cpu_inputs[2].result()
@@ -4740,7 +5265,8 @@ def main() -> int:
     cases8, max_err8 = phase_kernels(dm, ops, plan, ref, served,
                                      serve8["kernel_m"], gen, host_gen,
                                      act="int8")
-    max_err8 = max(max_err8, moe_fam["max_err8"], rec_fam["max_err8"])
+    max_err8 = max(max_err8, moe_fam["max_err8"], rec_fam["max_err8"],
+                   encdec_mesh["shard_local_k1"]["max_abs_err8"])
     torch.cuda.empty_cache()
     lap("phase 7")
 
@@ -4891,20 +5417,31 @@ def main() -> int:
         **{f"recurrent_mesh_{tag}": {k: v for k, v in run["counts"].items()
                                      if k != "int8"}
            for tag, run in recurrent_mesh.items()
-           if tag.startswith(RECURRENT_MESH_ARCHS) and "counts" in run})
+           if tag.startswith(RECURRENT_MESH_ARCHS) and "counts" in run},
+        encdec_mesh_single_rank=encdec_mesh["single_rank"]["counts"],
+        **{f"encdec_mesh_{tag[len('encdec_'):]}": {
+            k: v for k, v in run["counts"].items() if k != "int8"}
+           for tag, run in encdec_mesh.items()
+           if tag.startswith("encdec_") and "counts" in run})
     kernels[0]["shard_local"] = dist_runs["shard_local"]
     kernels[0]["shard_local_recurrent"] = recurrent_mesh["shard_local_k1"]
     kernels[0]["checked_cases"] += recurrent_mesh["shard_local_k1"]["cases"]
+    kernels[0]["shard_local_encdec"] = encdec_mesh["shard_local_k1"]
+    kernels[0]["checked_cases"] += encdec_mesh["shard_local_k1"]["cases"]
+    kernels[1]["checked_cases"] += encdec_mesh["shard_local_k1"]["cases8"]
     # phase 15's paths train in fp: no K1 or K1e launch, counted
     fp_training = dict(
-        note="phases 15, 16c and 17c train in fp: no quantized matmul, no "
-             "launch",
+        note="phases 15, 16c, 17c and 18b train in fp: no quantized "
+             "matmul, no launch",
         **{tag: run["k1_launches"] for tag, run in mesh_train_runs.items()
            if isinstance(run, dict) and "k1_launches" in run},
         **{f"moe_{tag}": run["k1_launches"] for tag, run in moe_mesh.items()
            if isinstance(run, dict) and "k1_launches" in run},
         **{f"rwkv_{tag}": run["k1_launches"]
            for tag, run in recurrent_mesh.items()
+           if isinstance(run, dict) and "k1_launches" in run},
+        **{f"encdec_{tag}": run["k1_launches"]
+           for tag, run in encdec_mesh.items()
            if isinstance(run, dict) and "k1_launches" in run})
     kernels[0]["launches_fp_training"] = fp_training
     kernels[1]["launches_fp_training"] = fp_training

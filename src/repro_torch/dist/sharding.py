@@ -29,7 +29,7 @@ serve rule to a live model in place (the engine's ``mesh=``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -40,11 +40,6 @@ from repro_torch.kernels.plan import PreparedQuantizedTensor, local_plan
 from . import context as dctx
 
 _UNITS = (QuantizedTensor, PreparedQuantizedTensor)
-
-# the families whose layers take placed weights on a multi-rank mesh (GQA
-# or MLA attention, SwiGLU or expert MLPs, RWKV6 time/channel mix, Mamba2
-# with the hybrid's shared attention)
-MESH_FAMILIES = ("dense", "moe", "rwkv", "hybrid")
 
 # small buffers of the recurrent families that their code reads whole: the
 # token-shift mixes and the wkv's decay bias and bonus (rwkv), the causal
@@ -57,15 +52,6 @@ WHOLE_BUFFERS = ("mix", "w_bias", "u_bonus", "conv_w", "conv_b", "a_log",
 # buffers read as the kernel of a product (``modules.linear``): split on
 # their out dim, as a ``Dense`` kernel is (the hybrid's site LoRAs)
 _KERNEL_BUFFERS = ("kernel", "lora_a", "lora_b")
-
-
-def unported_family(cfg) -> Optional[str]:
-    """Why ``cfg`` cannot run on a multi-rank mesh yet, or None."""
-    if cfg.family in MESH_FAMILIES:
-        return None
-    return (f"the {cfg.family} family on a multi-rank mesh (encoder "
-            f"frames, the cross-attention banks) is queued in ROADMAP.md, "
-            f"Queue 1")
 
 
 class PartitionSpec(tuple):
@@ -281,11 +267,15 @@ def tree_specs(tree, rule, cfg, mesh) -> List[Tuple[str, PartitionSpec]]:
     return out
 
 
-def cache_tree(cache: Sequence, cfg):
+def cache_tree(cache, cfg):
     """A slot cache (the port's flat list of per-layer caches) in the
-    reference's layout: one cache of ``LayerStack`` leaves; the hybrid's
-    ``{"attn": sites, "mamba": layers}``.  The leaves are the cache's own
-    tensors (a paged cache's shared table appears once a layer)."""
+    reference's layout: one cache of ``LayerStack`` leaves (an encdec
+    cache's self-attention list too); the hybrid's
+    ``{"attn": sites, "mamba": layers}``; an ``EncDecCache`` with its
+    ``self_kv`` stacked over decoder layers (``.self_kv.{k,v,length}``)
+    beside its ``cross_k``/``cross_v`` banks (L_dec, B, S_src, KH, hd) and
+    ``enc_len`` (B,).  The leaves are the cache's own tensors (a paged
+    cache's shared table appears once a layer)."""
     def stacked(caches):
         first = caches[0]
         return type(first)(*(
@@ -297,6 +287,8 @@ def cache_tree(cache: Sequence, cfg):
         n = cfg.n_layers
         return {"attn": stacked(list(cache[n:])),
                 "mamba": stacked(list(cache[:n]))}
+    if hasattr(cache, "self_kv"):
+        return cache._replace(self_kv=stacked(list(cache.self_kv)))
     return stacked(list(cache))
 
 
@@ -415,40 +407,42 @@ def place_model(model, cfg, mesh) -> Dict[str, int]:
     return {"tensors": n_t, "units": n_u}
 
 
-def place_cache(cache: Sequence, cfg, mesh, slots: bool = True) -> List:
-    """This rank's blocks of a slot cache (the port's flat per-layer list)
-    under ``spec_for_cache``, read in the reference's stacked layout; with
-    ``slots=False`` (a prefill fragment, whose rows every data rank
-    prefills) the "dp" splits are dropped and only "model" splits apply.
-    A tensor shared by several layers (a paged cache's table) stays
-    shared."""
+def place_cache(cache, cfg, mesh, slots: bool = True):
+    """This rank's blocks of a slot cache (the port's flat per-layer list,
+    or an ``EncDecCache``) under ``spec_for_cache``, read in the
+    reference's layout (``cache_tree``); with ``slots=False`` (a prefill
+    fragment, whose rows every data rank prefills) the "dp" splits are
+    dropped and only "model" splits apply.  A tensor shared by several
+    layers (a paged cache's table) stays shared."""
     ax = MeshAxes(mesh)
     coords = mesh_coords(mesh)
-    n = len(cache)
-    if cfg.family == "hybrid":
-        groups = [("['attn']", range(cfg.n_layers, n)),
-                  ("['mamba']", range(cfg.n_layers))]
-    else:
-        groups = [("", range(n))]
-    out = list(cache)
     memo: Dict[int, torch.Tensor] = {}
-    for prefix, pos in groups:
-        pos = list(pos)
-        first = cache[pos[0]]
-        repl: Dict[int, Dict[str, torch.Tensor]] = {i: {} for i in pos}
-        for f in first._fields:
-            t0 = getattr(first, f)
-            if t0 is None:
-                continue
-            spec = spec_for_cache(f"{prefix}.{f}",
-                                  (len(pos),) + tuple(t0.shape), cfg, ax)
-            spec = tuple(e if slots or e != ax.dp else None
-                         for e in spec[1:])
-            for i in pos:
-                t = getattr(cache[i], f)
-                if id(t) not in memo:
-                    memo[id(t)] = local_shard(t, spec, mesh, coords)
-                repl[i][f] = memo[id(t)]
-        for i in pos:
-            out[i] = cache[i]._replace(**repl[i])
-    return out
+
+    def block(name: str, t: torch.Tensor, layers: int = 0) -> torch.Tensor:
+        """``t``'s block; ``layers`` > 0: ``t`` is one layer of a leaf
+        the reference stacks over that many layers."""
+        lead = (layers,) if layers else ()
+        spec = spec_for_cache(name, lead + tuple(t.shape), cfg, ax)
+        spec = tuple(e if slots or e != ax.dp else None
+                     for e in spec)[len(lead):]
+        if id(t) not in memo:
+            memo[id(t)] = local_shard(t, spec, mesh, coords)
+        return memo[id(t)]
+
+    def per_layer(prefix: str, caches: List) -> List:
+        fields = [f for f in caches[0]._fields
+                  if getattr(caches[0], f) is not None]
+        return [c._replace(**{f: block(f"{prefix}.{f}", getattr(c, f),
+                                       len(caches)) for f in fields})
+                for c in caches]
+
+    if hasattr(cache, "self_kv"):
+        return cache._replace(
+            self_kv=per_layer(".self_kv", list(cache.self_kv)),
+            **{f: block(f".{f}", getattr(cache, f))
+               for f in ("cross_k", "cross_v", "enc_len")})
+    if cfg.family == "hybrid":
+        n = cfg.n_layers
+        return (per_layer("['mamba']", list(cache[:n]))
+                + per_layer("['attn']", list(cache[n:])))
+    return per_layer("", list(cache))

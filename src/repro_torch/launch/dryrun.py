@@ -26,9 +26,9 @@ cannot see K1 on meta tensors, which the op stream charges), and
 ``temp_bytes`` is None (meta tensors have no allocator).  A moe cell
 takes ``moe_groups`` = the data shards (halved until the tokens divide),
 as the reference's does, so a data rank routes whole groups of its own
-rows.  A family the port does not shard yet (encdec) gets ``"status":
-"not_ported"`` with the reason: counted in the final line, neither an
-error nor a skip.
+rows.  Every family of the configs traces on both production meshes;
+``long_500k`` is skipped for the full-attention archs, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -288,7 +288,10 @@ def install_standins(model, cfg, qcfg, plan_bn: int) -> None:
     stack to a stand-in plan (a stack's: stacked on E, as
     ``launch.quantize`` stacks the experts).  The reference's
     ``quantize_param_sds`` walks the layer stacks only, so its hybrid
-    cells trace the shared block in fp."""
+    cells trace the shared block in fp.  For encdec it quantizes the same
+    matrices as this: every kernel of ``enc_blocks`` (attention q/k/v/o,
+    the GELU MLP's up/down) and of ``dec_blocks`` (those and the cross
+    attention's q/k/v/o); the embedding and ``lm_head`` stay fp in both."""
     from repro_torch.launch.quantize import block_matrices
     from repro_torch.models.moe import MoE
     blocks = [b for key in ("blocks", "enc_blocks", "dec_blocks")
@@ -406,7 +409,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     Mamba2 layer, and the 1- and 2-layer traces hold one site each.  A
     third trace, of 2 layers with a site before each, gives a site's
     figures, so Mamba2 layers and sites are counted apart:
-    ``+ (n_sites - 1) * (f(2 layers, 2 sites) - f(2 layers, 1 site))``."""
+    ``+ (n_sites - 1) * (f(2 layers, 2 sites) - f(2 layers, 1 site))``.
+    encdec reads ``enc_layers`` and ``dec_layers``, not ``n_layers``: it is
+    traced at (enc, dec) = (1, 1), (2, 1) and (1, 2), and an encoder layer
+    and a decoder layer are counted apart:
+    ``f(1,1) + (Le - 1)(f(2,1) - f(1,1)) + (Ld - 1)(f(1,2) - f(1,1))``."""
     cfg, mesh, cell = prepare_cell(arch, shape_name, multi_pod)
     return cell_figures(cfg, cell, mesh, quant), (cfg, mesh, cell)
 
@@ -414,12 +421,20 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
 def cell_figures(cfg, cell, mesh, quant: Optional[str] = None, *,
                  plan_bn: int = None) -> dict:
     """The figures of ``cfg``'s cell on ``mesh``, extrapolated from 1- and
-    2-layer traces (and, for the hybrid, a 2-site one) as
-    ``lower_cell`` says."""
+    2-layer traces (and, for the hybrid, a 2-site one; for encdec, an
+    encoder and a decoder layer apart) as ``lower_cell`` says."""
     def traced(**kw):
         return figures(trace_cell(dataclasses.replace(cfg, **kw), cell, mesh,
                                   quant, plan_bn=plan_bn))
 
+    if cfg.family == "encdec":
+        def layers(enc, dec):
+            return traced(enc_layers=enc, dec_layers=dec, n_layers=enc + dec)
+
+        f11 = layers(1, 1)
+        out = extrapolate(f11, layers(2, 1), cfg.enc_layers)
+        return extrapolate(out, _plus(out, f11, layers(1, 2)),
+                           cfg.dec_layers)
     if cfg.n_layers <= 2:
         return traced()
     f1, f2 = traced(n_layers=1), traced(n_layers=2)
@@ -501,9 +516,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     ok, reason = cell_applicable(cfg0, cell)
     if not ok:
         return {"status": "skipped", "reason": reason}
-    why = shd.unported_family(cfg0)
-    if why is not None:
-        return {"status": "not_ported", "reason": why}
     t0 = time.time()
     try:
         f, (cfg, mesh, cell) = lower_cell(arch, shape_name, multi_pod,
@@ -544,7 +556,7 @@ def main(argv=None) -> int:
             for mp in meshes:
                 key = f"{arch}|{shape}|{'multi' if mp else 'single'}"
                 if key in results and results[key].get("status") in (
-                        "ok", "skipped", "not_ported") and not args.force:
+                        "ok", "skipped") and not args.force:
                     continue
                 print(f"[dryrun] {key} ...", flush=True)
                 res = run_cell(arch, shape, mp)
@@ -556,16 +568,16 @@ def main(argv=None) -> int:
                     extra = (f" bottleneck={r['bottleneck']}"
                              f" frac={r['roofline_fraction']:.3f}"
                              f" trace={res['compile_s']}s")
-                elif status in ("error", "not_ported"):
-                    extra = " " + res.get("error", res.get("reason"))[:160]
+                elif status == "error":
+                    extra = " " + res["error"][:160]
                 print(f"[dryrun] {key} -> {status}{extra}", flush=True)
                 with open(args.out, "w") as f:
                     json.dump(results, f, indent=1)
 
     count = {s: sum(1 for v in results.values() if v.get("status") == s)
-             for s in ("ok", "skipped", "not_ported", "error")}
+             for s in ("ok", "skipped", "error")}
     print(f"[dryrun] done: {count['ok']} ok, {count['skipped']} skipped, "
-          f"{count['not_ported']} not ported, {count['error']} errors")
+          f"{count['error']} errors")
     return 0 if count["error"] == 0 else 1
 
 

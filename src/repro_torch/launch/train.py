@@ -49,7 +49,6 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import api
 from repro_torch.optim import OptimConfig, init_opt_state
 from repro_torch.train import make_train_step
-from repro_torch.train.step import check_mesh_family
 
 
 def _build_mesh(args):
@@ -83,9 +82,9 @@ def _build_mesh(args):
 
 
 def gathered_state(model, cfg, opt, mesh):
-    """The single-device training state: params and AdamW moments with
-    every model shard all-gathered over "model" (a collective: every rank
-    calls it)."""
+    """The single-device training state: params and AdamW moments (the
+    params alone where ``opt`` is None) with every model shard
+    all-gathered over "model" (a collective: every rank calls it)."""
     params = convert.param_tree(model, cfg)
     shards = [coll.model_shard(t) for t in tree_lib.tensors(params)]
 
@@ -94,6 +93,8 @@ def gathered_state(model, cfg, opt, mesh):
             t if sh is None else coll.all_gather(t, sh[0], "model", mesh)
             for t, sh in zip(tree_lib.tensors(tree), shards)])
 
+    if opt is None:
+        return {"params": whole(params)}
     return {"params": whole(params),
             "opt": opt._replace(m=whole(opt.m), v=whole(opt.v))}
 
@@ -155,7 +156,6 @@ def main(argv=None):
     say = print if rank0 else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if mesh is not None:
-        check_mesh_family(cfg, mesh)
         say(f"[train] mesh {dctx.mesh_shape(mesh)} over "
             f"{dist.get_world_size()} ranks ({args.backend})")
 

@@ -1,7 +1,14 @@
 """Family-agnostic model API (port of ``repro.models.api``): every family
 of the reference — dense and moe (GQA or MLA attention), rwkv, the hybrid
 and encdec.  encdec dispatches to ``encdec.py``: ``make_cache`` needs its
-``src_len`` and ``prefill_step`` its ``batch["frames"]``."""
+``src_len`` and ``prefill_step`` its ``batch["frames"]``.
+
+On a mesh, every family alike: ``dist.sharding.place_model`` places the
+model, ``make_cache``'s whole cache goes through
+``dist.sharding.place_cache`` (a rank's slots over "dp", its KV heads over
+"model"), and ``prefill_step``/``decode_step`` run under
+``dist.context.use_mesh`` -- and ``rows_over_dp`` where the batch is a data
+rank's block of rows, as a decode step over the rank's slots is."""
 from __future__ import annotations
 
 from typing import Dict, Optional

@@ -12,6 +12,13 @@ cross K/V projections record none: the quantizer looks them up as
 ``dec.{i}.cross.k`` and finds no Hessian in either package (the
 reference's own tap there, inside ``lax.map``, leaks a tracer, so its
 ``calibrate`` raises on this family; see ROADMAP.md).
+
+On a (data, model) mesh every product is placed on its out dim and
+gathered, as in the decoder-only families.  The encoder and a cacheless
+decoder (training) attend with every head on every rank; with a placed
+cache (``dist.sharding.place_cache``: ``self_kv`` and the cross banks hold
+a block of the KV heads over "model" and of the slots over "dp") the
+decoder's self- and cross-attention run head-parallel on that block.
 """
 from __future__ import annotations
 
@@ -20,6 +27,9 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import context as dctx
 
 from . import layers as L
 from . import modules as M
@@ -101,14 +111,25 @@ def encdec_init(gen: torch.Generator, cfg, device) -> EncDec:
 
 
 def _cross_attention(p: CrossAttention, x, enc_kv, cfg, enc_len=None):
-    """x (B, St, D) queries over the encoder K/V (B, Ss, KH, hd)."""
+    """x (B, St, D) queries over the encoder K/V (B, Ss, KH, hd).  A bank
+    of a block of the KV heads (a cache placed over "model") attends
+    head-parallel, as ``layers.gqa_attention`` does on a placed cache:
+    the rank takes its heads of q (through ``coll.replicated``), attends
+    them over its block and all-gathers the heads over "model" before
+    ``o``; each head's arithmetic is the single device's."""
     B, St, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q = M.dense(p.q, x).reshape(B, St, H, hd)
     k, v = enc_kv
+    block = L.kv_head_block(cfg, k.shape[-2])
+    if block is not None:
+        parts, r = block
+        q = coll.replicated(q)[:, :, r * H // parts:(r + 1) * H // parts]
     out = L.blocked_attention(q, k.to(x.dtype), v.to(x.dtype), causal=False,
                               kv_len=enc_len, q_block=cfg.q_block,
                               kv_block=cfg.kv_block)
+    if block is not None:
+        out = coll.all_gather(out, dim=2)
     return M.dense(p.o, out.reshape(B, St, H * hd))
 
 
@@ -203,14 +224,43 @@ def init_encdec_cache(cfg, batch: int, max_len: int, src_len: int,
         enc_len=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+def _rank_rows(cache: EncDecCache, t):
+    """This data rank's block of the rows of ``t`` (the global batch), in
+    rank order over "dp", where ``cache`` holds that block; ``t``
+    itself where it holds every row (or ``t`` is a scalar)."""
+    rows = cache.enc_len.shape[0]
+    if not isinstance(t, torch.Tensor) or t.dim() == 0 \
+            or t.shape[0] == rows:
+        return t
+    mesh, index = dctx.get_mesh(), 0
+    for a in dctx.physical_axes(mesh, "dp"):
+        index = index * coll.axis_size(mesh, a) + coll.coordinate(mesh, a)
+    return t[index * rows:(index + 1) * rows]
+
+
 def encdec_prefill(model: EncDec, cfg, frames, tokens, cache: EncDecCache,
                    logits_at=None):
     """Decoder prefill over freshly encoded frames; returns (logits (B, V)
-    at the last position, or at ``logits_at``, new cache)."""
+    at the last position, or at ``logits_at``, new cache).
+
+    On a mesh the cache may be placed (``dist.sharding.place_cache``): the
+    freshly projected cross K/V (whole heads) are cut to the bank's block
+    of KV heads, and where the cache holds a data rank's block of the
+    batch (its slots) and ``frames``/``tokens`` are the global batch, only
+    that block's rows are encoded and prefilled (the logits are its
+    rows')."""
+    frames, tokens, logits_at = (_rank_rows(cache, t)
+                                 for t in (frames, tokens, logits_at))
     enc_out = encode(model, cfg, frames)
     x = M.embed(model.embedding, tokens)
-    x, self_kv, (ck, cv) = decode_blocks(model, cfg, x, enc_out=enc_out,
-                                         caches=cache.self_kv)
+    ck, cv = _project_cross_kv(model, cfg, enc_out)
+    block = L.kv_head_block(cfg, cache.cross_k.shape[-2])
+    if block is not None:
+        parts, r = block
+        kh = cfg.n_kv_heads // parts
+        ck, cv = (t[..., r * kh:(r + 1) * kh, :] for t in (ck, cv))
+    x, self_kv, _ = decode_blocks(model, cfg, x, cross_kv=(ck, cv),
+                                  caches=cache.self_kv)
     x = M.rms_norm(model.final_norm, x, cfg.norm_eps)
     logits = M.dense(model.lm_head, x)
     new_cache = EncDecCache(

@@ -297,11 +297,16 @@ def head_block(cfg, cache):
     or None when it holds every head (no cache, or no mesh)."""
     if cache is None:
         return None
-    kh = (cache.kp if isinstance(cache, PagedKVCache) else cache.k).shape[2]
+    return kv_head_block(cfg, (cache.kp if isinstance(cache, PagedKVCache)
+                               else cache.k).shape[2])
+
+
+def kv_head_block(cfg, kh: int):
+    """(parts, index) of a block of ``kh`` of the config's KV heads on this
+    rank (placed over "model"), or None for every head."""
     if kh == cfg.n_kv_heads:
         return None
-    parts = cfg.n_kv_heads // kh
-    return parts, coll.coordinate(dctx.get_mesh(), "model")
+    return cfg.n_kv_heads // kh, coll.coordinate(dctx.get_mesh(), "model")
 
 
 def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,

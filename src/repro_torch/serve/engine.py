@@ -141,16 +141,17 @@ c_kv/k_pe ride the same insert, rollback and page scatter; the insert
 copies every other leaf whole (the recurrent ``state``/``conv``/``ssm``
 and token-shift rows), and the rollback leaves those alone.
 
-Multi-rank serving (``mesh=``, a ``DeviceMesh`` over ("data", "model"),
-one process per rank, every rank running this engine on the same
-requests — SPMD): params are placed by ``dist.sharding.
-spec_for_param_serve`` (each quantized unit split along N in whole tiles
+Multi-rank serving (``mesh=``, a ``DeviceMesh`` over ("data", "model")
+or ("pod", "data", "model"), one process per rank, every rank running
+this engine on the same requests — SPMD): params are placed by
+``dist.sharding.spec_for_param_serve`` (each quantized unit split along N in whole tiles
 into a shard-local plan, dense leaves by their largest model-divisible
-dim) and the slot caches by ``spec_for_cache`` (slots over "data", KV
-heads over "model"; a paged pool's pages stay whole, its tables
-replicate).  Each data rank decodes its own slots' rows, and the sampled
-tokens (with the guard counts) are all-gathered over "data" before the
-step's one host transfer, so every rank's scheduler sees every token.
+dim) and the slot caches by ``spec_for_cache`` (slots over "dp", which
+is "data", or pod x data row-major; KV heads over "model"; a paged
+pool's pages stay whole, its tables replicate).  Each data rank decodes
+its own slots' rows, and the sampled tokens (with the guard counts) are
+all-gathered over "dp" (over "data", then "pod") before the step's one
+host transfer, so every rank's scheduler sees every token.
 Prefill, the resume replay and the fragments are computed on every data
 rank (head-parallel over "model") and each rank inserts its own slots'
 rows.  Every collective is an all-gather or a sum with one non-zero
@@ -158,16 +159,17 @@ term, so on the CPU a sharded engine's tokens are bitwise the single
 device's.  Wall-clock decisions (deadlines, the controller) read rank
 0's clock, broadcast (``_RankZeroClock``), so every rank decides alike.
 A decode step's rows are the data rank's slots (``dctx.rows_over_dp``:
-the MoE routes the global batch from them, see ``models.moe``).  The
-recurrent families keep their state leaves (rwkv ``state``/``prev_tm``/
-``prev_cm``, Mamba2 ``conv``/``ssm``) slot rows over "data" with every
+the MoE routes the global batch from them over "dp", see
+``models.moe``).  The recurrent families keep their state leaves (rwkv ``state``/``prev_tm``/
+``prev_cm``, Mamba2 ``conv``/``ssm``) slot rows over "dp" with every
 head and channel on every model rank, and the hybrid's ring caches split
 their KV heads over "model" as dense caches do; the insert, a preempted
-slot's clear and a resume's insert act on the data rank's own rows.  A
-one-rank mesh is accepted for every family; more ranks for the dense,
-moe, rwkv and hybrid families (f32 or int8 activations, contiguous or
-paged, with or without speculation where the family takes it).
-``stats()["mesh"]`` is the mesh's {"data": dp, "model": tp}.
+slot's clear and a resume's insert act on the data rank's own rows.
+Every family the engine serves (not encdec, on a mesh or without one)
+takes a mesh of any size (f32 or int8 activations, contiguous or paged,
+with or without speculation where the family takes it); a paged pool
+whose rows split over "dp" is refused.  ``stats()["mesh"]`` is the
+mesh's {dim name: size}.
 """
 from __future__ import annotations
 
@@ -667,14 +669,10 @@ class ServingEngine:
         ranks = int(np.prod(list(shape.values()))) if shape else 1
         if ranks == 1:
             return 1
-        if set(shape) - {"data", "model"}:
+        if set(shape) - {"pod", "data", "model"}:
             raise NotImplementedError(
                 f"mesh dims {tuple(shape)}: the engine serves on a (data, "
-                f"model) mesh; a pod axis is queued in ROADMAP.md")
-        why = shd.unported_family(cfg)
-        if why is not None:
-            raise TypeError(f"a mesh of {ranks} ranks: {why} — serve it on "
-                            f"a one-rank mesh or without one")
+                f"model) or (pod, data, model) mesh")
         return ranks
 
     def _collective_dev(self) -> torch.device:
@@ -726,10 +724,14 @@ class ServingEngine:
         return t if self._rows is None else t[self._rows]
 
     def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every data rank's slot rows of a step output, in slot order."""
+        """Every data rank's slot rows of a step output, in slot order:
+        gathered over "data", then "pod" ("dp" is pod x data, row-major,
+        as ``sharding.entry_block`` reads it)."""
         if self._rows is None:
             return t
-        return coll.all_gather(t, dim=0, axis="data", mesh=self.mesh)
+        for a in reversed(dctx.physical_axes(self.mesh, "dp")):
+            t = coll.all_gather(t, dim=0, axis=a, mesh=self.mesh)
+        return t
 
     def _slot_view(self, cache: List) -> List:
         """The slot cache as the model reads it: a paged cache's table
@@ -1072,7 +1074,7 @@ class ServingEngine:
         """Greedy tokens of ``logits`` (B, ..., V) and, with guards, the
         per-row non-finite counts — brought to the host in ONE transfer.
         ``slot_rows``: the logits are this data rank's slot rows, whose
-        results are all-gathered over "data" first.  Returns (tokens,
+        results are all-gathered over "dp" first.  Returns (tokens,
         counts or None) as numpy."""
         nxt = logits.argmax(dim=-1)
         if not self.guards:

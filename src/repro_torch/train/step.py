@@ -20,8 +20,8 @@ differentiable collectives (``dist.collectives``); the loss runs under
 ``models.moe``).  Microbatches are cut from the global batch before a
 data rank takes its block of each, so microbatch i holds the reference's
 rows [i B/n, (i+1) B/n) on every mesh: the MoE's capacity couples a
-microbatch's rows.  The dense, moe, rwkv and hybrid families train on a
-multi-rank mesh; encdec raises ``TypeError``, as the engine does.
+microbatch's rows.  Every family trains on a mesh; an encdec batch's
+``frames`` rows split over "dp" with its ``tokens``.
 """
 from __future__ import annotations
 
@@ -58,20 +58,6 @@ def loss_and_grads(model, cfg, batch: Dict[str, torch.Tensor]):
             t.requires_grad_(False)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_lib.unflatten_tensors(params, grads))
-
-
-def check_mesh_family(cfg, mesh) -> int:
-    """The mesh's number of ranks; raises ``TypeError`` for a family the
-    port does not shard yet on a multi-rank mesh (the engine's rule)."""
-    shape = dctx.mesh_shape(mesh) if mesh is not None else {}
-    ranks = 1
-    for n in shape.values():
-        ranks *= n
-    why = shd.unported_family(cfg) if ranks > 1 else None
-    if why is not None:
-        raise TypeError(f"a mesh of {ranks} ranks: {why} — train it on one "
-                        f"device")
-    return ranks
 
 
 def local_batch(batch: Dict[str, torch.Tensor], cfg, mesh):
@@ -127,14 +113,13 @@ def make_train_step(cfg, optim_cfg: OptimConfig, n_microbatches: int = 1):
 
     def train_step(model, opt_state: OptState, batch: Dict[str, torch.Tensor]):
         mesh = dctx.get_mesh()
-        ranks = check_mesh_family(cfg, mesh)
         dev = model.embedding.device
         batch = {k: v.to(dev) for k, v in batch.items()}
         n = n_microbatches
         micro = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                   for k, v in batch.items()} for i in range(n)]
         rows = next(iter(micro[0].values())).shape[0]
-        if ranks > 1:
+        if mesh is not None and shd.MeshAxes(mesh).dp_size > 1:
             micro = [local_batch(mb, cfg, mesh) for mb in micro]
         # a data rank holds a block of each microbatch's rows (the batch
         # spec replicates rows that do not divide over "dp")

@@ -115,11 +115,10 @@ _CACHES = (("contiguous", {}),
            ("paged_int8", dict(page_size=8, n_pages=15, kv_dtype="int8")))
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if a != "seamless_m4t_medium"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_cache_specs_equal_the_reference(arch):
-    """Slot caches of the decoder families (encdec is not served): the
-    port's per-layer list, read in the reference's stacked layout."""
+    """Slot caches: the port's per-layer list (encdec: its
+    ``EncDecCache``), read in the reference's stacked layout."""
     jax = _jax()
     from repro.configs import get_smoke_config
     from repro.dist import sharding as jshd
@@ -127,6 +126,8 @@ def test_cache_specs_equal_the_reference(arch):
     jcfg, tcfg = get_smoke_config(arch), t_smoke(arch)
     ran = 0
     for _, kw in _CACHES:
+        if tcfg.family == "encdec":
+            kw = dict(kw, src_len=16)
         try:
             sds = jax.eval_shape(lambda: japi.make_cache(jcfg, 4, 32, **kw))
         except NotImplementedError:

@@ -13,8 +13,10 @@ preemption/resume with the cache blocks unmoved — with the control plane
 on (guards, a bounded queue, a priority preemption).  Each rank holds
 1/tp of every sharded unit's plane bytes; the contract gate runs HLO-AG1
 and HLO-CB1 clean on the profiled step and refuses an injected weight
-all-gather.  The launcher runs its ``main`` on the same 4 ranks.  One
-spawn for the file; JAX only in this process.
+all-gather.  The launcher runs its ``main`` on the same 4 ranks.  The
+same ranks as a (pod 2, data 1, model 2) mesh serve the llama and the fp
+smoke qwen3-moe with exactly the (2, 2) mesh's tokens and telemetry
+event streams.  One spawn for the file; JAX only in this process.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -110,6 +112,52 @@ def _inject_weight_gather(eng):
     return leaky, orig
 
 
+def _moe_cfg():
+    return dataclasses.replace(t_smoke("qwen3_moe_30b_a3b"), vocab=128,
+                               n_layers=2)
+
+
+def _telemetry_run(eng, clock):
+    """``WAVE1 + WAVE2`` submitted through the queue, stepping with the
+    ``StepClock`` advancing: (tokens, the telemetry event stream as
+    sorted JSON: every admission, step and retirement decision)."""
+    import json
+    uids = [eng.submit(p, max_new_tokens=6) for p in WAVE1 + WAVE2]
+    while eng.active or len(eng.queue):
+        eng.step()
+        clock.advance()
+    fin = eng.take_finished()
+    return ([fin[u].tokens for u in uids],
+            json.dumps(eng.telemetry.events, sort_keys=True))
+
+
+def _pod_axis_runs(q_tree, mesh):
+    """On ``mesh``: the AP+OR llama's waves (contiguous and paged), its
+    control plane and its telemetry stream, and the fp smoke qwen3-moe's
+    waves and telemetry stream (its MoE rows gathered over "dp")."""
+    from repro_torch.serve import StepClock, Telemetry
+    out = {}
+    for tag, kw in (("vanilla", {}), ("paged", VARIANTS["paged"])):
+        out[("llama", tag)] = _waves(_engine(q_tree, mesh, **kw))
+    out[("llama", "control")] = _control_plane(
+        _engine(q_tree, mesh, guards=True, queue_depth=8))
+    clock = StepClock(10.0)
+    out[("llama", "telemetry")] = _telemetry_run(_engine(
+        q_tree, mesh, telemetry=Telemetry(), clock=clock), clock)
+    cfg = _moe_cfg()
+
+    def moe(**kw):
+        model = tapi.init_params(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+        return ServingEngine(model, cfg, device="cpu", mesh=mesh,
+                             **{**ENGINE, **kw})
+    out[("moe", "vanilla")] = _waves(moe())
+    clock = StepClock(10.0)
+    out[("moe", "telemetry")] = _telemetry_run(
+        moe(telemetry=Telemetry(), clock=clock), clock)
+    return out
+
+
 def _rank_main(rank, world, dev, q_tree, fp_tree):
     from repro_torch.analysis.artifacts import verify_engine
     from repro_torch.launch import serve
@@ -151,6 +199,18 @@ def _rank_main(rank, world, dev, q_tree, fp_tree):
                      "--backend", "gloo", "--device", "cpu", "--requests",
                      "3", "--max-new", "3", "--max-len", "32"])
     out["launcher"] = (st["mesh"], st["lifecycle"]["finished"])
+    # the pod axis: (pod 2, data 1, model 2) against this (2, 2) mesh
+    pod = mesh_lib.make_debug_mesh((2, 1, 2), ("pod", "data", "model"),
+                                   device_type="cpu")
+    out["pod_axis"] = {tag: _pod_axis_runs(q_tree, m)
+                       for tag, m in (("data", mesh), ("pod", pod))}
+    eng = _engine(q_tree, pod)
+    out["pod_stats"] = (eng.stats()["mesh"], eng._rows,
+                        tuple(eng.cache[0].k.shape))
+    try:
+        _engine(q_tree, pod, kv_layout="paged", page_size=8, kv_pages=31)
+    except NotImplementedError as e:
+        out["pod_pool_refusal"] = str(e)
     return out
 
 
@@ -244,6 +304,44 @@ def test_serve_launcher_on_four_ranks(served):
         [({"data": 2, "model": 2}, 3)] * 4
 
 
+@pytest.mark.parametrize("arch", ["llama", "moe"])
+def test_pod_axis_serves_the_data_mesh_tokens_and_decisions(served, arch):
+    """(pod 2, data 1, model 2): slots split over "dp" = pod x data, the
+    sampled tokens gathered over both, the MoE's rows routed over both:
+    every rank emits the (2, 2) mesh's tokens and telemetry event stream
+    exactly (llama also paged and through its control plane); both are
+    the single device's tokens."""
+    _, single, ranks = served
+    for r, out in enumerate(ranks):
+        data, pod = out["pod_axis"]["data"], out["pod_axis"]["pod"]
+        keys = [k for k in data if k[0] == arch]
+        assert len(keys) == (4 if arch == "llama" else 2)
+        for k in keys:
+            assert pod[k] == data[k], (r, k)
+        if arch == "llama":
+            assert data[("llama", "vanilla")] == single["vanilla"]
+            assert data[("llama", "control")] == single["control"]
+        tokens, stream = data[(arch, "telemetry")]
+        assert tokens == data[(arch, "vanilla")]
+        assert '"kind": "retire"' in stream
+
+
+def test_pod_axis_check_and_paged_pool_refusal(served):
+    """The mesh check admits a pod axis; a rank of (pod 2, data 1, model
+    2) holds the slots of its pod (2 of 4) and its KV head block; a pool
+    whose page rows split over "dp" is refused as on a data axis."""
+    _, _, ranks = served
+    cfg = _cfg()
+    assert ServingEngine._check_mesh(SimpleNamespace(shape={
+        "pod": 2, "data": 1, "model": 2}), cfg) == 4
+    for r, out in enumerate(ranks):
+        stats_mesh, rows, shape = out["pod_stats"]
+        assert stats_mesh == {"pod": 2, "data": 1, "model": 2}
+        assert rows == slice(2 * (r // 2), 2 * (r // 2) + 2)
+        assert shape == (2, 64, cfg.n_kv_heads // 2, cfg.head_dim)
+        assert "splits over data=2" in out["pod_pool_refusal"]
+
+
 # ---------------------------------------------------------------------------
 # One rank, in process
 # ---------------------------------------------------------------------------
@@ -297,16 +395,20 @@ def recurrent_ranks():
 @pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
                                   "seamless_m4t_medium"])
 def test_multi_rank_mesh_refuses_unported_families(request, arch):
-    """encdec is refused on a multi-rank mesh, naming ROADMAP; rwkv and
-    the hybrid serve there: the serve launcher on (1, 2) emits its
-    single-device tokens."""
+    """The mesh check admits every family; the engine refuses encdec on a
+    mesh as it does without one (it serves decoder-only families, as the
+    reference's); rwkv and the hybrid serve there: the serve launcher on
+    (1, 2) emits its single-device tokens."""
     cfg = t_smoke(arch)
     mesh = SimpleNamespace(shape={"data": 1, "model": 2})
-    if cfg.family == "encdec":
-        with pytest.raises(TypeError, match="ROADMAP"):
-            ServingEngine._check_mesh(mesh, cfg)
-        return
     assert ServingEngine._check_mesh(mesh, cfg) == 2
+    if cfg.family == "encdec":
+        model = tapi.init_params(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+        with pytest.raises(NotImplementedError, match="decoder-only"):
+            ServingEngine(model, cfg, n_slots=2, max_len=16, device="cpu",
+                          mesh=mesh)
+        return
     from repro_torch.launch import serve
     want = serve.main(["--arch", arch] + RECURRENT_SERVE)["tokens"]
     assert len(want) == 3 and all(len(t) == 4 for t in want)

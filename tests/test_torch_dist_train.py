@@ -35,7 +35,6 @@ leaves, so a rank quantizing its own copy would serve another model).
 import dataclasses
 import os
 import shutil
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -61,6 +60,8 @@ LAUNCH = ["--arch", "llama1_7b", "--smoke", "--batch", "4", "--seq-len",
           "32", "--backend", "gloo", "--device", "cpu"]
 F3_ARCHS = ("granite_8b", "qwen2_1p5b")
 RECURRENT = ("rwkv6_7b", "zamba2_1p2b")
+# the families whose train launcher runs on (1, 2) against one device
+MESH_LAUNCHED = RECURRENT + ("seamless_m4t_medium",)
 SERVE = ["--smoke", "--bits", "2.2", "--requests", "3", "--max-new", "4",
          "--max-len", "32", "--device", "cpu"]
 
@@ -124,7 +125,7 @@ def _rank2(rank, world, dev, tree, dirs):
     out["serve"] = {arch: serve.main(["--arch", arch, "--mesh-shape", "1x2",
                                       "--backend", "gloo"] + SERVE)["tokens"]
                     for arch in F3_ARCHS}
-    for arch in RECURRENT:
+    for arch in MESH_LAUNCHED:
         _launch_arch(arch, ["--mesh-shape", "1x2", "--ckpt-dir",
                             dirs[f"{arch}_mesh"]])
     return out
@@ -199,10 +200,11 @@ def runs(tmp_path_factory):
     micro = _train(tree, microbatches=2)
     base = tmp_path_factory.mktemp("launch")
     dirs = {k: str(base / k) for k in ("mesh_first", "one_first", "straight")
-            + tuple(f"{a}_{w}" for a in RECURRENT for w in ("mesh", "one"))}
+            + tuple(f"{a}_{w}" for a in MESH_LAUNCHED
+                    for w in ("mesh", "one"))}
     _launch(["--steps", "4", "--ckpt-every", "2", "--ckpt-dir",
              dirs["straight"]])
-    for arch in RECURRENT:
+    for arch in MESH_LAUNCHED:
         _launch_arch(arch, ["--ckpt-dir", dirs[f"{arch}_one"]])
     shutil.copytree(os.path.join(dirs["straight"], STEP2),
                     os.path.join(dirs["one_first"], STEP2))
@@ -299,23 +301,16 @@ def test_mesh_serves_rank0_quantization_whatever_the_threads(runs, arch):
 @pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
                                   "seamless_m4t_medium"])
 def test_multi_rank_mesh_refuses_unported_families(request, arch):
-    """encdec is refused on a multi-rank mesh, naming ROADMAP; rwkv and
-    the hybrid train there: the train launcher's 2 steps on (1, 2) end at
-    its single-device state."""
-    if arch in RECURRENT:
-        dirs = request.getfixturevalue("runs")["dirs"]
-        got = _final_params(dirs[f"{arch}_mesh"], STEP2)
-        want = _final_params(dirs[f"{arch}_one"], STEP2)
-        assert got.keys() == want.keys() and len(want) > 10
-        for k in want:
-            assert got[k].shape == want[k].shape, k
-            np.testing.assert_allclose(
-                got[k], want[k], rtol=0, err_msg=k,
-                atol=STATE_RTOL * float(np.abs(want[k]).max()))
-        return
-    cfg = t_smoke(arch)
-    step = make_train_step(cfg, OptimConfig(**OPT))
-    with dctx.use_mesh(SimpleNamespace(shape={"data": 1, "model": 2})):
-        with pytest.raises(TypeError, match="ROADMAP"):
-            step(None, None, {"tokens": torch.zeros((2, 8),
-                                                    dtype=torch.long)})
+    """No family is refused on a multi-rank mesh any more: rwkv, the
+    hybrid and encdec (its frames' rows split with its tokens) train
+    there, the train launcher's 2 steps on (1, 2) ending at its
+    single-device state."""
+    dirs = request.getfixturevalue("runs")["dirs"]
+    got = _final_params(dirs[f"{arch}_mesh"], STEP2)
+    want = _final_params(dirs[f"{arch}_one"], STEP2)
+    assert got.keys() == want.keys() and len(want) > 10
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(
+            got[k], want[k], rtol=0, err_msg=k,
+            atol=STATE_RTOL * float(np.abs(want[k]).max()))

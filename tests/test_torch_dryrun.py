@@ -21,8 +21,8 @@ the reference's analytic functions and to a real 4-rank gloo run.
     4-layer trace's;
   * ``run_cell`` on the single production mesh gives "ok" for
     ``llama1_7b|train_4k``, ``qwen3_moe_30b_a3b|train_4k``,
-    ``rwkv6_7b|decode_32k`` and ``zamba2_1p2b|long_500k``, "not_ported"
-    for an encdec cell; ``main`` caches finished cells.
+    ``rwkv6_7b|decode_32k``, ``zamba2_1p2b|long_500k`` and
+    ``seamless_m4t_medium|train_4k``; ``main`` caches finished cells.
 
 The reference's ``launch/dryrun.py`` forces 512 host devices through
 ``XLA_FLAGS`` at import: it is imported after JAX's backend is up and the
@@ -318,7 +318,8 @@ def test_run_cell_on_the_production_mesh():
         assert res["status"] == "ok", (arch, res.get("traceback"))
         assert res["per_device"]["collectives"]["all-gather"] > 0
     res = dryrun.run_cell("seamless_m4t_medium", "train_4k", False)
-    assert res["status"] == "not_ported" and "ROADMAP" in res["reason"]
+    assert res["status"] == "ok", res.get("traceback")
+    assert res["per_device"]["collectives"]["all-gather"] > 0
     assert dryrun.run_cell("llama1_7b", "long_500k", False)["status"] == \
         "skipped"
 
@@ -330,11 +331,12 @@ def test_main_caches_finished_cells(tmp_path, capsys):
     assert dryrun.main(argv) == 0
     first = capsys.readouterr().out
     assert "qwen2_1p5b|decode_32k|single -> ok" in first
-    assert "1 ok, 0 skipped, 1 not ported, 0 errors" in first
+    assert "seamless_m4t_medium|decode_32k|single -> ok" in first
+    assert "2 ok, 0 skipped, 0 errors" in first
     with open(out) as f:
         cells = json.load(f)
     assert cells["qwen2_1p5b|decode_32k|single"]["status"] == "ok"
     assert dryrun.main(argv) == 0
     second = capsys.readouterr().out
     assert "->" not in second
-    assert "1 ok, 0 skipped, 1 not ported, 0 errors" in second
+    assert "2 ok, 0 skipped, 0 errors" in second

@@ -177,15 +177,25 @@ def test_run_to_completion_surfaces_unfinished_work(quantized):
 
 def test_engine_knobs_not_ported_are_rejected(quantized):
     """A mesh is accepted (``mesh=None`` here; multi-rank meshes in
-    ``test_torch_dist_serving.py``), and the mesh check refuses a
-    multi-rank mesh for the one family not ported to it (encdec) and
-    admits rwkv; the control plane's knobs and the contract gate are
+    ``test_torch_dist_serving.py``): the mesh check admits every family
+    on a multi-rank mesh, a pod axis too, and refuses another mesh dim;
+    the engine refuses encdec (decoder-only families) with a mesh as
+    without; the control plane's knobs and the contract gate are
     accepted."""
     _, tcfg, _, tm = quantized
     mesh = SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(TypeError, match="ROADMAP"):
-        ServingEngine._check_mesh(mesh, t_smoke("seamless_m4t_medium"))
+    ed_cfg = t_smoke("seamless_m4t_medium")
+    assert ServingEngine._check_mesh(mesh, ed_cfg) == 2
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        ServingEngine(tapi.init_params(torch.Generator().manual_seed(0),
+                                       ed_cfg, "cpu"), ed_cfg, n_slots=2,
+                      max_len=16, device="cpu", mesh=mesh)
     assert ServingEngine._check_mesh(mesh, t_smoke("rwkv6_7b")) == 2
+    assert ServingEngine._check_mesh(SimpleNamespace(shape={
+        "pod": 2, "data": 1, "model": 2}), tcfg) == 4
+    with pytest.raises(NotImplementedError, match="mesh dims"):
+        ServingEngine._check_mesh(SimpleNamespace(shape={
+            "replica": 2, "model": 2}), tcfg)
     eng = ServingEngine(tm, tcfg, n_slots=2, max_len=16, device="cpu",
                         guards=True, on_pressure="truncate",
                         chunked_prefill=8, telemetry=None, queue_depth=4,
