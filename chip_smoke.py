@@ -77,7 +77,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      ``torch.matmul`` and the bound).  Phases 11-11b run in a process of
      their own, started after phase 10 beside the mesh phases (their
      ranks leave the host's other cores and most of the card idle) and
-     ended before phase 16's ranks train, so their times and those of
+     ended before phase 16 starts, so their times and those of
      phases 14-15 are shared-card readings;
   12. rwkv6_7b at full width (d 4096, 64 heads of 64, d_ff 14336, vocab
      65536, bf16), ``RWKV_DEPTH`` of its 32 layers, synthetic AP+OR
@@ -101,7 +101,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
      teacher-forced ``decode_blocks`` forward.  K1 and K1e are then held
      to their plain versions at the 11 (out, in) shapes of 12-12c and
      every M they gave K1.  Phases 12-12c run in a process of their own
-     beside the mesh phases, as 11-11b do, collected after phase 17;
+     beside the mesh phases, as 11-11b do, and end before phase 16's
+     ranks start (two (2, 1) ranks of 16c's training hold ~31.5 GB each;
+     a side phase beside them ran the card out of memory);
   10. train, then checkpoint (run after phase 13, before phase 14):
      llama1_7b at full width (cut in depth to ``QUANT_DEPTH``), bf16 params and f32 AdamW moments, 20 steps of
      ``train.make_train_step`` on ``data.SyntheticCorpus`` (B 4, S 512,
@@ -132,8 +134,7 @@ Phases (any failure raises and ends the run with a non-zero exit):
      perplexities; the AP+OR target served with its 2-bit draft at gamma
      4 (acceptance, near-tie divergences), every plan it served held to
      the plain K1; in a process of its own beside the mesh phases, as
-     11-11b and 12-12c are, collected after phase 17 (before phase 7's
-     kernel timings);
+     11-11b and 12-12c are, ended before phase 16's ranks start;
   9. the serving control plane on phase 4's model (run after 4c, before
      phase 5): (a) phase 4's prompts through ``submit()`` under a
      StepClock and a seeded pressure-only fault plan — at least 2
@@ -186,7 +187,24 @@ Phases (any failure raises and ends the run with a non-zero exit):
      single-rank result (Q to rtol 1e-4 / atol 1e-5, the proxy loss to
      1e-3); (e) the same two ranks as two pods of a (pod 2, data 1,
      model 1) mesh (slots over "dp" = pod x data, the sampled tokens
-     gathered over both) emit (b)'s (2, 1) tokens bit for bit.
+     gathered over both) emit (b)'s (2, 1) tokens bit for bit; (f) the
+     same ranks serve (b)'s model from a page pool split over "dp"
+     (``SPLIT_POOL_PAGES`` + 1 = 64 page rows, 32 a rank, 16-token pages,
+     ``max_len`` 256, 4 slots), bf16 and int8 pages, on (2, 1) and on the
+     two pods: every rank holds half the whole pool's bytes; a prefill of
+     Bb rows runs Bb/2 on a rank where 2 divides Bb; at one decode step
+     each rank's view of its slots' pages (its block and the exchange)
+     equals a whole-pool replica's (the blocks gathered over "dp") bit
+     for bit; tokens held to a single-rank paged engine's under (b)'s
+     rule, the pods' bit for bit the (2, 1) run's; phase 4c's shared
+     prefix served after phase 4's prompts, a copy-on-write crossing the
+     ranks; the gate at construction with no finding the contiguous
+     (2, 1) engine's lacks, one transfer to the host a step, the
+     exchange's calls and bytes a step from an op trace, prefill ms an
+     admission and decode ms a step beside the single rank's, with the
+     card's name and power limit; K1 and K1e are then held to their
+     plain versions at the M values only these split prefills gave them
+     (after phase 7).
   15. training on a mesh and the dry run (run after phase 14): (a) two
      spawned ranks sharing the card over gloo train llama1_7b at full
      width, ``QUANT_DEPTH`` = 1 layer (bf16 params, f32 moments, phase
@@ -230,7 +248,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
      decode ms a step, and the contract gate's HLO-AG1 / HLO-CB1 with no
      finding; (b) deepseek_v2_236b at full width, 1 layer (MLA on the
      rank's heads of ``kv_up``), contiguous cache, the same, plus the
-     latent cache bytes a rank; (c) training: qwen3_moe_30b_a3b at full
+     latent cache bytes a rank, and on (2, 1) from a latent page pool
+     split over "dp" (64 page rows, 32 a rank): exactly the contiguous
+     (2, 1) run's tokens; (c) training: qwen3_moe_30b_a3b at full
      width, 1 layer, bf16 params, f32 moments, B 4 x S 512,
      ``MOE_TRAIN_STEPS`` = 3 steps against a single-rank run of the seed
      under 15a's loss and param rules (its two-microbatch twin the
@@ -363,6 +383,8 @@ ENCDEC_PROMPT = 8                  # its decoder prompt tokens
 MESH_DEPTH = 1                     # layers of phase 14b's llama1_7b
 MESH_SHAPES = ((1, 2), (2, 1))     # 14b's (data, model) meshes, 2 ranks
 ROWSHARD_N = 512                   # 14d's matrix (rows = cols)
+SPLIT_POOL_PAGES = 63              # 14f's pool: 64 page rows, 32 a rank
+SPLIT_VIEW_STEP = 3                # the emitting step 14f checks views at
 MESH_TRAIN_STEPS = 3               # 15a's steps on each mesh
 MESH_TRAIN_TRACE = 2               # the step whose op trace 15a records
 MOE_MESH_DEPTH = 1                 # layers of phase 16a's qwen3_moe_30b_a3b
@@ -408,6 +430,16 @@ MLA_SMALL = dict(use_mla=True, q_lora=32, kv_lora=16, rope_head_dim=8,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_memory(what: str) -> None:
+    """Log the card's free memory (every process's use counted) and this
+    process's allocated and reserved bytes, just before ``what``."""
+    free, total = torch.cuda.mem_get_info()
+    log(f"card memory before {what}: {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB free; this process "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
 
 
 # ----------------------------------------------------------------- weights
@@ -3127,10 +3159,11 @@ def mesh_serve(eng, prompts, dm):
             admitted)
 
 
-def mesh_rank(rank, world, device, prompts, base_tokens, W, H):
-    """14b and 14d on one of the two spawned ranks (the process group is
-    up, gloo on the card): per mesh of ``MESH_SHAPES`` the served record,
-    then the row-sharded quantizer's result."""
+def mesh_rank(rank, world, device, prompts, base_tokens, W, H, shared):
+    """14b, 14e, 14f and 14d on one of the two spawned ranks (the process
+    group is up, gloo on the card): per mesh of ``MESH_SHAPES`` the served
+    record, the pod mesh's, the split pool's (``shared``: prompts sharing
+    a prefix), then the row-sharded quantizer's result."""
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.analysis import op_trace as OT
     from repro_torch.analysis.artifacts import decode_ops, verify_engine
@@ -3203,6 +3236,10 @@ def mesh_rank(rank, world, device, prompts, base_tokens, W, H):
         stats_mesh=eng.stats()["mesh"])
     del eng
     torch.cuda.empty_cache()
+    # 14f: a page pool split over "dp", on (2, 1) and on two pods
+    out.update(split_pool_rank(device, cfg, prompts, shared, dm,
+                               out["mesh_2x1"]["gate_findings"]))
+    torch.cuda.empty_cache()
     # 14d: the row-sharded quantizer over the model axis of a (1, 2) mesh
     mesh = mesh_lib.make_debug_mesh((1, 2), device_type="cuda")
     qcfg = CLAQConfig(bits=3, method="kmeans", kmeans_iters=5,
@@ -3215,6 +3252,179 @@ def mesh_rank(rank, world, device, prompts, base_tokens, W, H):
     torch.cuda.synchronize()
     out["rowsharded"] = dict(Q=Q.cpu().numpy(), proxy_loss=st.proxy_loss,
                              seconds=time.perf_counter() - t0)
+    return out
+
+
+def pool_view_check(eng):
+    """This rank's view of its slots' pages (layer 0's pools through the
+    engine's ``PageRoute``: its own block and the exchange) against the
+    same slots' view of a whole-pool replica, built once by gathering the
+    blocks over "dp" and read through the whole table with scratch zeroed
+    (the split view reads scratch as zeros; it is masked).  Returns
+    (bit for bit equal, pages its slots name, of them held elsewhere)."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import context as dctx
+    from repro_torch.models import layers as L
+    c, route, blocks = eng.cache[0], eng._route, eng._blocks
+    pools = [(c.kp, c.k_scale), (c.vp, c.v_scale)]
+    with dctx.use_mesh(eng.mesh):
+        views = L.placed_pool_view(pools, route, torch.bfloat16)
+        whole = [[None if t is None else coll.gather_dp(t, eng.mesh)
+                  for t in pair] for pair in pools]
+    scratch = blocks.parts * blocks.rows - 1
+    for pair in whole:
+        for t in pair:
+            if t is not None:
+                t[scratch] = 0
+    table = torch.as_tensor(eng._tables[eng._rows], dtype=torch.long,
+                            device=c.kp.device)
+    replica = [L.pool_view(p, sc, table, torch.bfloat16) for p, sc in whole]
+    named = set(eng._tables[eng._rows].ravel().tolist()) - {scratch}
+    elsewhere = sum(p // blocks.rows != blocks.index for p in named)
+    return (all(torch.equal(a, b) for a, b in zip(views, replica)),
+            len(named), elsewhere)
+
+
+def split_pool_serve(eng, prompts, dm):
+    """``mesh_serve`` for 14f: per admission its synchronized ms, the
+    engine's (Bb, bucket) of every prefill and the (rows, tokens) this
+    rank ran (hooks on ``bucketing.record`` and ``models.api.
+    prefill_step``); at the ``SPLIT_VIEW_STEP``-th emitting step the
+    view check (``pool_view_check``) and the op trace of one decode step
+    on a clone of the cache (``decode_ops``; the launch counts restored
+    around it).  Returns the record."""
+    from repro_torch.analysis import op_trace as OT
+    from repro_torch.analysis.artifacts import decode_ops
+    from repro_torch.models import api
+    shapes, ran = [], []
+    run_prefill, record = api.prefill_step, eng.bucketing.record
+
+    def prefill(params, cfg, batch, cache, **kw):
+        ran.append(tuple(batch["tokens"].shape))
+        return run_prefill(params, cfg, batch, cache, **kw)
+
+    def bucketed(b, n):
+        shapes.append((b, n))
+        return record(b, n)
+    api.prefill_step, eng.bucketing.record = prefill, bucketed
+    reset_counts(dm)
+    pending, order, step_ms, prefill_ms, launches = list(prompts), [], [], \
+        [], []
+    view = trace = None
+    try:
+        while pending or eng.active:
+            if pending and eng.free:
+                n = min(len(pending), len(eng.free))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                order += eng.add_requests([pending.pop(0) for _ in range(n)],
+                                          max_new_tokens=MAX_NEW)
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            before = dm.launch_count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emitted = eng.step()
+            torch.cuda.synchronize()
+            if emitted:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(dm.launch_count - before)
+            if len(step_ms) == SPLIT_VIEW_STEP and view is None:
+                view = pool_view_check(eng)
+                kept = read_counts(dm)
+                trace = decode_ops(eng)
+                reset_counts(dm)
+                dm.launch_count = kept["launches"]
+                dm.aligned_launch_count = kept["aligned"]
+                dm.int8_launch_count = kept["int8"]
+    finally:
+        api.prefill_step = run_prefill
+        del eng.bucketing.record
+    counts = read_counts(dm)
+    fin = eng.take_finished()
+    assert all(fin[u].state.value == "finished"
+               and len(fin[u].tokens) == MAX_NEW for u in order)
+    colls = OT.collective_instructions(trace)
+    a2a = [b for k, b in colls if k == "all-to-all"]
+    return dict(
+        tokens=[fin[u].tokens for u in order], counts=counts,
+        launches_per_step=sorted(set(launches)),
+        prefill_shapes=shapes, prefill_rows_ran=ran,
+        prefill_ms_per_admission=float(np.mean(prefill_ms)),
+        prefill_ms_per_admission_min=float(np.min(prefill_ms)),
+        decode_ms_per_step=float(np.mean(step_ms)),
+        decode_ms_per_step_min=float(np.min(step_ms)),
+        view_equal=view[0], view_pages_named=view[1],
+        view_pages_elsewhere=view[2],
+        exchanges_per_step=len(a2a), exchange_bytes_per_step=sum(a2a),
+        fragment_bytes_in=eng.fragment_bytes_in,
+        collectives_per_step=collective_counts(colls),
+        to_host_per_step=OT.transfer_counts(trace)["to_host"])
+
+
+def split_pool_rank(device, cfg, prompts, shared, dm, contiguous_gate):
+    """14f on one rank: llama1_7b (``MESH_DEPTH`` layers, full width) from
+    a pool of ``SPLIT_POOL_PAGES`` + 1 page rows split over "dp" (32 a
+    rank), bf16 and int8 pages, on the (2, 1) mesh and on two pods of a
+    (2, 1, 1) mesh; on (2, 1) the contract gate at construction (its
+    findings beside the contiguous engine's, ``contiguous_gate``) and,
+    on bf16 pages, prompts sharing a prefix after phase 4's (their
+    copy-on-write pairs recorded).  Returns the records."""
+    from repro_torch.analysis.artifacts import verify_engine
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import ServingEngine
+    meshes = {
+        "2x1": mesh_lib.make_debug_mesh((2, 1), device_type="cuda"),
+        "pod_2x1x1": mesh_lib.make_debug_mesh(
+            (2, 1, 1), ("pod", "data", "model"), device_type="cuda")}
+    model = mesh_model(device)
+    out = {}
+    for mtag, mesh in meshes.items():
+        for kv in ("bf16", "int8"):
+            tag = f"split_pool_{mtag}_{kv}"
+            eng = ServingEngine(
+                model, cfg, n_slots=4, max_len=256, dtype=torch.bfloat16,
+                device=device, mesh=mesh, kv_layout="paged",
+                page_size=PAGE_SIZE, kv_pages=SPLIT_POOL_PAGES,
+                kv_dtype=None if kv == "bf16" else "int8")
+            rec = {}
+            if mtag == "2x1":
+                rep = verify_engine(eng, raise_on_error=False)
+                rec.update(gate_rules=rep.rules_run, gate_findings=[
+                    (f.rule_id, f.severity.name, f.message[:160])
+                    for f in rep.findings],
+                    contiguous_gate_findings=contiguous_gate)
+            pools = [t for c in eng.cache for f in ("kp", "vp", "k_scale",
+                                                    "v_scale")
+                     for t in [getattr(c, f)] if t is not None]
+            pairs = []
+            copy_pages = eng._copy_pages
+
+            def recorded(p, copy_pages=copy_pages, pairs=pairs):
+                pairs.extend((int(o), int(n)) for o, n in p)
+                copy_pages(p)
+            eng._copy_pages = recorded
+            rec.update(split_pool_serve(eng, prompts, dm))
+            rec.update(pool_rows=sorted({t.shape[0] for t in pools}),
+                       pool_bytes_rank=sum(t.numel() * t.element_size()
+                                           for t in pools),
+                       dp_ranks=eng._blocks.parts,
+                       stats_mesh=eng.stats()["mesh"])
+            if (mtag, kv) == ("2x1", "bf16"):
+                order, pending = [], list(shared)
+                while pending or eng.active:     # drive's one_by_one
+                    if pending and eng.free:
+                        order += eng.add_requests([pending.pop(0)],
+                                                  max_new_tokens=MAX_NEW)
+                    eng.step()
+                fin = eng.take_finished()
+                rec.update(shared_tokens=[fin[u].tokens for u in order],
+                           prefix_hits=eng.stats()["paged"]["prefix_hits"])
+            rows = eng._blocks.rows
+            rec.update(cow_pairs=len(pairs), cow_pairs_across_ranks=sum(
+                o // rows != n // rows for o, n in pairs))
+            out[tag] = rec
+            del eng
     return out
 
 
@@ -3280,7 +3490,7 @@ def shard_local_kernels(dm, ops, plan, gen, host_gen):
 
 def phase_distribution(api, dm, ops, plan, ServingEngine, prompts, gen,
                        host_gen):
-    """14b-d (14a runs over phase 4's model before it is freed)."""
+    """14b-f (14a runs over phase 4's model before it is freed)."""
     from repro_torch.core import CLAQConfig, claq
     from repro_torch.launch import mesh as mesh_lib
     t0 = time.perf_counter()
@@ -3306,9 +3516,38 @@ def phase_distribution(api, dm, ops, plan, ServingEngine, prompts, gen,
     q1_s = time.perf_counter() - tq
     Q1 = Q1.cpu().numpy()
     torch.cuda.empty_cache()
-    # 14b + 14d: two ranks share the card over gloo
+    # 14f's single-rank paged engines (the pool whole): phase 4's prompts
+    # on bf16 and int8 pages, then prompts sharing a prefix on bf16 pages
+    host = torch.Generator().manual_seed(SEED + 14)
+    prefix = torch.randint(1, cfg.vocab, (PREFIX_LEN,),
+                           generator=host).tolist()
+    shared = [prefix + torch.randint(1, cfg.vocab, (n,),
+                                     generator=host).tolist()
+              for n in PREFIX_SUFFIXES]
+    single_paged, shared_base = {}, None
+    for kv in ("bf16", "int8"):
+        eng = ServingEngine(mesh_model("cuda"), cfg, n_slots=4, max_len=256,
+                            dtype=torch.bfloat16, device="cuda",
+                            kv_layout="paged", page_size=PAGE_SIZE,
+                            kv_pages=SPLIT_POOL_PAGES,
+                            kv_dtype=None if kv == "bf16" else "int8")
+        single_paged[kv] = drive(eng, prompts, dm, api, cfg,
+                                 f"split_pool_single_rank_{kv}",
+                                 prefill_rows=True)
+        single_paged[kv]["pool_bytes"] = sum(
+            t.numel() * t.element_size() for c in eng.cache
+            for t in (c.kp, c.vp, c.k_scale, c.v_scale) if t is not None)
+        if kv == "bf16":
+            shared_base = drive(eng, shared, dm, api, cfg,
+                                "split_pool_single_rank_shared",
+                                one_by_one=True, prefill_rows=True)
+        del eng
+    torch.cuda.empty_cache()
+    assert single_paged["bf16"]["tokens"] == base["tokens"]
+    # 14b, 14e, 14f + 14d: two ranks share the card over gloo
+    card_memory("phase 14's ranks")
     ranks = mesh_lib.run_local(mesh_rank, 2, prompts, base["tokens"], W, H,
-                               backend="gloo", device="cuda",
+                               shared, backend="gloo", device="cuda",
                                workdir=str(REPO / "build"))
     res = {"single_rank": {k: base[k] for k in (
         "decode_ms_per_step", "main_path_launches",
@@ -3348,6 +3587,8 @@ def phase_distribution(api, dm, ops, plan, ServingEngine, prompts, gen,
         res[f"mesh_pod_2x1x1_rank{r}"] = rec
         log(f"mesh_pod_2x1x1 rank {r} (tokens exactly the (2, 1) mesh's) "
             + json.dumps(rec))
+    # 14f: the split pool
+    res.update(judge_split_pool(ranks, single_paged, shared_base, res))
     for r, out in enumerate(ranks):
         q = out["rowsharded"]
         np.testing.assert_allclose(q["Q"], Q1, rtol=1e-4, atol=1e-5)
@@ -3367,8 +3608,86 @@ def phase_distribution(api, dm, ops, plan, ServingEngine, prompts, gen,
         all_gaps_zero=all(g == 0.0 for g in gaps.values()))
     log("shard_local " + json.dumps(res["shard_local"]))
     res["phase_s"] = time.perf_counter() - t0
-    log(f"phase 14b-d took {res['phase_s']:.1f} s")
+    log(f"phase 14b-f took {res['phase_s']:.1f} s")
     return res
+
+
+def judge_split_pool(ranks, single_paged, shared_base, res):
+    """14f's rules over the ranks' records: every rank holds 32 of the 64
+    page rows, half the whole pool's bytes; its view of its slots' pages
+    at one decode step is the whole pool's bit for bit, and across the
+    ranks the exchange moved pages; a prefill of Bb rows ran Bb/2 on a
+    rank where 2 divides Bb, else Bb; one transfer to the host a step;
+    the gate finds nothing the contiguous (2, 1) engine's does not (its
+    HLO-AG1 / HLO-CB1 skip: no weight splits over model = 1); K1's
+    launches a step are the single rank's; the tokens meet the
+    single-rank paged engine's under 14b's near-tie rule (limit twice the
+    (2, 1) placement's logit noise, at least two bf16 steps) and the two
+    pods emit the (2, 1) run's tokens bit for bit; the prompts sharing a
+    prefix copy a page across ranks.  Returns the records, logged with
+    the card's name and power limit."""
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    out, ms = {}, set()
+    moved = 0
+    for kv in ("bf16", "int8"):
+        one = single_paged[kv]
+        for mtag in ("2x1", "pod_2x1x1"):
+            tag = f"split_pool_{mtag}_{kv}"
+            for r, rk in enumerate(ranks):
+                rec = dict(rk[tag])
+                tokens = rec.pop("tokens")
+                limit = 2 * res[f"mesh_2x1_rank{r}"]["logit_noise"]
+                ties = near_ties(tokens, one, limit, f"{tag} rank {r}",
+                                 ulps=2)
+                if mtag == "pod_2x1x1":
+                    assert tokens == rk[f"split_pool_2x1_{kv}"]["tokens"], \
+                        (tag, r, "the pods left the (2, 1) run's tokens")
+                assert rec["pool_rows"] == [(SPLIT_POOL_PAGES + 1) // 2], rec
+                assert 2 * rec["pool_bytes_rank"] == one["pool_bytes"], rec
+                assert rec["view_equal"], (tag, r)
+                moved += rec["view_pages_elsewhere"]
+                assert rec["prefill_rows_ran"] == [
+                    (b // 2 if b % 2 == 0 else b, n)
+                    for b, n in rec["prefill_shapes"]], rec
+                ms |= {b * n for b, n in rec["prefill_rows_ran"]}
+                assert rec["to_host_per_step"] == 1, rec
+                assert rec["launches_per_step"] == [
+                    one["launches_per_decode_step"]], rec
+                assert rec["counts"]["launches"] > 0
+                if "gate_findings" in rec:
+                    errors = {f[0] for f in rec["gate_findings"]
+                              if f[1] == "ERROR"}
+                    allowed = {f[0] for f in rec["contiguous_gate_findings"]
+                               if f[1] == "ERROR"}
+                    assert not errors - allowed, (tag, r, errors, allowed)
+                    assert not [f for f in rec["gate_findings"]
+                                if f[0] in ("HLO-AG1", "HLO-CB1")], rec
+                    rec.pop("contiguous_gate_findings")
+                if "shared_tokens" in rec:
+                    shared_ties = near_ties(rec.pop("shared_tokens"),
+                                            shared_base, limit,
+                                            f"{tag} shared rank {r}", ulps=2)
+                    rec.update(shared_near_ties=len(shared_ties))
+                assert rec["cow_pairs_across_ranks"] > 0, rec
+                rec.update(gpu=gpu, near_tie_limit=limit, near_ties=len(ties),
+                           tokens_equal=tokens == one["tokens"],
+                           pool_bytes_whole=one["pool_bytes"],
+                           single_rank_decode_ms_per_step=one[
+                               "decode_ms_per_step"],
+                           single_rank_prefill_ms=one["prefill_ms"])
+                out[f"{tag}_rank{r}"] = rec
+                log(f"{tag} rank {r} " + json.dumps(rec))
+    assert moved > 0, "no rank read a page another rank holds"
+    # the M values a rank's prefills gave K1 (its decode's n_slots / 2 = 2
+    # is 14b's, held by 14c)
+    out["split_pool_m"] = sorted(ms)
+    out["split_pool_single_rank"] = {
+        kv: {k: single_paged[kv][k] for k in (
+            "decode_ms_per_step", "prefill_ms", "main_path_launches",
+            "pool_bytes")} for kv in single_paged}
+    return out
 
 
 def bf16_ulp(x: float) -> float:
@@ -3588,6 +3907,7 @@ def phase_mesh_train(dm, dist_runs):
     cfg, _, _ = mesh_train_setup()
     want_path = REPO / "build" / "phase15_params.pt"
     single, span = train_baseline(dm, mesh_train_setup, want_path)
+    card_memory("phase 15's ranks")
     try:
         ranks = mesh_lib.run_local(mesh_train_rank, 2, str(want_path), span,
                                    backend="gloo", device="cuda",
@@ -3751,9 +4071,10 @@ def forced_replay(eng, prompts, base, moe_lib=None, routing=None):
     single rank's margin there; times as ``first_divergences`` counts
     them), and the recording.  The logits are all-gathered over "data" to
     be read (one more collective a step, this replay's only)."""
+    from repro_torch.dist import collectives as coll
     order, pending = [], list(prompts)
     index = {}
-    admitted = []
+    admitted, admitting = [], [False]
     st = dict(noise=0.0, noise_steps=0.0, rows=0, flip_deficits=[],
               flips_at=[])
 
@@ -3770,14 +4091,14 @@ def forced_replay(eng, prompts, base, moe_lib=None, routing=None):
                                              - want_row[top]))
             st["flips_at"].append(at)
 
-    def forced(logits, slot_rows=False):
-        if not slot_rows:   # a moe prefill, or one of distinct length
-            assert logits.shape[0] == 1, logits.shape
+    def forced(logits, split=False):
+        if admitting[0]:    # a moe prefill, or one of distinct length
+            assert logits.shape[0] == 1 and not split, logits.shape
             i = index[admitted.pop(0)]
             held(logits[0], base["prefill_logits"][i], base["tokens"][i][0],
                  (i, 0))
             return np.array([base["tokens"][i][0]]), None
-        rows = eng._gather_rows(logits)
+        rows = coll.gather_dp(logits, eng.mesh) if split else logits
         out = np.zeros((eng.n_slots,), np.int64)
         for uid, req in eng.active.items():
             i, k = index[uid], len(req.tokens)
@@ -3804,7 +4125,9 @@ def forced_replay(eng, prompts, base, moe_lib=None, routing=None):
                     admitted.extend(uids)
                     if route is not None:
                         route.time = 2 * steps + 1
+                    admitting[0] = True
                     got = eng.add_requests(batch, max_new_tokens=MAX_NEW)
+                    admitting[0] = False
                     assert got == uids, (got, uids)
                     order += got
                 if route is not None:
@@ -3885,6 +4208,29 @@ def moe_mesh_rank(rank, world, device, prompts, want_path, span):
                 seconds=dict(engine=t1 - t0, gate=t2 - t1, serve=t3 - t2,
                              replay=t4 - t3),
                 stats_mesh=eng.stats()["mesh"])
+            if cfg.use_mla and shape == (2, 1):
+                # 16b's paged variant: a latent pool of 64 page rows split
+                # over "dp", 32 a rank, over this engine's params (whole
+                # on (2, 1): nothing splits over model = 1)
+                paged = ServingEngine(eng.params, cfg, n_slots=4,
+                                      max_len=256, dtype=torch.bfloat16,
+                                      device=device, mesh=mesh,
+                                      kv_layout="paged", page_size=PAGE_SIZE,
+                                      kv_pages=SPLIT_POOL_PAGES)
+                del eng
+                tokens, counts, step_launches, step_ms, _ = mesh_serve(
+                    paged, prompts, dm)
+                out[f"{arch}_2x1_paged_split"] = dict(
+                    tokens=tokens, counts=counts,
+                    launches_per_step=sorted(set(step_launches)),
+                    decode_ms_per_step=float(np.mean(step_ms)),
+                    decode_ms_per_step_min=float(np.min(step_ms)),
+                    pool_rows=sorted({t.shape[0] for c in paged.cache
+                                      for t in (c.cp, c.pp)}),
+                    latent_pool_bytes_rank=sum(
+                        t.numel() * t.element_size() for c in paged.cache
+                        for t in (c.cp, c.pp)))
+                eng = paged
             del eng
             torch.cuda.empty_cache()
         del whole, base
@@ -3949,11 +4295,12 @@ def judge_replay(rp, single, tag):
     return out
 
 
-def phase_moe_mesh(api, dm, ServingEngine, prompts):
+def phase_moe_mesh(api, dm, ServingEngine, prompts, before_ranks=None):
     """16. The moe family (qwen3_moe_30b_a3b, GQA) and MLA with experts
     (deepseek_v2_236b) on (1, 2) and (2, 1) meshes of two ranks sharing
     the card: serving and training against one rank, and the dry run
-    against both."""
+    against both.  ``before_ranks`` is called once the single rank's
+    runs are done, before the ranks start."""
     from repro_torch.analysis import op_trace as OT
     from repro_torch.configs import ShapeCell
     from repro_torch.dist.standin import StandInMesh
@@ -3998,6 +4345,9 @@ def phase_moe_mesh(api, dm, ServingEngine, prompts):
     single_train, span = train_baseline(dm, moe_train_setup, want_path)
     log("moe train single rank " + json.dumps(single_train))
     t_train = time.perf_counter() - t0 - t_base
+    if before_ranks is not None:
+        before_ranks()
+    card_memory("phase 16's ranks")
     try:
         ranks = mesh_lib.run_local(moe_mesh_rank, 2, prompts, str(want_path),
                                    span, backend="gloo", device="cuda",
@@ -4064,6 +4414,19 @@ def phase_moe_mesh(api, dm, ServingEngine, prompts):
                                    "launches_per_decode_step"]))
                 res[f"{tag}_rank{r}"] = rec
                 log(f"{tag} rank {r} " + json.dumps(rec))
+    # 16b's paged variant on a split latent pool: its latent pages are the
+    # contiguous cache's rows bit for bit, so the (2, 1) run's tokens
+    # (held above) come back exactly
+    for r, out in enumerate(ranks):
+        rec = dict(out["deepseek_2x1_paged_split"])
+        assert rec.pop("tokens") == out["deepseek_2x1"]["tokens"], r
+        assert rec["pool_rows"] == [(SPLIT_POOL_PAGES + 1) // 2], rec
+        assert rec["launches_per_step"] == [
+            base["deepseek"]["launches_per_decode_step"]], rec
+        assert rec["counts"]["launches"] > 0
+        res[f"deepseek_2x1_paged_split_rank{r}"] = rec
+        log(f"deepseek_2x1_paged_split rank {r} (tokens exactly the "
+            f"contiguous (2, 1) run's) " + json.dumps(rec))
     # 16c: 15a's rules
     res["train_single_rank"] = single_train
     res["largest_loss_gap"] = check_train_ranks(single_train, ranks, res,
@@ -4313,6 +4676,7 @@ def phase_recurrent_mesh(api, dm, ops, plan, ServingEngine, prompts, gen):
     single_train, span = train_baseline(dm, rwkv_train_setup, want_path)
     log("rwkv train single rank " + json.dumps(single_train))
     t_train = time.perf_counter() - t0 - t_base
+    card_memory("phase 17's ranks")
     try:
         ranks = mesh_lib.run_local(recurrent_mesh_rank, 2, prompts,
                                    str(want_path), span, backend="gloo",
@@ -4771,6 +5135,7 @@ def phase_encdec_mesh(api, dm, ops, plan, gen, cells=None):
     single_train, span = train_baseline(dm, encdec_train_setup, want_path)
     log("encdec train single rank " + json.dumps(single_train))
     t_train = time.perf_counter() - t0 - t_base
+    card_memory("phase 18's ranks")
     try:
         ranks = mesh_lib.run_local(encdec_mesh_rank, 2, str(want_path), span,
                                    backend="gloo", device="cuda",
@@ -5190,7 +5555,8 @@ def main() -> int:
     # phases 11-11b, 12-12c and 10b on two spawned workers, and the CPU's
     # side of phase 8's card-vs-CPU matrix on a third, beside the mesh
     # phases (their ranks leave the host's other cores and most of the
-    # card idle); all collected before phase 7's kernel timings
+    # card idle); the card's phases end before phase 16's ranks start, the
+    # CPU's before phase 7's kernel timings
     spawn = multiprocessing.get_context("spawn")
     side = concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn)
     moe_job = side.submit(side_process, phases_moe_families, prompts)
@@ -5217,15 +5583,28 @@ def main() -> int:
     mesh_train_runs = phase_mesh_train(dm, dist_runs)
     lap("phase 15")
 
-    # phases 11-11b (deepseek's engine holds 18.5 GB) end before phase 16's
-    # ranks train
+    # phases 11-11b (deepseek's engine holds 18.5 GB) end before phase 16
     moe_fam = moe_job.result()
     lap("the wait for phases 11-11b")
+
+    # phases 12-12c and 10b end before phase 16's ranks start: its (2, 1)
+    # ranks train with ~31.5 GB each, and a side phase still running beside
+    # them ran the card out of memory; the side workers then exit
+    side_res = {}
+
+    def side_phases_done():
+        t_wait = time.perf_counter()
+        side_res.update(families=families_job.result(),
+                        substrate=substrate_job.result())
+        side.shutdown()
+        log("the wait for phases 12-12c and 10b (before phase 16's ranks) "
+            f"took {time.perf_counter() - t_wait:.1f} s")
 
     # 16. the moe family and MLA with experts on (1, 2) and (2, 1) meshes
     # of two ranks sharing the card: serving and training held to one
     # rank, the dry run's collectives to the measured ones
-    moe_mesh = phase_moe_mesh(api, dm, ServingEngine, prompts)
+    moe_mesh = phase_moe_mesh(api, dm, ServingEngine, prompts,
+                              before_ranks=side_phases_done)
     lap("phase 16")
 
     # 17. rwkv6_7b and zamba2_1p2b on (1, 2) and (2, 1) meshes of two
@@ -5245,12 +5624,10 @@ def main() -> int:
     encdec_mesh = phase_encdec_mesh(api, dm, ops, plan, gen, encdec_cells)
     max_err = max(max_err, encdec_mesh["shard_local_k1"]["max_abs_err"])
     lap("phase 18")
-    rec_fam = families_job.result()
-    substrate = substrate_job.result()
+    rec_fam, substrate = side_res["families"], side_res["substrate"]
     card_vs_cpu_inputs[2].result()
-    side.shutdown()
     cpu_side.shutdown()
-    lap("the wait for phases 12-12c, 10b and phase 8's CPU side")
+    lap("the wait for phase 8's CPU side")
     moe_runs, ds_runs = moe_fam["moe_runs"], moe_fam["ds_runs"]
     rwkv_run, zamba_run, encdec_run = (rec_fam["rwkv_run"],
                                        rec_fam["zamba_run"],
@@ -5269,6 +5646,21 @@ def main() -> int:
                    encdec_mesh["shard_local_k1"]["max_abs_err8"])
     torch.cuda.empty_cache()
     lap("phase 7")
+
+    # K1 and K1e at the M values only 14f's split prefills gave them (a
+    # data rank's Bb / 2 rows x bucket), on phase 4's bf16 plans
+    m14f = sorted(set(dist_runs["split_pool_m"]) - set(serve["kernel_m"])
+                  - set(new_m) - set(new_m9))
+    m14f8 = sorted(set(dist_runs["split_pool_m"]) - set(serve8["kernel_m"]))
+    log(f"K1 / K1e checks at 14f's shard-local prefill M: {m14f} / {m14f8}")
+    cases_14f, err_14f = phase_kernels(
+        dm, ops, plan, ref, served, m14f, gen, host_gen,
+        modes=("aligned", "gathered"), dtypes=(torch.bfloat16,))
+    cases8_14f, err8_14f = phase_kernels(
+        dm, ops, plan, ref, served, m14f8, gen, host_gen, act="int8",
+        modes=("aligned", "gathered"), dtypes=(torch.bfloat16,))
+    max_err, max_err8 = max(max_err, err_14f), max(max_err8, err8_14f)
+    lap("the 14f M checks")
 
     contracts.update(qwen3_moe=moe_runs["contiguous"]["contracts"],
                      rwkv6_7b=rwkv_run["contracts"],
@@ -5354,9 +5746,13 @@ def main() -> int:
                cases8 + cases8_new + cases8_9, "main_path_int8_launches"),
     ]
     kernels[0]["checked_m"] = sorted(set(serve["kernel_m"]) | set(new_m)
-                                     | set(new_m9) | set(m10))
+                                     | set(new_m9) | set(m10) | set(m14f))
     kernels[1]["checked_m"] = sorted(set(serve8["kernel_m"]) | set(new_m8)
-                                     | set(new_m89))
+                                     | set(new_m89) | set(m14f8))
+    kernels[0]["checked_cases"] += len(cases_14f)
+    kernels[1]["checked_cases"] += len(cases8_14f)
+    for k in kernels:
+        assert set(dist_runs["split_pool_m"]) <= set(k["checked_m"]), k
     assert set(qserve["spec"]["kernel_m"]) <= set(kernels[1]["checked_m"])
     assert set(spec["kernel_m"]) <= set(kernels[0]["checked_m"])
     assert m9 <= set(kernels[0]["checked_m"])
@@ -5404,7 +5800,8 @@ def main() -> int:
         mesh_single_rank=dict(launches=dist_runs["single_rank"][
             "main_path_launches"]),
         **{tag: {k: v for k, v in run["counts"].items() if k != "int8"}
-           for tag, run in dist_runs.items() if tag.startswith("mesh_")},
+           for tag, run in dist_runs.items()
+           if tag.startswith(("mesh_", "split_pool_")) and "counts" in run},
         **{f"moe_mesh_single_{a}": split(moe_mesh[f"single_rank_{a}"])
            for a in MOE_MESH_ARCHS},
         **{f"moe_mesh_{tag}": {k: v for k, v in run["counts"].items()

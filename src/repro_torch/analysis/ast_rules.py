@@ -50,7 +50,9 @@ STEP_BODIES: Dict[str, Tuple[str, ...]] = {
         "decode_step", "decode_span"),
     "repro_torch/models/layers.py": (
         "select_logits", "rope_angles", "apply_rope", "blocked_attention",
-        "paged_write_ids", "pool_write", "pool_view", "_span_write",
+        "paged_write_ids", "pool_write", "pool_view", "pack_bytes",
+        "unpack_bytes", "exchange_rows", "placed_pool_write",
+        "placed_pool_view", "paged_pools", "_span_write",
         "gqa_attention", "_decode_attention", "_decode_rows",
         "_span_decode_attention", "swiglu_mlp", "gelu_mlp"),
     "repro_torch/models/modules.py": ("dense", "out_block", "gather_out",

@@ -44,6 +44,13 @@ A ``dist.standin.StandInMesh`` (the dry run's stand-in of a production
 mesh) routes every collective to ``standin``: meta tensors of the right
 shape, each collective recorded with its kind and bytes.  Real tensors
 never meet a stand-in mesh, nor meta tensors a real one: both raise.
+
+``exchange`` moves rows between the ranks of "dp" (a paged pool's pages
+to the ranks whose slots name them): an all-to-all of bytes, so exact.
+One route serves every backend: ``all_to_all_single`` with uneven
+splits, which nccl runs natively and gloo runs on CPU tensors and, for
+ranks sharing one card, on CUDA tensors too (``chip_smoke.py``'s phase
+14f exchanges pages so on an H100 with torch 2.11, bit for bit).
 """
 from __future__ import annotations
 
@@ -244,6 +251,70 @@ class _SumGrad(torch.autograd.Function):
     def backward(ctx, g):
         return all_reduce_(g.contiguous().clone(), ctx.axis, ctx.mesh), \
             None, None
+
+
+def gather_dp(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Every "dp" rank's rows of ``t`` (dim 0) in "dp" order: gathered over
+    "data", then "pod" ("dp" is pod x data, row-major, as
+    ``sharding.entry_block`` reads it)."""
+    mesh = dctx.get_mesh() if mesh is None else mesh
+    if mesh is None:
+        return t
+    for a in reversed(dctx.physical_axes(mesh, "dp")):
+        t = all_gather(t, dim=0, axis=a, mesh=mesh)
+    return t
+
+
+def dp_index(mesh) -> int:
+    """This rank's index along "dp" (pod x data, row-major)."""
+    idx = 0
+    for a in dctx.physical_axes(mesh, "dp"):
+        idx = idx * axis_size(mesh, a) + coordinate(mesh, a)
+    return idx
+
+
+def dp_group(mesh):
+    """The process group of this rank's "dp" ranks, in "dp" order (pod
+    x data, row-major), or None when "dp" has one rank.  Where both pod
+    and data have several ranks, every rank makes the group of every
+    "dp" row once (``new_group`` is collective), kept on the mesh."""
+    axes = [a for a in dctx.physical_axes(mesh, "dp")
+            if axis_size(mesh, a) > 1]
+    if len(axes) <= 1:
+        return group(mesh, axes[0]) if axes else None
+    groups = getattr(mesh, "_dp_groups", None)
+    if groups is None:
+        names = list(mesh.mesh_dim_names)
+        order = ([names.index(a) for a in names if a not in axes]
+                 + [names.index(a) for a in axes])
+        width = axis_size(mesh, axes[0]) * axis_size(mesh, axes[1])
+        groups = {}
+        for row in mesh.mesh.permute(order).reshape(-1, width).tolist():
+            pg = dist.new_group(row)
+            if dist.get_rank() in row:
+                groups["mine"] = pg
+        mesh._dp_groups = groups
+    return groups["mine"]
+
+
+def exchange(x: torch.Tensor, counts, mesh=None) -> torch.Tensor:
+    """Rows between the ranks of "dp": ``counts[s][d]`` rows go from "dp"
+    rank s to rank d (``counts[r][r]`` is 0); ``x`` holds this rank's
+    outgoing rows grouped by destination in rank order.  Returns the
+    incoming rows grouped by source in rank order.  Bytes only, so every
+    row arrives bit for bit (see the module docstring); a stand-in mesh
+    records the all-to-all."""
+    mesh = dctx.get_mesh() if mesh is None else mesh
+    n = len(counts)
+    me = dp_index(mesh)
+    recv = [int(counts[s][me]) for s in range(n)]
+    if not _real(x, mesh):
+        return standin.all_to_all(x, sum(recv), n)
+    x = x.contiguous()
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, recv, [int(c) for c in counts[me]],
+                           group=dp_group(mesh))
+    return out
 
 
 def shard_slice(size: int, parts: int, index: int) -> slice:

@@ -26,11 +26,19 @@ their own (name, spec) entries.
 ``local_shard`` takes one rank's block of a leaf (the counterpart of
 ``jax.device_put`` onto a ``NamedSharding``); ``place_model`` applies the
 serve rule to a live model in place (the engine's ``mesh=``).
+
+A paged pool whose page rows "dp" divides splits into one block of rows
+a "dp" rank (``pool_blocks``; ``PoolBlocks.owner`` maps a global page id
+to its rank and row); the tables stay replicated, and ``page_route``
+gives a rank its routes through the split pool (the pages its slots name
+that another rank holds, and where each block of its view comes from),
+which the engine rebuilds whenever the tables change.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
@@ -407,13 +415,79 @@ def place_model(model, cfg, mesh) -> Dict[str, int]:
     return {"tensors": n_t, "units": n_u}
 
 
+class PoolBlocks(NamedTuple):
+    """How a paged pool's page rows split over "dp": ``parts`` ranks hold
+    ``rows`` rows each, in ``entry_block`` order; this rank is ``index``."""
+    parts: int
+    index: int
+    rows: int
+
+    def owner(self, page: int) -> Tuple[int, int]:
+        """(the "dp" rank that holds global page ``page``, its row
+        there)."""
+        return divmod(int(page), self.rows)
+
+
+def pool_blocks(n_rows: int, cfg, mesh) -> Optional[PoolBlocks]:
+    """The split of a pool of ``n_rows`` page rows over "dp" under
+    ``spec_for_cache``, or None where the pool stays whole."""
+    entry = spec_for_cache(".kp", (1, n_rows), cfg, MeshAxes(mesh))[1]
+    if entry is None:
+        return None
+    parts, index = entry_block(entry, mesh, mesh_coords(mesh))
+    return PoolBlocks(parts, index, n_rows // parts)
+
+
+def page_route(tables: np.ndarray, blocks: PoolBlocks, rows_split: bool,
+               device):
+    """This rank's ``models.layers.PageRoute`` through a pool split by
+    ``blocks``, from the host's (n_slots, max_pages) page tables: the
+    pages each rank's slots name (its block of the slots where
+    ``rows_split``, else every slot) and another rank holds are the
+    exchange's, each sent once a rank however often it is named; scratch
+    (the last page) is never sent and reads as zeros."""
+    from repro_torch.models.layers import PageRoute
+    D, me, P = blocks
+    scratch = D * P - 1
+    per = tables.shape[0] // D if rows_split else tables.shape[0]
+
+    def slots_of(r):
+        return tables[r * per:(r + 1) * per] if rows_split else tables
+
+    need = [sorted(set(slots_of(r).ravel().tolist()) - {scratch})
+            for r in range(D)]
+    counts = tuple(tuple(0 if s == d else
+                         sum(1 for p in need[d] if p // P == s)
+                         for d in range(D)) for s in range(D))
+    send = [p - me * P for d in range(D) if d != me
+            for p in need[d] if p // P == me]
+    recv = [p for s in range(D) if s != me for p in need[me] if p // P == s]
+    at = {p: i for i, p in enumerate(recv)}
+    mine = slots_of(me)
+    local = (mine // P == me) & (mine != scratch)
+    flat = mine.ravel()
+    fix = np.flatnonzero(~local.ravel())
+    src = [len(recv) if flat[i] == scratch else at[int(flat[i])]
+           for i in fix]
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int64).reshape(np.shape(a)),
+                               device=device)
+    return PageRoute(
+        table=dev(mine), first=me * P, rows=P, scratch=scratch,
+        rows_split=rows_split, counts=counts, send=dev(send),
+        view=dev(np.where(local, mine - me * P, 0)), fix_pos=dev(fix),
+        fix_src=dev(src))
+
+
 def place_cache(cache, cfg, mesh, slots: bool = True):
     """This rank's blocks of a slot cache (the port's flat per-layer list,
     or an ``EncDecCache``) under ``spec_for_cache``, read in the
-    reference's layout (``cache_tree``); with ``slots=False`` (a prefill
-    fragment, whose rows every data rank prefills) the "dp" splits are
-    dropped and only "model" splits apply.  A tensor shared by several
-    layers (a paged cache's table) stays shared."""
+    reference's layout (``cache_tree``): slots and a paged pool's page
+    rows over "dp" where it divides them.  With ``slots=False`` (a
+    prefill fragment whose rows every data rank prefills) the "dp"
+    splits are dropped and only "model" splits apply.  A tensor shared by
+    several layers (a paged cache's table) stays shared."""
     ax = MeshAxes(mesh)
     coords = mesh_coords(mesh)
     memo: Dict[int, torch.Tensor] = {}

@@ -28,6 +28,7 @@ from repro_torch.analysis import op_trace
 # nccl all-gather is ``c10d::_allgather_base_``, a sum ``c10d::allreduce_``)
 ALL_GATHER = "c10d::_allgather_base_"
 ALL_REDUCE = "c10d::allreduce_"
+ALL_TO_ALL = "c10d::alltoall_base_"
 
 
 class StandInMesh:
@@ -76,3 +77,15 @@ def all_reduce(x: torch.Tensor, parts: int) -> torch.Tensor:
     is)."""
     op_trace.note(f"{ALL_REDUCE}[{parts}]", [x], [x])
     return x
+
+
+def all_to_all(x: torch.Tensor, rows: int, parts: int) -> torch.Tensor:
+    """The ``rows`` rows like ``x``'s that an all-to-all over ``parts``
+    ranks brings this rank."""
+    with op_trace.quiet():
+        out = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device="meta")
+    # a real rank's record holds both buffers (``alltoall_base_``'s
+    # operands): its bytes are the larger
+    op_trace.note(f"{ALL_TO_ALL}[{parts}]", [out, x], [out])
+    return out

@@ -19,6 +19,7 @@ projection.  Each head's arithmetic is the unsharded one's.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -262,6 +263,157 @@ def pool_view(pool: torch.Tensor, scale: Optional[torch.Tensor],
     return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
 
 
+# ---------------------------------------------------------------------------
+# A paged pool split over "dp"
+# ---------------------------------------------------------------------------
+# Each "dp" rank holds one block of ``rows`` pool rows (global pages
+# ``first .. first + rows - 1``) while every slot's table row may name any
+# page.  The engine builds a ``PageRoute`` on the host from its table
+# mirror whenever the tables change (``sharding.page_route``); the model
+# reads it in place of the table.  A write is gathered over "dp" and lands
+# on the page's owner; a view takes the rank's own pages from its block
+# and the pages its slots name elsewhere from one exchange (an all-to-all
+# of bytes), and reads scratch as zeros (masked, as unnamed rows are).
+
+
+class PageRoute(NamedTuple):
+    """One rank's routes through a pool split over "dp" (see above)."""
+    table: torch.Tensor     # (B, max_pages) global page ids of its slots
+    first: int              # its block's first global page
+    rows: int               # pages a block
+    scratch: int            # the global scratch page
+    rows_split: bool        # its slots are its block of the slots
+    counts: Tuple           # counts[s][d]: pages rank s sends rank d
+    send: torch.Tensor      # (n,) local rows it sends, by destination
+    view: torch.Tensor      # (B, max_pages) local row of its own pages
+    fix_pos: torch.Tensor   # (m,) flat (b * max_pages + j) other blocks
+    fix_src: torch.Tensor   # (m,) their rows in [received | zero page]
+
+
+def pack_bytes(t: torch.Tensor, lead: int) -> torch.Tensor:
+    """``t`` as (its ``lead`` leading dims..., bytes) uint8 (a view of a
+    contiguous copy)."""
+    t = t.contiguous()
+    return t.reshape(t.shape[:lead] + (math.prod(t.shape[lead:]),)).view(
+        torch.uint8)
+
+
+def unpack_bytes(b: torch.Tensor, dtype, shape) -> torch.Tensor:
+    """The ``dtype`` tensor of ``shape`` whose bytes ``b`` holds."""
+    return b.contiguous().view(dtype).reshape(shape)
+
+
+def exchange_rows(tensors, send: torch.Tensor, counts, mesh=None) -> list:
+    """Rows ``send`` of each of ``tensors`` (indexed alike on dim 0) to
+    the "dp" ranks ``counts`` names (``collectives.exchange`` over
+    ``mesh``, the active one by default), in one exchange of their bytes;
+    returns each tensor's received rows."""
+    got = coll.exchange(torch.cat([pack_bytes(t[send], 1) for t in tensors],
+                                  dim=-1), counts, mesh)
+    out, col = [], 0
+    for t in tensors:
+        w = math.prod(t.shape[1:]) * t.element_size()
+        out.append(unpack_bytes(got[:, col:col + w], t.dtype,
+                                (got.shape[0],) + t.shape[1:]))
+        col += w
+    return out
+
+
+def placed_pool_write(pools, route: PageRoute, length: torch.Tensor,
+                      S: int) -> None:
+    """``pool_write`` on pools split over "dp": ``pools`` are
+    [(block, scale block, rows (B, S, feat...))] of one table.  Each rank
+    encodes its slots' rows (an int8 pool quantizes each token row, as
+    ``pool_write``), the encoded rows and their global write positions are
+    gathered over "dp" in one collective, and each rank writes those whose
+    page it holds.  A row another rank holds rewrites the first row this
+    rank writes with that row's value (or its block's first row with its
+    own), so every duplicate write agrees and no host sync is needed."""
+    ps = pools[0][0].shape[1]
+    pid, off = paged_write_ids(route.table, length, S, ps, route.scratch)
+    B = pid.shape[0]
+    fields, parts = [], [pack_bytes(pid * ps + off, 2)]
+    for pool, scale, rows in pools:
+        rows = rows.reshape(B, S, -1)
+        if scale is None:
+            fields.append(pool)
+            parts.append(pack_bytes(rows.to(pool.dtype), 2))
+        else:
+            xq, sc = kops.quantize_activations(rows.float())
+            fields += [pool, scale]
+            parts += [pack_bytes(xq, 2), pack_bytes(sc, 2)]
+    packed = torch.cat(parts, dim=-1)
+    if route.rows_split:
+        packed = coll.gather_dp(packed)
+    n = packed.shape[0] * S
+    packed = packed.reshape(n, -1)
+    loc = unpack_bytes(packed[:, :8], torch.int64, (n,)) - route.first * ps
+    mine = (loc >= 0) & (loc < route.rows * ps)
+    # (1,)-shaped, so that indexing with it is a gather, not a host read
+    first = torch.argmax(mine.to(torch.uint8)).view(1)
+    any_mine = mine.any()
+    tgt = torch.where(mine, loc, torch.where(any_mine, loc[first], 0))
+    col = 8
+    for t in fields:
+        flat = t.view(route.rows * ps, -1)
+        width = flat.shape[1] * t.element_size()
+        v = unpack_bytes(packed[:, col:col + width], t.dtype, (n, -1))
+        keep = torch.where(any_mine, v[first], flat[:1])
+        flat[tgt] = torch.where(mine[:, None], v, keep)
+        col += width
+
+
+def placed_pool_view(pools, route: PageRoute, out_dtype) -> list:
+    """``pool_view`` on pools split over "dp": ``pools`` are [(block,
+    scale block)] of one table.  The pages this rank's slots name and
+    another rank holds come in one exchange of every pool's bytes (only
+    those pages: ``route.counts``); its own pages come from its block;
+    scratch reads as zeros.  Returns each pool's (B, max_pages *
+    page_size, feat...) view."""
+    fields = [t for pool, scale in pools for t in (pool, scale)
+              if t is not None]
+    if any(c for row in route.counts for c in row):
+        got = exchange_rows(fields, route.send, route.counts)
+    else:
+        got = [t.new_empty((0,) + t.shape[1:]) for t in fields]
+    B, mp = route.view.shape
+    views = {}
+    for t, r in zip(fields, got):
+        g = t[route.view]                          # (B, mp, ps, feat...)
+        ext = torch.cat([r, t.new_zeros((1,) + t.shape[1:])])
+        g.view((B * mp,) + t.shape[1:])[route.fix_pos] = ext[route.fix_src]
+        views[id(t)] = g
+    out = []
+    for pool, scale in pools:
+        g = views[id(pool)]
+        if scale is not None:
+            sc = views[id(scale)].reshape(g.shape[:3] + (1,) * (g.dim() - 3))
+            g = (g.float() * sc).to(out_dtype)
+        out.append(g.reshape((B, mp * g.shape[2]) + g.shape[3:]))
+    return out
+
+
+def paged_pools(pools, table, length: torch.Tensor, S: int,
+                out_dtype) -> list:
+    """Append S rows to each of ``pools`` ([(pool, scale, rows (B, S,
+    feat...))] sharing one table) at each slot's fill level, then return
+    each pool's contiguous-equivalent view (B, max_pages * page_size,
+    feat...).  ``table``: the (B, max_pages) page table, or a
+    ``PageRoute`` where the pools are this rank's blocks of pools split
+    over "dp"."""
+    if isinstance(table, PageRoute):
+        placed_pool_write(pools, table, length, S)
+        return placed_pool_view([(p, s) for p, s, _ in pools], table,
+                                out_dtype)
+    pool0 = pools[0][0]
+    pid, off = paged_write_ids(table, length, S, pool0.shape[1],
+                               pool0.shape[0] - 1)
+    for pool, scale, rows in pools:
+        pool_write(pool, scale, pid, off, rows)
+    return [pool_view(pool, scale, table, out_dtype)
+            for pool, scale, _ in pools]
+
+
 def _span_write(buf: torch.Tensor, rows: torch.Tensor,
                 base: torch.Tensor) -> None:
     """``buf[b, base[b] + j] = rows[b, j]`` in place, dropping positions
@@ -362,13 +514,10 @@ def gqa_attention(p: Attention, x: torch.Tensor, cfg, cache=None,
             raise NotImplementedError(
                 "paged caches take no chunked prefill: the engine prefills "
                 "contiguous fragments and page-inserts them")
-        pid, off = paged_write_ids(cache.table, cache.length, S,
-                                   cache.kp.shape[1], cache.kp.shape[0] - 1)
-        pool_write(cache.kp, cache.k_scale, pid, off, k)
-        pool_write(cache.vp, cache.v_scale, pid, off, v)
+        k_all, v_all = paged_pools(
+            [(cache.kp, cache.k_scale, k), (cache.vp, cache.v_scale, v)],
+            cache.table, cache.length, S, q.dtype)
         new_len = cache.length + S
-        k_all = pool_view(cache.kp, cache.k_scale, cache.table, q.dtype)
-        v_all = pool_view(cache.vp, cache.v_scale, cache.table, q.dtype)
         if S == 1:
             out = _decode_attention(q, k_all, v_all, new_len)
         else:

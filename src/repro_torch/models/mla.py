@@ -162,13 +162,10 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg, cache=None,
             raise NotImplementedError(
                 "paged caches take no chunked prefill: the engine prefills "
                 "contiguous fragments and page-inserts them")
-        ps = cache.cp.shape[1]
-        pid, off = L.paged_write_ids(cache.table, cache.length, S, ps,
-                                     cache.cp.shape[0] - 1)
-        L.pool_write(cache.cp, cache.c_scale, pid, off, c_kv)
-        L.pool_write(cache.pp, cache.p_scale, pid, off, k_pe)
-        c_all = L.pool_view(cache.cp, cache.c_scale, cache.table, x.dtype)
-        pe_all = L.pool_view(cache.pp, cache.p_scale, cache.table, x.dtype)
+        c_all, pe_all = L.paged_pools(
+            [(cache.cp, cache.c_scale, c_kv), (cache.pp, cache.p_scale,
+                                               k_pe)],
+            cache.table, cache.length, S, x.dtype)
         new_cache = cache._replace(length=new_len)
         if S == 1:
             out = _absorbed_decode(p, q_nope, q_pe, c_all, pe_all, new_len,

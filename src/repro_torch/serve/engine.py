@@ -148,16 +148,33 @@ this engine on the same requests — SPMD): params are placed by
 into a shard-local plan, dense leaves by their largest model-divisible
 dim) and the slot caches by ``spec_for_cache`` (slots over "dp", which
 is "data", or pod x data row-major; KV heads over "model"; a paged
-pool's pages stay whole, its tables replicate).  Each data rank decodes
-its own slots' rows, and the sampled tokens (with the guard counts) are
-all-gathered over "dp" (over "data", then "pod") before the step's one
-host transfer, so every rank's scheduler sees every token.
-Prefill, the resume replay and the fragments are computed on every data
-rank (head-parallel over "model") and each rank inserts its own slots'
-rows.  Every collective is an all-gather or a sum with one non-zero
-term, so on the CPU a sharded engine's tokens are bitwise the single
-device's.  Wall-clock decisions (deadlines, the controller) read rank
-0's clock, broadcast (``_RankZeroClock``), so every rank decides alike.
+pool's page rows over "dp" where "dp" divides them, its tables
+replicated).  Each data rank decodes its own slots' rows, and the
+sampled tokens (with the guard counts) are all-gathered over "dp" (over
+"data", then "pod") before the step's one host transfer, so every rank's
+scheduler sees every token.  A prefill whose batch "dp" divides runs a
+data rank's block of its rows (``dctx.rows_over_dp``, as the reference's
+constraints place a batch), its first tokens gathered like a step's and
+its fragment all-gathered over "dp" before each rank inserts its own
+slots' rows (or the pages it holds); other prefills (a batch of 1, the
+resume replay, the moe family's) run every row on every data rank.
+
+A pool split over "dp" (``sharding.pool_blocks``: a block of rows a
+rank) keeps every host structure as it is — the allocator, the table
+mirror, the registry, every decision, byte for byte the single
+device's — and routes the device work by page owner: ``_sync_tables``
+rebuilds the rank's ``PageRoute`` (``sharding.page_route``) with the
+tables; a decode or verify write is gathered over "dp" and lands on the
+page's owner; a view takes the pages its slots name from its block and
+from one exchange of the pages another rank holds
+(``collectives.exchange``, only those pages), scratch read as zeros;
+the admission scatter, page zeroing and copy-on-write touch the pages
+this rank holds (a copy between two ranks' pages crosses in one
+exchange).  Every collective moves bytes, or is an all-gather or a sum
+with one non-zero term, so on the CPU a sharded engine's tokens are
+bitwise the single device's.  Wall-clock decisions (deadlines, the
+controller) read rank 0's clock, broadcast (``_RankZeroClock``), so every
+rank decides alike.
 A decode step's rows are the data rank's slots (``dctx.rows_over_dp``:
 the MoE routes the global batch from them over "dp", see
 ``models.moe``).  The recurrent families keep their state leaves (rwkv ``state``/``prev_tm``/
@@ -167,9 +184,8 @@ their KV heads over "model" as dense caches do; the insert, a preempted
 slot's clear and a resume's insert act on the data rank's own rows.
 Every family the engine serves (not encdec, on a mesh or without one)
 takes a mesh of any size (f32 or int8 activations, contiguous or paged,
-with or without speculation where the family takes it); a paged pool
-whose rows split over "dp" is refused.  ``stats()["mesh"]`` is the
-mesh's {dim name: size}.
+whole or split over "dp", with or without speculation where the family
+takes it).  ``stats()["mesh"]`` is the mesh's {dim name: size}.
 """
 from __future__ import annotations
 
@@ -190,6 +206,7 @@ from repro_torch.analysis.trace_rules import TraceSentinel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.plan import prepare_tree
 from repro_torch.models import api
+from repro_torch.models import layers as L
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tf
 
@@ -584,6 +601,8 @@ class ServingEngine:
                                   n_pages=self.n_pages,
                                   kv_dtype=self.kv_dtype)
         self._rows: Optional[slice] = None
+        self._blocks: Optional[shd.PoolBlocks] = None
+        self.fragment_bytes_in = 0
         self.cache = self._make_slot_cache()
 
         self.spec = spec
@@ -615,6 +634,11 @@ class ServingEngine:
             self._tables = np.full((n_slots, max_len // self.page_size),
                                    self.allocator.scratch, np.int32)
             self._tables_dirty = False
+            self._route = None
+            if self._blocks is not None:
+                self._route = shd.page_route(self._tables, self._blocks,
+                                             self._rows is not None,
+                                             self.device)
             self._req_pages: Dict[int, List[int]] = {}
             self.cow_copies = 0
             self.prefix_hits = 0
@@ -689,59 +713,73 @@ class ServingEngine:
                                **self._cache_kw)
         if self._ranks == 1:
             return cache
-        ax = shd.MeshAxes(self.mesh)
+        self._rows = self._row_block(self.n_slots)
         if self._paged:
-            pool = next(getattr(cache[0], f) for f in ("kp", "cp")
-                        if hasattr(cache[0], f))
-            if shd.spec_for_cache(".kp", (1,) + tuple(pool.shape), self.cfg,
-                                  ax)[1] is not None:
-                raise NotImplementedError(
-                    f"kv_pages={self.n_pages}: a pool of "
-                    f"{self.n_pages + 1} page rows splits over data="
-                    f"{ax.dp_size}, and the port keeps pools whole on every "
-                    f"data rank (pages over data are queued in ROADMAP.md); "
-                    f"pick kv_pages so that kv_pages + 1 is not a multiple "
-                    f"of the data axis")
-        spec = shd.spec_for_cache(".length", (1, self.n_slots), self.cfg, ax)
-        if spec[1] is not None:
-            parts, index = shd.entry_block(spec[1], self.mesh,
-                                           shd.mesh_coords(self.mesh))
-            n = self.n_slots // parts
-            self._rows = slice(index * n, (index + 1) * n)
+            self._blocks = shd.pool_blocks(self.n_pages + 1, self.cfg,
+                                           self.mesh)
         return shd.place_cache(cache, self.cfg, self.mesh)
 
+    def _row_block(self, batch: int) -> Optional[slice]:
+        """This data rank's block of ``batch`` rows where "dp" divides them
+        (``spec_for_cache``'s batch rule), else None: every data rank
+        runs every row, as the reference's ``constrain`` drops an axis
+        that does not divide."""
+        if self._ranks == 1:
+            return None
+        entry = shd.spec_for_cache(".length", (1, batch), self.cfg,
+                                   shd.MeshAxes(self.mesh))[1]
+        if entry is None:
+            return None
+        parts, index = shd.entry_block(entry, self.mesh,
+                                       shd.mesh_coords(self.mesh))
+        n = batch // parts
+        return slice(index * n, (index + 1) * n)
+
     def _new_fragment(self, batch: int) -> List:
-        """A contiguous prefill fragment: every data rank prefills every
-        row, so only its KV heads split (over "model")."""
+        """A contiguous prefill fragment of ``batch`` rows: this data
+        rank's block of them where "dp" divides ``batch`` (the prefill runs
+        those rows), else every row; its KV heads split over "model"."""
         frag = api.make_cache(self.cfg, batch, self.max_len,
                               dtype=self._cache_dtype, device=self.device)
         if self._ranks == 1:
             return frag
-        return shd.place_cache(frag, self.cfg, self.mesh, slots=False)
+        return shd.place_cache(frag, self.cfg, self.mesh,
+                               slots=self._row_block(batch) is not None)
+
+    def _whole_fragment(self, frag, batch: int):
+        """``frag`` with every one of its ``batch`` rows: where the prefill
+        split them over "dp", each leaf's row blocks all-gathered (the
+        bytes this rank received are counted in ``fragment_bytes_in``)."""
+        if frag is None or self._row_block(batch) is None:
+            return frag
+        out = []
+        for c in frag:
+            leaves = [None if t is None else coll.gather_dp(t, self.mesh)
+                      for t in c]
+            self.fragment_bytes_in += sum(
+                (t.numel() - u.numel()) * t.element_size()
+                for t, u in zip(leaves, c) if t is not None)
+            out.append(type(c)(*leaves))
+        return out
 
     def _local(self, t):
         """This data rank's slot rows of a (n_slots, ...) step input."""
         return t if self._rows is None else t[self._rows]
 
-    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every data rank's slot rows of a step output, in slot order:
-        gathered over "data", then "pod" ("dp" is pod x data, row-major,
-        as ``sharding.entry_block`` reads it)."""
-        if self._rows is None:
-            return t
-        for a in reversed(dctx.physical_axes(self.mesh, "dp")):
-            t = coll.all_gather(t, dim=0, axis=a, mesh=self.mesh)
-        return t
-
     def _slot_view(self, cache: List) -> List:
         """The slot cache as the model reads it: a paged cache's table
-        (replicated) cut to this data rank's slot rows."""
-        if self._rows is None or not self._paged:
+        (replicated) cut to this data rank's slot rows, or, where the pool
+        splits over "dp", the rank's ``PageRoute`` in its place."""
+        if not self._paged:
+            return cache
+        if self._blocks is not None:
+            return [c._replace(table=self._route) for c in cache]
+        if self._rows is None:
             return cache
         return [c._replace(table=c.table[self._rows]) for c in cache]
 
     def _slot_unview(self, cache: List, like: List) -> List:
-        if self._rows is None or not self._paged:
+        if not self._paged or (self._rows is None and self._blocks is None):
             return cache
         return [c._replace(table=t.table) for c, t in zip(cache, like)]
 
@@ -787,40 +825,82 @@ class ServingEngine:
             for table in {id(c.table): c.table for c in cache}.values():
                 with op_trace.scope(op_trace.TO_DEVICE):
                     table.copy_(host)
+        if self._blocks is not None:
+            # the split pool's exchange lists, from the same mirror
+            with op_trace.scope(op_trace.TO_DEVICE):
+                self._route = shd.page_route(self._tables, self._blocks,
+                                             self._rows is not None,
+                                             self.device)
         self._tables_dirty = False
 
-    def _map_pools(self, fn) -> None:
-        """Apply ``fn`` in place to every pool and scale tensor of the
-        target (and draft) cache: the plumbing of page zeroing and COW."""
-        for cache in self._caches():
-            for c in cache:
-                for f in _pool_leaves(c):
-                    for t in (getattr(c, f), getattr(c, _SCALE_OF[f])):
-                        if t is not None:
-                            fn(t)
+    def _pool_tensors(self) -> List[torch.Tensor]:
+        """Every pool and scale tensor of the target (and draft) cache, in
+        one fixed order: the plumbing of page zeroing and COW."""
+        return [t for cache in self._caches() for c in cache
+                for f in _pool_leaves(c)
+                for t in (getattr(c, f), getattr(c, _SCALE_OF[f]))
+                if t is not None]
+
+    def _own(self, pages: Sequence[int]) -> List[int]:
+        """The rows of ``pages`` (global ids) in this rank's pool: every
+        page of a whole pool; of a pool split over "dp", the pages this
+        rank's block holds."""
+        if self._blocks is None:
+            return [int(p) for p in pages]
+        return [row for rank, row in map(self._blocks.owner, pages)
+                if rank == self._blocks.index]
+
+    def _ids(self, rows: Sequence[int]) -> torch.Tensor:
+        return torch.as_tensor(list(rows), dtype=torch.long,
+                               device=self.device)
 
     def _zero_pages(self, pages: Sequence[int]) -> None:
-        """Zero freshly allocated pages in both caches: every unwritten
-        cache row stays exactly zero, so a recycled page never leaks its
-        previous holder's rows, and masked rows add exactly 0.0."""
-        idx = torch.as_tensor(sorted(set(int(p) for p in pages)),
-                              dtype=torch.long, device=self.device)
-
-        def zero(t):
-            t[idx] = 0
-        self._map_pools(zero)
+        """Zero freshly allocated pages in both caches (those this rank
+        holds): every unwritten cache row stays exactly zero, so a
+        recycled page never leaks its previous holder's rows, and masked
+        rows add exactly 0.0."""
+        idx = self._ids(self._own(sorted(set(int(p) for p in pages))))
+        if idx.numel():
+            for t in self._pool_tensors():
+                t[idx] = 0
 
     def _copy_pages(self, pairs: Sequence) -> None:
         """Copy-on-write: duplicate the pool (and scale) rows of shared
-        pages into fresh private ones, target and draft cache alike."""
-        olds = torch.as_tensor([int(o) for o, _ in pairs], dtype=torch.long,
-                               device=self.device)
-        news = torch.as_tensor([int(n) for _, n in pairs], dtype=torch.long,
-                               device=self.device)
-
-        def copy(t):
-            t[news] = t[olds]
-        self._map_pools(copy)
+        pages into fresh private ones, target and draft cache alike.  On a
+        pool split over "dp" a pair whose pages two ranks hold crosses in
+        one exchange of every pool's bytes (every rank knows every pair:
+        the allocator is host state, the same on every rank)."""
+        pairs = [(int(o), int(n)) for o, n in pairs]
+        if self._blocks is None:
+            olds, news = self._ids([o for o, _ in pairs]), \
+                self._ids([n for _, n in pairs])
+            for t in self._pool_tensors():
+                t[news] = t[olds]
+            return
+        own = self._blocks.owner
+        me, D = self._blocks.index, self._blocks.parts
+        here = [(own(o)[1], own(n)[1]) for o, n in pairs
+                if own(o)[0] == me == own(n)[0]]
+        cross = [(own(o), own(n)) for o, n in pairs
+                 if own(o)[0] != own(n)[0]]
+        tensors = self._pool_tensors()
+        if here:
+            olds, news = self._ids([o for o, _ in here]), \
+                self._ids([n for _, n in here])
+            for t in tensors:
+                t[news] = t[olds]
+        if not cross:
+            return
+        counts = [[0] * D for _ in range(D)]
+        for (s, _), (d, _) in cross:
+            counts[s][d] += 1
+        send = self._ids([o for d in range(D)
+                          for (s, o), (dd, _) in cross if s == me and dd == d])
+        news = self._ids([n for s in range(D)
+                          for (ss, _), (d, n) in cross if ss == s and d == me])
+        for t, got in zip(tensors, L.exchange_rows(tensors, send, counts,
+                                                   self.mesh)):
+            t[news] = got
 
     # ------------------------------------------------------------- page plans
     def _note_page_peaks(self, req: Optional[Request] = None) -> None:
@@ -911,10 +991,19 @@ class ServingEngine:
         mp = self.max_len // ps
         dev = self.device
         lens_t = torch.as_tensor(list(lens), dtype=torch.int32, device=dev)
-        wt = torch.as_tensor(np.asarray(wrows).reshape(-1), dtype=torch.long,
-                             device=dev)
-        # the pool is whole on every data rank: every row's pages are
-        # written; the fill counters are this rank's slots'
+        wflat = np.asarray(wrows).reshape(-1)
+        sel = None
+        if self._blocks is None:
+            # a whole pool: every row's pages are written
+            wt = self._ids(wflat)
+        else:
+            # a split pool: the pages this rank holds (scratch is not
+            # written: it reads as zeros)
+            scratch = self.allocator.scratch
+            mine = [i for i, p in enumerate(wflat) if p != scratch
+                    and self._blocks.owner(p)[0] == self._blocks.index]
+            sel, wt = self._ids(mine), self._ids(self._own(wflat[mine]))
+        # the fill counters are this rank's slots'
         rows, local = self._local_slots(slots)
         slots_t = torch.as_tensor(local, dtype=torch.long, device=dev)
         rows_t = torch.as_tensor(rows, dtype=torch.long, device=dev)
@@ -926,11 +1015,12 @@ class ServingEngine:
                 v = torch.where(_keep(self.max_len, lens_t, src), src,
                                 torch.zeros((), dtype=src.dtype, device=dev))
                 v = v.reshape((B * mp, ps) + v.shape[2:])
+                if sel is not None:
+                    v = v[sel]
                 if scale is None:
                     pool[wt] = v.to(pool.dtype)
                 else:
-                    xq, sc = kops.quantize_activations(
-                        v.reshape(B * mp, ps, -1).float())
+                    xq, sc = kops.quantize_activations(v.flatten(2).float())
                     pool[wt] = xq.reshape(v.shape)
                     scale[wt] = sc[..., 0]
             length = pl.length.clone()
@@ -1061,27 +1151,36 @@ class ServingEngine:
     @_meshed
     def _prefill(self, params, toks: np.ndarray, lens: np.ndarray):
         """Prefill a (Bb, bucket) token block into a fresh contiguous
-        fragment; returns (logits at each row's last true token, frag)."""
+        fragment; returns (logits at each row's last true token, frag).
+        Where "dp" divides Bb, this data rank prefills its block of the
+        rows (``_row_block``): the logits and the fragment are those
+        rows'."""
+        rows = self._row_block(toks.shape[0])
         frag = self._new_fragment(toks.shape[0])
-        with nn.activation_quant(self.act_dtype):
+        if rows is not None:
+            toks, lens = toks[rows], lens[rows]
+        with nn.activation_quant(self.act_dtype), \
+                dctx.rows_over_dp(rows is not None):
             return api.prefill_step(
                 params, self.cfg,
                 {"tokens": torch.as_tensor(toks, device=self.device)},
                 frag, logits_at=torch.as_tensor(lens - 1,
                                                 device=self.device))
 
-    def _sample(self, logits: torch.Tensor, slot_rows: bool = False):
+    def _sample(self, logits: torch.Tensor, split: bool = False):
         """Greedy tokens of ``logits`` (B, ..., V) and, with guards, the
         per-row non-finite counts — brought to the host in ONE transfer.
-        ``slot_rows``: the logits are this data rank's slot rows, whose
-        results are all-gathered over "dp" first.  Returns (tokens,
-        counts or None) as numpy."""
+        ``split``: the logits are this data rank's block of the rows (its
+        slots', or a split prefill's), whose results are all-gathered over
+        "dp" first, in "dp" order.  Returns (tokens, counts or None) as
+        numpy."""
         nxt = logits.argmax(dim=-1)
         if not self.guards:
-            return to_host(self._gather_rows(nxt) if slot_rows else nxt), None
+            return to_host(coll.gather_dp(nxt, self.mesh) if split
+                           else nxt), None
         nf = nonfinite_rows(logits).to(nxt.dtype)
         t = torch.cat([nxt.reshape(nxt.shape[0], -1), nf[:, None]], dim=1)
-        host = to_host(self._gather_rows(t) if slot_rows else t)
+        host = to_host(coll.gather_dp(t, self.mesh) if split else t)
         return (host[:, :-1].reshape((host.shape[0],) + nxt.shape[1:]),
                 host[:, -1])
 
@@ -1139,6 +1238,9 @@ class ServingEngine:
                 _, dfrag = self._prefill(self.draft_params, toks, lens)
             self._step_prefill_tokens += Bb * bucket * (
                 2 if self.spec is not None else 1)
+            split = self._row_block(Bb) is not None
+            frag = self._whole_fragment(frag, Bb)
+            dfrag = self._whole_fragment(dfrag, Bb)
             if self._kv_int8_admission:
                 # kv_int8 degradation rung: admit through int8 resident-page
                 # numerics (the pool quantizes anyway when it is int8);
@@ -1149,7 +1251,7 @@ class ServingEngine:
                     frag = self._fake_quant_frag(frag)
                     if dfrag is not None:
                         dfrag = self._fake_quant_frag(dfrag)
-            firsts, nf_h = self._sample(logits)
+            firsts, nf_h = self._sample(logits, split)
             slots = [self.free.pop(0) for _ in idxs]
             true_lens = lens[:B].tolist()
             wrows = (np.stack([plans[reqs[i].uid][2] for i in idxs])
@@ -1276,12 +1378,17 @@ class ServingEngine:
             lens[i] = n
         self.call_shapes["chunk_prefill"].add((g.bb, C))
         self.sentinel.observe("chunk_prefill", (g.bb, C))
+        at = np.clip(lens - 1 - start, 0, C - 1)
+        # this data rank's block of the group's rows where "dp" divides bb
+        rows = self._row_block(g.bb)
+        if rows is not None:
+            toks, at = toks[rows], at[rows]
         toks_d = torch.as_tensor(toks, device=self.device)
-        with nn.activation_quant(self.act_dtype):
+        with nn.activation_quant(self.act_dtype), \
+                dctx.rows_over_dp(rows is not None):
             logits, g.frag = api.prefill_step(
                 self.params, self.cfg, {"tokens": toks_d}, g.frag,
-                logits_at=torch.as_tensor(np.clip(lens - 1 - start, 0, C - 1),
-                                          device=self.device))
+                logits_at=torch.as_tensor(at, device=self.device))
             if self.spec is not None:
                 self.call_shapes["draft_chunk_prefill"].add((g.bb, C))
                 self.sentinel.observe("draft_chunk_prefill", (g.bb, C))
@@ -1294,7 +1401,7 @@ class ServingEngine:
             2 if self.spec is not None else 1)
         fin = [i for i in g.live_rows() if start <= g.lens[i] - 1 < start + C]
         if fin:
-            firsts, nf_h = self._sample(logits)
+            firsts, nf_h = self._sample(logits, rows is not None)
             for i in fin:
                 g.firsts[i] = int(firsts[i])
                 if nf_h is not None:
@@ -1319,9 +1426,9 @@ class ServingEngine:
         reqs = [g.reqs[i] for i in rows]
         slots = [g.slots[i] for i in rows]
         lens = [g.lens[i] for i in rows]
-        sel = _take_rows(g.frag, rows)
-        dsel = _take_rows(g.draft_frag, rows) if g.draft_frag is not None \
-            else None
+        sel = _take_rows(self._whole_fragment(g.frag, g.bb), rows)
+        dsel = (_take_rows(self._whole_fragment(g.draft_frag, g.bb), rows)
+                if g.draft_frag is not None else None)
         if self._kv_int8_admission:
             for req in reqs:
                 req.kv_int8 = True
@@ -1899,7 +2006,7 @@ class ServingEngine:
                 draft_cache = self._slot_unview(out, draft_cache)
         if iv is not None:
             logits = logits + self._local(iv).to(logits.dtype)[:, None]
-        nxt, nf_h = self._sample(logits, slot_rows=True)
+        nxt, nf_h = self._sample(logits, self._rows is not None)
         return nxt, nf_h, cache, draft_cache
 
     @_meshed
@@ -1957,7 +2064,9 @@ class ServingEngine:
         cols = [drafts_t, vlogits.argmax(dim=-1)]
         if self.guards:
             cols.append(nonfinite_rows(vlogits).to(drafts_t.dtype)[:, None])
-        host = to_host(self._gather_rows(torch.cat(cols, dim=1)))
+        host = torch.cat(cols, dim=1)
+        host = to_host(coll.gather_dp(host, self.mesh)
+                       if self._rows is not None else host)
         drafts, greedy = host[:, :gamma], host[:, gamma:2 * gamma + 1]
         nf_h = host[:, -1] if self.guards else None
 

@@ -12,9 +12,11 @@ four, and (1, 2) and (2, 1) as two independent submeshes of a (2, 1, 2)
 and a (2, 2, 1) mesh.  Held:
 
   * serving tokens on every mesh, vanilla, int8 activations and (MLA)
-    fp pages, exactly the port's single-device engine's and the
-    reference's single-device engine's; with ``moe_groups`` 1 (a data
-    rank gathers the MoE rows over "data") and 2 on (2, 1) (it routes
+    fp pages, whole and (``kv_pages=15``: 16 latent page rows) split over
+    "data" where it has 2 ranks, 8 rows a rank, exactly the port's
+    single-device engine's and the reference's single-device engine's;
+    with ``moe_groups`` 1 (a data rank gathers the MoE rows over "data")
+    and 2 on (2, 1) (it routes
     its own whole groups), each exactly the single device's at the same
     ``moe_groups``; each rank holds half the plane bytes of every unit
     and the contract gate finds no weight all-gather;
@@ -30,6 +32,10 @@ and a (2, 2, 1) mesh.  Held:
   * the dry run's collectives (kind and bytes, in order) of a (2, 2)
     train step, decode step and decode step on CLAQ stand-in plans equal
     a real rank's op trace.
+
+The same four ranks as a (pod 2, data 1, model 2) mesh serve the MLA
+model (vanilla, and from its split latent pool) with the single device's
+tokens and train the moe model 3 steps within the bounds above.
 
 In process: ``place_model`` never splits an expert stack's E or its
 contraction dim, and the absorbed MLA decode on a rank's heads is
@@ -63,7 +69,10 @@ PROMPTS = [[1, 2, 3, 4], [4, 5, 6, 7, 8, 9], [10, 11],
            [20, 21, 22, 23, 24, 25, 26, 27]]
 ENGINE = dict(n_slots=4, max_len=32, plan_bn=32)
 VARIANTS = {"vanilla": {}, "int8": dict(act_dtype="int8"),
-            "paged": dict(kv_layout="paged", page_size=8)}
+            "paged": dict(kv_layout="paged", page_size=8),
+            # 16 page rows: 8 a data rank on a data axis of 2
+            "paged_split": dict(kv_layout="paged", page_size=8, kv_pages=15)}
+POD = ((2, 1, 2), ("pod", "data", "model"))
 STEPS = 3
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 LOSS_RTOL = 1e-5
@@ -80,7 +89,8 @@ def _cfg(arch, groups=1):
 
 
 def _variants(arch):
-    return [v for v in VARIANTS if v != "paged" or arch == ARCHS[1]]
+    return [v for v in VARIANTS
+            if not v.startswith("paged") or arch == ARCHS[1]]
 
 
 def _tokens():
@@ -207,6 +217,8 @@ def _rank_main(rank, world, dev, fp_trees, q_trees):
                 out[(arch, shape, tag)] = _serve(eng)
                 if tag == "vanilla":
                     out[(arch, shape, "planes")] = _planes(eng.params)
+                if tag == "paged_split":
+                    out[(arch, shape, "pool_rows")] = eng.cache[0].cp.shape[0]
             out[(arch, shape, "train")] = _train(fp_trees[arch], arch, mesh)
         mesh = _submesh((2, 1))
         out[(arch, "groups2")] = _serve(_engine(q_trees[arch], arch, mesh,
@@ -223,6 +235,12 @@ def _rank_main(rank, world, dev, fp_trees, q_trees):
             f.rule_id for f in rep.findings if f.severity.name == "ERROR"])
         out[(arch, "collectives")] = _real_collectives(
             arch, fp_trees[arch], q_trees[arch], mesh)
+    # the pod axis: the MLA model served, the moe model trained
+    pod = mesh_lib.make_debug_mesh(*POD)
+    for tag in ("vanilla", "paged_split"):
+        out[("pod", tag)] = _serve(_engine(q_trees[ARCHS[1]], ARCHS[1], pod,
+                                           **VARIANTS[tag]))
+    out[("pod", "train")] = _train(fp_trees[ARCHS[0]], ARCHS[0], pod)
     return out
 
 
@@ -303,8 +321,24 @@ def test_mesh_tokens_equal_single_device_and_reference(runs, arch, shape):
         for r, out in enumerate(runs["ranks"]):
             assert out[(arch, shape, tag)] == want, (arch, shape, tag, r)
     if "paged" in _variants(arch):
-        assert runs["single"][(arch, "paged")] == \
-            runs["single"][(arch, "vanilla")]
+        for tag in ("paged", "paged_split"):
+            assert runs["single"][(arch, tag)] == \
+                runs["single"][(arch, "vanilla")]
+        for r, out in enumerate(runs["ranks"]):
+            assert out[(arch, shape, "pool_rows")] == (8 if shape[0] == 2
+                                                       else 16), (shape, r)
+
+
+def test_pod_axis_serves_mla_and_trains_moe(runs):
+    """(pod 2, data 1, model 2): the MLA model's tokens, vanilla and from
+    a latent pool split over "dp" (pod x data), are the single device's;
+    the moe model's 3 steps are the single device's within the training
+    bounds."""
+    for r, out in enumerate(runs["ranks"]):
+        for tag in ("vanilla", "paged_split"):
+            assert out[("pod", tag)] == runs["single"][(ARCHS[1], tag)], r
+        _close(out[("pod", "train")], runs["single"][(ARCHS[0], "train")],
+               f"pod rank {r}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

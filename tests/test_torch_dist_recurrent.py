@@ -38,6 +38,13 @@ independent submeshes of a (2, 1, 2) and a (2, 2, 1) mesh.  Held:
     train step, decode step and decode step on CLAQ stand-in plans equal
     a real rank's op trace.
 
+The same four ranks as a (pod 2, data 1, model 2) mesh serve both
+models with the single device's tokens, and on (2, 2) and the pod mesh
+four prompts of one length prefill in one batch of 4 split over "dp": a
+rank prefills 2 of the rows (a hook on ``models.api.prefill_step`` counts
+them; the engine's recurrent state and ring rows are per row) and the
+tokens are the single device's.
+
 In process: the hybrid's figures extrapolated from 1- and 2-layer traces
 and a 2-site trace equal a full 6-layer, 3-site trace's; the dry run's
 CLAQ stand-ins cover exactly the matrices the quantizer quantizes (the
@@ -74,6 +81,9 @@ PROMPTS = [[1, 2, 3, 4], [4, 5, 6, 7, 8, 9], list(range(30, 50)),
 PRIORITY = [90, 91, 92]
 ENGINE = dict(n_slots=4, max_len=32, plan_bn=32)
 VARIANTS = {"vanilla": {}, "int8": dict(act_dtype="int8")}
+POD = ((2, 1, 2), ("pod", "data", "model"))
+# one length: one prefill of a batch of 4
+SAME_LENGTH = [list(range(i, i + 6)) for i in (1, 11, 21, 31)]
 STEPS = 3
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 LOSS_RTOL = 1e-5
@@ -127,6 +137,25 @@ def _serve(eng):
     return ([fin[u].tokens for u in uids],
             [(fin[u].state.value, fin[u].preemptions) for u in uids],
             (st["preemptions"], st["resumes"]))
+
+
+def _serve_same_length(eng):
+    """``SAME_LENGTH`` admitted at once: their tokens, and the rows of
+    every prefill."""
+    from repro_torch.models import api
+    seen, orig = [], api.prefill_step
+
+    def hook(params, cfg, batch, cache, **kw):
+        seen.append(batch["tokens"].shape[0])
+        return orig(params, cfg, batch, cache, **kw)
+    api.prefill_step = hook
+    try:
+        uids = eng.add_requests(SAME_LENGTH, max_new_tokens=5)
+        eng.run_to_completion()
+    finally:
+        api.prefill_step = orig
+    fin = eng.take_finished()
+    return [fin[u].tokens for u in uids], seen
 
 
 def _engine(tree, arch, mesh=None, **kw):
@@ -264,6 +293,13 @@ def _rank_main(rank, world, dev, fp_trees, q_trees):
             f.rule_id for f in rep.findings if f.severity.name == "ERROR"])
         out[(arch, "collectives")] = _real_collectives(
             arch, fp_trees[arch], q_trees[arch], mesh)
+        out[(arch, (2, 2), "same_length")] = _serve_same_length(
+            _engine(q_trees[arch], arch, mesh))
+    pod = mesh_lib.make_debug_mesh(*POD)
+    for arch in ARCHS:
+        out[(arch, "pod")] = _serve(_engine(q_trees[arch], arch, pod))
+        out[(arch, "pod", "same_length")] = _serve_same_length(
+            _engine(q_trees[arch], arch, pod))
     return out
 
 
@@ -317,6 +353,8 @@ def runs():
                 single[(arch, tag)] = _serve(eng)
                 if tag == "vanilla":
                     single[(arch, "holdings")] = _holdings(eng)
+            single[(arch, "same_length")] = _serve_same_length(
+                _engine(q_trees[arch], arch))
             single[(arch, "train")] = _train(fp_trees[arch], arch)
             single[(arch, "train_micro")] = _train(fp_trees[arch], arch,
                                                    microbatches=2)
@@ -343,6 +381,26 @@ def test_mesh_tokens_equal_single_device_and_reference(runs, arch, shape):
         assert states[3] == ("finished", 1)
         for r, out in enumerate(runs["ranks"]):
             assert out[(arch, shape, tag)] == want, (arch, shape, tag, r)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pod_axis_serves_the_single_device_tokens(runs, arch):
+    """(pod 2, data 1, model 2): slots and state rows over "dp" = pod x
+    data; every rank emits the single device's tokens through the
+    preemption and its resume."""
+    for r, out in enumerate(runs["ranks"]):
+        assert out[(arch, "pod")] == runs["single"][(arch, "vanilla")], r
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), "pod"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_rows_split_over_data_ranks(runs, arch, mesh):
+    """Four prompts of one length: one prefill of 4 rows on one device, 2
+    a rank over "dp"; the tokens are the single device's."""
+    toks, rows = runs["single"][(arch, "same_length")]
+    assert rows == [4] and all(len(t) == 5 for t in toks)
+    for r, out in enumerate(runs["ranks"]):
+        assert out[(arch, mesh, "same_length")] == (toks, [2]), r
 
 
 def _state_fields(arch):

@@ -14,9 +14,22 @@ on (guards, a bounded queue, a priority preemption).  Each rank holds
 1/tp of every sharded unit's plane bytes; the contract gate runs HLO-AG1
 and HLO-CB1 clean on the profiled step and refuses an injected weight
 all-gather.  The launcher runs its ``main`` on the same 4 ranks.  The
-same ranks as a (pod 2, data 1, model 2) mesh serve the llama and the fp
-smoke qwen3-moe with exactly the (2, 2) mesh's tokens and telemetry
-event streams.  One spawn for the file; JAX only in this process.
+same ranks as a (pod 2, data 1, model 2) mesh serve the llama (also
+speculatively) and the fp smoke qwen3-moe with exactly the (2, 2) mesh's
+tokens and telemetry event streams.
+
+A page pool whose rows split over "dp" (``kv_pages=31``: 32 rows, 16 a
+data rank) is served on both meshes, fp and int8 pages: waves, prompts
+sharing a prefix whose copy-on-write crosses ranks, preemption and
+resume, speculation and chunked prefill, each rank emitting the single
+device's tokens (and the reference's), with the single device's page
+tables, allocator counters and telemetry event stream; the gate is clean
+on it.  Every prefill whose batch "dp" divides runs half its rows on a
+rank (a hook on ``models.api.prefill_step`` counts them); batch-1
+prefills and resumes run every row.  The page exchange moves exactly the
+pages a rank's slots name and another rank holds, bit for bit, and the
+op trace records their bytes.  One spawn for the file, run beside the
+reference's engines; JAX only in this process.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -39,6 +52,17 @@ WAVE2 = [[7, 7, 7, 7, 7], [9, 8, 7]]
 ENGINE = dict(n_slots=4, max_len=64, min_bucket=8, plan_bn=32)
 VARIANTS = {"vanilla": {}, "int8": dict(act_dtype="int8"),
             "paged": dict(kv_layout="paged", page_size=8)}
+# a pool of 32 page rows: 16 a data rank on a data axis of 2
+SPLIT = dict(kv_layout="paged", page_size=8, kv_pages=31)
+SPLIT_VARIANTS = {"split": SPLIT, "split_int8": {**SPLIT, "kv_dtype": "int8"}}
+ROWS_A_RANK = 16
+# three whole pages of 8 and a partial one, shared by every prompt
+PREFIX = list(range(30, 57))
+SHARED = [PREFIX + [1, 2], PREFIX + [3], PREFIX + [5, 6, 7], PREFIX + [8]]
+ALLOCATOR = ("pages_in_use", "pages_free", "peak_pages_in_use",
+             "peak_pages_per_request", "prefix_hits", "prefix_shared_tokens",
+             "cow_copies", "page_evictions", "pages_allocated_total",
+             "pages_freed_total", "registry_entries")
 
 
 def _cfg():
@@ -131,14 +155,24 @@ def _telemetry_run(eng, clock):
             json.dumps(eng.telemetry.events, sort_keys=True))
 
 
-def _pod_axis_runs(q_tree, mesh):
-    """On ``mesh``: the AP+OR llama's waves (contiguous and paged), its
-    control plane and its telemetry stream, and the fp smoke qwen3-moe's
-    waves and telemetry stream (its MoE rows gathered over "dp")."""
+def _spec_engine(q_tree, fp_tree, mesh=None, **kw):
+    """The AP+OR llama speculating with the fp model as its draft (its
+    windows are rejected and rolled back)."""
+    return _engine(q_tree, mesh, spec=SpecConfig(gamma=2, draft_bits=2),
+                   draft_params=from_numpy_tree(fp_tree, _cfg(),
+                                                device="cpu"), **kw)
+
+
+def _pod_axis_runs(q_tree, fp_tree, mesh):
+    """On ``mesh``: the AP+OR llama's waves (contiguous, paged and
+    speculative), its control plane and its telemetry stream, and the fp
+    smoke qwen3-moe's waves and telemetry stream (its MoE rows gathered
+    over "dp")."""
     from repro_torch.serve import StepClock, Telemetry
     out = {}
     for tag, kw in (("vanilla", {}), ("paged", VARIANTS["paged"])):
         out[("llama", tag)] = _waves(_engine(q_tree, mesh, **kw))
+    out[("llama", "spec")] = _waves(_spec_engine(q_tree, fp_tree, mesh))
     out[("llama", "control")] = _control_plane(
         _engine(q_tree, mesh, guards=True, queue_depth=8))
     clock = StepClock(10.0)
@@ -158,6 +192,125 @@ def _pod_axis_runs(q_tree, mesh):
     return out
 
 
+def _shared(eng):
+    """A first wave (so that later pages lie in the second half of the
+    pool), then ``SHARED``: their prompts share three whole pages, and
+    each one's first decode copies the shared partial page.  Tokens, and
+    the copy-on-write pairs (old page, new page)."""
+    pairs = []
+    copy = eng._copy_pages
+
+    def record(p):
+        pairs.extend((int(o), int(n)) for o, n in p)
+        copy(p)
+    eng._copy_pages = record
+    toks = _serve(eng, WAVE1)
+    toks += _serve(eng, SHARED[:1], max_new=4) + _serve(eng, SHARED[1:])
+    return toks, pairs
+
+
+def _prefill_rows():
+    """Patch ``models.api.prefill_step`` to note the (rows, tokens) of
+    every prefill and chunk; returns the list and the undo."""
+    from repro_torch.models import api
+    seen, orig = [], api.prefill_step
+
+    def hook(params, cfg, batch, cache, **kw):
+        seen.append(tuple(batch["tokens"].shape))
+        return orig(params, cfg, batch, cache, **kw)
+    api.prefill_step = hook
+    return seen, lambda: setattr(api, "prefill_step", orig)
+
+
+def _split_runs(q_tree, fp_tree, mesh=None):
+    """Serving from a pool whose rows split over "dp" on ``mesh`` (one
+    device: the same pool whole): per page variant the waves' tokens,
+    page tables, allocator counters and pool rows; prompts sharing a
+    prefix; the control plane (preemption and resume); speculation;
+    chunked prefill; the telemetry stream; and the (rows, tokens) of
+    every prefill of each run."""
+    from repro_torch.serve import StepClock, Telemetry
+    out = {}
+    seen, undo = _prefill_rows()
+    try:
+        for tag, kw in SPLIT_VARIANTS.items():
+            eng = _engine(q_tree, mesh, **kw)
+            out[(tag, "waves")] = _waves(eng)
+            st = eng.stats()["paged"]
+            out[(tag, "tables")] = eng._tables.tolist()
+            out[(tag, "allocator")] = {k: st[k] for k in ALLOCATOR}
+            out[(tag, "pool_rows")] = sorted({
+                t.shape[0] for c in eng.cache for t in (c.kp, c.vp,
+                                                        c.k_scale, c.v_scale)
+                if t is not None})
+            out[(tag, "shared")] = _shared(_engine(q_tree, mesh, **kw))
+        out["control"] = _control_plane(
+            _engine(q_tree, mesh, guards=True, queue_depth=8, **SPLIT))
+        eng = _spec_engine(q_tree, fp_tree, mesh, **SPLIT)
+        out["spec"] = _waves(eng)
+        out["spec_pool_rows"] = eng.draft_cache[0].kp.shape[0]
+        out["chunked"] = _waves(_engine(q_tree, mesh, chunked_prefill=16,
+                                        **SPLIT))
+        clock = StepClock(10.0)
+        out["telemetry"] = _telemetry_run(_engine(
+            q_tree, mesh, telemetry=Telemetry(), clock=clock, **SPLIT), clock)
+    finally:
+        undo()
+    out["prefill_rows"] = list(seen)
+    if mesh is not None:
+        rep = _engine(q_tree, mesh, verify_contracts=True,
+                      **SPLIT).contract_report
+        out["gate"] = (rep.rules_run, [f.rule_id for f in rep.findings
+                                       if f.severity.name == "ERROR"])
+    return out
+
+
+def _exchange_check(mesh):
+    """The page exchange alone: a pool of 2 rows a "dp" rank and a seeded
+    (2 slots a rank) x 3 table; this rank's view against the whole pool's
+    (scratch zeroed), the pages sent and received against the pages this
+    rank's slots name elsewhere and others' slots name here, and the
+    bytes of the op trace's all-to-all."""
+    from repro_torch.analysis import op_trace
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import layers
+    D, me = shd.MeshAxes(mesh).dp_size, coll.dp_index(mesh)
+    rows, ps = 2, 4
+    whole = torch.arange(D * rows * ps * 6, dtype=torch.float32).reshape(
+        D * rows, ps, 6)
+    scale = torch.arange(D * rows * ps, dtype=torch.float32).reshape(
+        D * rows, ps) + 0.5
+    table = np.random.default_rng(1).integers(0, D * rows, (2 * D, 3))
+    scratch = D * rows - 1
+    blocks = shd.pool_blocks(D * rows, _cfg(), mesh)
+    route = shd.page_route(table, blocks, True, "cpu")
+    mine = slice(me * rows, (me + 1) * rows)
+    with dctx.use_mesh(mesh):
+        (pool_view, scale_view), trace = op_trace.capture(
+            lambda: layers.placed_pool_view(
+                [(whole[mine].clone(), None), (scale[mine].clone(), None)],
+                route, torch.float32))
+    t = torch.as_tensor(table[2 * me:2 * me + 2])
+    keep = (t != scratch)[..., None, None]
+    want = torch.where(keep, whole[t], 0).reshape(2, 3 * ps, 6)
+    want_sc = torch.where(keep[..., 0], scale[t], 0).reshape(2, 3 * ps)
+
+    def named(r):
+        return set(table[2 * r:2 * r + 2].ravel().tolist()) - {scratch}
+    sent = sum(p // rows == me for r in range(D) if r != me
+               for p in named(r))
+    got = sum(p // rows != me for p in named(me))
+    page = ps * 6 * 4 + ps * 4
+    return dict(view=torch.equal(pool_view, want),
+                scale=torch.equal(scale_view, want_sc),
+                sent=(sum(route.counts[me]), sent),
+                received=(sum(c[me] for c in route.counts), got),
+                collectives=op_trace.collective_instructions(trace),
+                moved_bytes=max(sent, got) * page, ranks=D)
+
+
 def _rank_main(rank, world, dev, q_tree, fp_tree):
     from repro_torch.analysis.artifacts import verify_engine
     from repro_torch.launch import serve
@@ -171,8 +324,7 @@ def _rank_main(rank, world, dev, q_tree, fp_tree):
             out["planes"] = _plane_bytes(eng.params)
             out["stats_mesh"] = eng.stats()["mesh"]
             out["cache_shape"] = tuple(eng.cache[0].k.shape)
-    eng = _engine(q_tree, mesh, spec=SpecConfig(gamma=2, draft_bits=2),
-                  draft_params=from_numpy_tree(fp_tree, _cfg(), device="cpu"))
+    eng = _spec_engine(q_tree, fp_tree, mesh)
     out["spec"] = _waves(eng)
     st = eng.stats()
     out["spec_stats"] = (st["verify_traces"], st["draft_decode_traces"],
@@ -202,22 +354,29 @@ def _rank_main(rank, world, dev, q_tree, fp_tree):
     # the pod axis: (pod 2, data 1, model 2) against this (2, 2) mesh
     pod = mesh_lib.make_debug_mesh((2, 1, 2), ("pod", "data", "model"),
                                    device_type="cpu")
-    out["pod_axis"] = {tag: _pod_axis_runs(q_tree, m)
+    out["pod_axis"] = {tag: _pod_axis_runs(q_tree, fp_tree, m)
                        for tag, m in (("data", mesh), ("pod", pod))}
     eng = _engine(q_tree, pod)
     out["pod_stats"] = (eng.stats()["mesh"], eng._rows,
                         tuple(eng.cache[0].k.shape))
-    try:
-        _engine(q_tree, pod, kv_layout="paged", page_size=8, kv_pages=31)
-    except NotImplementedError as e:
-        out["pod_pool_refusal"] = str(e)
+    # a pool whose rows split over "dp", on both meshes
+    out["split"] = {tag: _split_runs(q_tree, fp_tree, m)
+                    for tag, m in (("data", mesh), ("pod", pod))}
+    # the page exchange over data (2 ranks) and over pod x data (4)
+    pods = mesh_lib.make_debug_mesh((2, 2, 1), ("pod", "data", "model"),
+                                    device_type="cpu")
+    out["exchange"] = [_exchange_check(m) for m in (mesh, pods)]
     return out
 
 
 @pytest.fixture(scope="module")
 def served():
     """The reference's AP+OR quantization, single-device tokens of both
-    packages, and the 4 ranks' results."""
+    packages (the reference's contiguous and from a split-size int8
+    pool), and the 4 ranks' results (the ranks run while this process
+    runs the single-device engines)."""
+    import threading
+
     import jax
     from repro.models import api as japi
     from repro.serve import ServingEngine as JaxEngine
@@ -228,15 +387,25 @@ def served():
     params = japi.init_params(jax.random.PRNGKey(0), jcfg)
     qparams = quantize_reference(params, jcfg)
     q_tree, fp_tree = jax_tree_to_numpy(qparams), jax_tree_to_numpy(params)
-    ref = _waves(JaxEngine(qparams, jcfg, **ENGINE))
-    single = {tag: _waves(_engine(q_tree, **kw))
-              for tag, kw in VARIANTS.items()}
-    eng = _engine(q_tree)
-    single["planes"] = _plane_bytes(eng.params)
-    single["control"] = _control_plane(_engine(q_tree, guards=True,
-                                               queue_depth=8))
-    ranks = mesh_lib.run_local(me._rank_main, 4, q_tree, fp_tree)
-    return ref, single, ranks
+    box = {}
+    spawn = threading.Thread(target=lambda: box.update(ranks=mesh_lib.run_local(
+        me._rank_main, 4, q_tree, fp_tree)))
+    spawn.start()
+    try:
+        ref = _waves(JaxEngine(qparams, jcfg, **ENGINE))
+        single = {tag: _waves(_engine(q_tree, **kw))
+                  for tag, kw in VARIANTS.items()}
+        single["ref_split_int8"] = _waves(JaxEngine(
+            qparams, jcfg, **ENGINE, **SPLIT_VARIANTS["split_int8"]))
+        eng = _engine(q_tree)
+        single["planes"] = _plane_bytes(eng.params)
+        single["control"] = _control_plane(_engine(q_tree, guards=True,
+                                                   queue_depth=8))
+        single["split"] = _split_runs(q_tree, fp_tree)
+    finally:
+        spawn.join()
+    assert "ranks" in box, "a rank failed (its error is above)"
+    return ref, single, box["ranks"]
 
 
 @pytest.mark.parametrize("tag", list(VARIANTS) + ["spec"])
@@ -309,17 +478,18 @@ def test_pod_axis_serves_the_data_mesh_tokens_and_decisions(served, arch):
     """(pod 2, data 1, model 2): slots split over "dp" = pod x data, the
     sampled tokens gathered over both, the MoE's rows routed over both:
     every rank emits the (2, 2) mesh's tokens and telemetry event stream
-    exactly (llama also paged and through its control plane); both are
-    the single device's tokens."""
+    exactly (llama also paged, speculatively (gamma 2) and through its
+    control plane); both are the single device's tokens."""
     _, single, ranks = served
     for r, out in enumerate(ranks):
         data, pod = out["pod_axis"]["data"], out["pod_axis"]["pod"]
         keys = [k for k in data if k[0] == arch]
-        assert len(keys) == (4 if arch == "llama" else 2)
+        assert len(keys) == (5 if arch == "llama" else 2)
         for k in keys:
             assert pod[k] == data[k], (r, k)
         if arch == "llama":
             assert data[("llama", "vanilla")] == single["vanilla"]
+            assert data[("llama", "spec")] == single["vanilla"]
             assert data[("llama", "control")] == single["control"]
         tokens, stream = data[(arch, "telemetry")]
         assert tokens == data[(arch, "vanilla")]
@@ -329,8 +499,10 @@ def test_pod_axis_serves_the_data_mesh_tokens_and_decisions(served, arch):
 def test_pod_axis_check_and_paged_pool_refusal(served):
     """The mesh check admits a pod axis; a rank of (pod 2, data 1, model
     2) holds the slots of its pod (2 of 4) and its KV head block; a pool
-    whose page rows split over "dp" is refused as on a data axis."""
-    _, _, ranks = served
+    whose page rows split over "dp" is no longer refused: on the pod mesh
+    as on the data mesh each rank holds its 16 of the 32 rows and serves
+    the single device's tokens."""
+    _, single, ranks = served
     cfg = _cfg()
     assert ServingEngine._check_mesh(SimpleNamespace(shape={
         "pod": 2, "data": 1, "model": 2}), cfg) == 4
@@ -339,7 +511,107 @@ def test_pod_axis_check_and_paged_pool_refusal(served):
         assert stats_mesh == {"pod": 2, "data": 1, "model": 2}
         assert rows == slice(2 * (r // 2), 2 * (r // 2) + 2)
         assert shape == (2, 64, cfg.n_kv_heads // 2, cfg.head_dim)
-        assert "splits over data=2" in out["pod_pool_refusal"]
+        pod = out["split"]["pod"]
+        assert pod[("split", "pool_rows")] == [ROWS_A_RANK]
+        assert pod[("split", "waves")] == single["split"][("split", "waves")]
+
+
+# ---------------------------------------------------------------------------
+# A pool split over "dp"
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", ["data", "pod"])
+@pytest.mark.parametrize("tag", list(SPLIT_VARIANTS))
+def test_split_pool_serves_the_single_device_tokens_and_decisions(
+        served, tag, mesh):
+    """fp and int8 pages from a pool split over "dp": every rank holds 16
+    of the 32 rows (pools and int8 scales) and emits the single device's
+    tokens, which are the reference's (fp pages: its contiguous engine's;
+    int8 pages: its engine's from the same pool), with the single
+    device's page tables and allocator counters, byte for byte."""
+    ref, single, ranks = served
+    want = single["split"]
+    assert want[("split", "waves")] == single["vanilla"] == ref
+    assert want[("split_int8", "waves")] == single["ref_split_int8"]
+    assert want[(tag, "pool_rows")] == [32]
+    for r, out in enumerate(ranks):
+        got = out["split"][mesh]
+        assert got[(tag, "pool_rows")] == [ROWS_A_RANK], r
+        for what in ("waves", "tables", "allocator"):
+            assert got[(tag, what)] == want[(tag, what)], (r, tag, what)
+
+
+@pytest.mark.parametrize("mesh", ["data", "pod"])
+@pytest.mark.parametrize("tag", list(SPLIT_VARIANTS))
+def test_split_pool_copies_shared_pages_across_ranks(served, tag, mesh):
+    """Prompts sharing a prefix on a split pool: the single device's tokens
+    and copy-on-write pairs, at least one of which copies a page one data
+    rank holds into a page the other holds."""
+    _, single, ranks = served
+    toks, pairs = single["split"][(tag, "shared")]
+    assert any(o // ROWS_A_RANK != n // ROWS_A_RANK for o, n in pairs)
+    for r, out in enumerate(ranks):
+        assert out["split"][mesh][(tag, "shared")] == (toks, pairs), r
+
+
+@pytest.mark.parametrize("mesh", ["data", "pod"])
+@pytest.mark.parametrize("what", ["control", "spec", "chunked", "telemetry"])
+def test_split_pool_preempts_speculates_and_chunks(served, what, mesh):
+    """On a split pool: the control plane's preemptions and resumes,
+    speculation (its draft's pool splits too), chunked prefill and the
+    telemetry event stream under a ``StepClock`` are the single device's,
+    byte for byte."""
+    _, single, ranks = served
+    want = single["split"][what]
+    if what == "control":
+        assert want[2][0] > 0 and want[2][1] > 0
+    if what in ("spec", "chunked"):
+        assert want == single["vanilla"]
+    for r, out in enumerate(ranks):
+        assert out["split"][mesh][what] == want, (r, what)
+        assert out["split"][mesh]["spec_pool_rows"] == ROWS_A_RANK
+
+
+@pytest.mark.parametrize("mesh", ["data", "pod"])
+def test_prefill_rows_split_over_data_ranks(served, mesh):
+    """Every prefill and chunk of the split-pool runs, in order: where 2
+    divides its batch a rank runs half of it, else (a batch of 1, every
+    resume) every row; the tokens are unchanged (the tests above)."""
+    _, single, ranks = served
+    want = single["split"]["prefill_rows"]
+    assert {b for b, _ in want} >= {1, 4}
+    for r, out in enumerate(ranks):
+        got = out["split"][mesh]["prefill_rows"]
+        assert got == [(b // 2 if b % 2 == 0 else b, n) for b, n in want], r
+
+
+def test_split_pool_gate_is_clean(served):
+    """The contract gate on the split-pool engine: HLO-AG1 and HLO-CB1 run
+    and find nothing, nor does any other rule."""
+    _, _, ranks = served
+    for out in ranks:
+        for mesh in ("data", "pod"):
+            rules, errors = out["split"][mesh]["gate"]
+            assert {"HLO-AG1", "HLO-CB1", "HLO-HT1"} <= set(rules)
+            assert errors == [], (mesh, errors)
+
+
+@pytest.mark.parametrize("ranks_", [2, 4])
+def test_page_exchange_moves_only_named_pages(served, ranks_):
+    """The exchange over "dp" of 2 ranks (data) and 4 (pod x data): each
+    rank's view of its slots' pages is the whole pool's, bit for bit
+    (scratch read as zeros); it sends exactly the pages it holds that
+    another rank's slots name and receives exactly the pages its slots
+    name elsewhere, nothing held locally or unnamed; the op trace's one
+    all-to-all records the larger of the two in bytes."""
+    _, _, ranks = served
+    for out in ranks:
+        got = next(e for e in out["exchange"] if e["ranks"] == ranks_)
+        assert got["view"] and got["scale"]
+        assert got["sent"][0] == got["sent"][1]
+        assert got["received"][0] == got["received"][1]
+        assert got["collectives"] == ([("all-to-all", got["moved_bytes"])]
+                                      if got["moved_bytes"] else [])
 
 
 # ---------------------------------------------------------------------------

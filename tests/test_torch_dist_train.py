@@ -22,6 +22,11 @@ layers, f32), initialized by the reference and converted.  Tolerances:
     (lr 3e-4, 4 steps), against weights of 0.1-1; a misplaced block
     would be off by the leaf's own scale.
 
+The four ranks also train as a (pod 2, data 1, model 2) mesh: "dp" is
+pod x data, so the pod axis takes the data axis's part; its losses stay
+within 1e-6 of the single device's and its params within the bound
+above.
+
 The launcher round trips: a checkpoint written on a 1x2 mesh resumes on
 one device, and one written on one device resumes on a 2x1 mesh; both
 runs end at the straight single-device run's state.
@@ -54,6 +59,8 @@ STEPS = 3
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 LOSS_RTOL = 1e-5
 STATE_RTOL = 1e-3
+POD_LOSS_ATOL = 1e-6
+POD = ((2, 1, 2), ("pod", "data", "model"))
 STEP2, STEP4 = "step_0000000002", "step_0000000004"
 REF_LOSS_ATOL = 1e-5
 LAUNCH = ["--arch", "llama1_7b", "--smoke", "--batch", "4", "--seq-len",
@@ -77,16 +84,16 @@ def _tokens():
             for _ in range(STEPS)]
 
 
-def _train(tree, shape=None, microbatches=1):
+def _train(tree, shape=None, microbatches=1, axes=("data", "model")):
     """STEPS steps on the port from the numpy tree, on a debug mesh of
-    ``shape`` (the world's size) or one device: losses, grad norms and the
-    whole params after the last step."""
+    ``shape`` over ``axes`` (the world's size) or one device: losses,
+    grad norms and the whole params after the last step."""
     from repro_torch.launch.train import gathered_state
     cfg = _cfg()
     model = from_numpy_tree(tree, cfg, device="cpu")
     mesh = None
     if shape is not None:
-        mesh = mesh_lib.make_debug_mesh(shape, device_type="cpu")
+        mesh = mesh_lib.make_debug_mesh(shape, axes, device_type="cpu")
         shd.place_model(model, cfg, mesh)
     ocfg = OptimConfig(**OPT)
     opt = init_opt_state(param_tree(model, cfg), ocfg)
@@ -171,7 +178,8 @@ def _backward_off_thread(tree):
 
 
 def _rank4(rank, world, dev, tree):
-    return _train(tree, (2, 2))
+    return {(2, 2): _train(tree, (2, 2)),
+            POD[0]: _train(tree, POD[0], axes=POD[1])}
 
 
 def _final_params(d, step=STEP4):
@@ -238,20 +246,27 @@ def _close(got, want, tag):
             atol=STATE_RTOL * float(np.abs(b).max()))
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2)])
+def _ranks(runs, shape):
+    return [r[shape] for r in runs["four" if len(shape) == 3 or shape == (
+        2, 2) else "two"]]
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), POD[0]])
 def test_mesh_steps_equal_single_device(runs, shape):
-    ranks = runs["four"] if shape == (2, 2) else [r[shape]
-                                                 for r in runs["two"]]
+    ranks = _ranks(runs, shape)
     for r, got in enumerate(ranks):
         _close(got, runs["single"], f"{shape} rank {r}")
+        if shape == POD[0]:
+            np.testing.assert_allclose(got["losses"],
+                                       runs["single"]["losses"], rtol=0,
+                                       atol=POD_LOSS_ATOL)
     # the ranks agree with each other exactly: one all-reduce result each
     assert all(g["losses"] == ranks[0]["losses"] for g in ranks)
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2)])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), POD[0]])
 def test_mesh_step0_loss_equals_reference(runs, shape):
-    ranks = runs["four"] if shape == (2, 2) else [r[shape]
-                                                 for r in runs["two"]]
+    ranks = _ranks(runs, shape)
     assert abs(runs["single"]["losses"][0] - runs["ref_loss"]) < \
         REF_LOSS_ATOL
     for got in ranks:

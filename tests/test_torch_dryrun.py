@@ -202,6 +202,21 @@ def test_standin_mesh_takes_meta_tensors_only():
     assert op_analysis.collective_groups(trace) == [("all-gather", 2, 64)]
 
 
+def test_standin_mesh_records_the_page_exchange():
+    """The page exchange over "dp" on a stand-in mesh (rank 0 of data 2):
+    a meta tensor of the rows it receives, one all-to-all recorded with
+    its bytes; a real tensor raises."""
+    mesh = StandInMesh(MESH)
+    counts = ((0, 3), (5, 0))
+    with pytest.raises(TypeError, match="meta"):
+        coll.exchange(torch.zeros((3, 4, 8)), counts, mesh=mesh)
+    y, trace = op_trace.record(lambda: coll.exchange(
+        torch.zeros((3, 4, 8), device="meta"), counts, mesh=mesh))
+    assert tuple(y.shape) == (5, 4, 8) and y.is_meta
+    assert op_trace.collective_instructions(trace) == [("all-to-all",
+                                                        5 * 4 * 8 * 4)]
+
+
 # ------------------------------------------------- against a 4-rank run
 
 def _smoke():
